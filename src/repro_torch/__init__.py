@@ -1,0 +1,24 @@
+"""PyTorch/CUDA port of the Beluga KV-cache serving path (twin of ``repro``).
+
+The package mirrors ``repro``'s layout file for file, but imports nothing of
+it: it carries its own configs, KV block pool, prefix index, model and
+engine. Kernels on the serving path are hand-written CUDA C++ for Hopper
+(``kernels/csrc``), compiled with ``nvcc`` at first use; each has a plain
+PyTorch version beside it that runs for tensors that lie on the CPU.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device: str | torch.device | None) -> torch.device:
+    """``None`` means the card; without one, raise rather than run on the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev

@@ -1,0 +1,83 @@
+"""Model architecture configs: the port's own copy of ``repro.configs.base``.
+
+``ModelConfig`` (with its MoE and SSM sub-configs, which the registry's
+entries fill in) describes an architecture. The port keeps its own copy so
+that it imports nothing of ``repro``; it carries the fields of every
+registry entry and the methods the port uses.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int = 0
+    top_k: int = 0
+    # 1 = every layer is MoE; 2 = every other layer (alternating), etc.
+    layer_period: int = 1
+    # Arctic: dense residual MLP in parallel with the expert MLP.
+    dense_residual: bool = False
+    dense_residual_ff: int = 0
+    # Token-dropping capacity factor for the einsum dispatch path.
+    capacity_factor: float = 1.25
+    # Router softmax over experts; jitter etc. omitted (inference-focused).
+    router_dtype: str = "float32"
+
+    @property
+    def enabled(self) -> bool:
+        return self.n_experts > 0
+
+
+@dataclass(frozen=True)
+class SSMConfig:
+    """Mamba-2 (SSD) hyperparameters."""
+
+    d_state: int = 128
+    d_conv: int = 4
+    expand: int = 2
+    head_dim: int = 64
+    n_groups: int = 1
+    chunk_size: int = 256
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | hybrid | ssm | audio | vlm
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    d_head: int = 0  # 0 -> d_model // n_heads
+    moe: MoEConfig = field(default_factory=MoEConfig)
+    ssm: SSMConfig = field(default_factory=SSMConfig)
+    # hybrid (Jamba): one attention layer every `attn_period` layers; the rest
+    # are Mamba layers. 0 = pure attention stack; n_layers -> pure SSM.
+    attn_period: int = 0
+    # frontends for audio/vlm: stub providing precomputed embeddings.
+    frontend: str = "none"  # none | audio_stub | vision_stub
+    n_frontend_tokens: int = 0  # e.g. image patches prepended to the sequence
+    qkv_bias: bool = False  # qwen1.5
+    attn_out_bias: bool = False
+    mlp_bias: bool = False
+    nonparametric_ln: bool = False  # olmo
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    act: str = "silu"  # silu | gelu
+    dtype: str = "bfloat16"
+    source: str = ""  # where the numbers come from
+
+    # ------------------------------------------------------------------
+    @property
+    def head_dim(self) -> int:
+        return self.d_head if self.d_head else self.d_model // self.n_heads
+
+    @property
+    def padded_vocab(self) -> int:
+        """Vocab rounded up to a multiple of 8, as the JAX tree pads it at tp=1."""
+        return -(-self.vocab_size // 8) * 8

@@ -1,0 +1,46 @@
+"""Carry a JAX parameter tree into the port, bit for bit.
+
+``params_from_numpy`` takes the tree of a JAX ``Model.init`` with every leaf
+already turned into a numpy array (``jax.tree.map(np.asarray, params)``)
+and returns the port's tree of tensors. bfloat16 arrives as the
+``ml_dtypes`` type, which torch cannot read directly; its bits move as
+uint16 and are viewed as ``torch.bfloat16`` again, so no value is rounded.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.model import param_shapes, torch_dtype
+
+
+def tensor_from_numpy(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.array(arr)  # an owned, writable, contiguous copy
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(arr).to(device)
+
+
+def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
+    """Checks names, shapes and dtype against ``param_shapes(cfg)``."""
+    want_dtype = torch_dtype(cfg.dtype)
+
+    def walk(got: dict, spec: dict, path: str) -> dict:
+        if set(got) != set(spec):
+            raise ValueError(f"{path or 'params'}: keys {sorted(got)} != {sorted(spec)}")
+        out = {}
+        for k, s in spec.items():
+            if isinstance(s, dict):
+                out[k] = walk(got[k], s, f"{path}/{k}")
+                continue
+            t = tensor_from_numpy(np.asarray(got[k]), device)
+            if tuple(t.shape) != s[0] or t.dtype != want_dtype:
+                raise ValueError(
+                    f"{path}/{k}: {tuple(t.shape)} {t.dtype}, want {s[0]} {want_dtype}"
+                )
+            out[k] = t
+        return out
+
+    return walk(tree, param_shapes(cfg), "")

@@ -1,0 +1,119 @@
+"""KV gather-write / scatter-read on the card: wrappers of ``csrc/kv_transfer.cu``.
+
+Replaces the Pallas TPU kernels ``repro/kernels/kv_transfer.py``
+``kv_gather_write`` (pallas_call at :76) and ``kv_scatter_read`` (:132).
+One launch moves every (block, layer, k|v) fragment, each a contiguous run
+of ``bt * hkv * hd`` elements on both sides, with 16-byte vector copies.
+The bound is bytes: (bytes read + bytes written) / 3.35 TB/s on an H100.
+
+Contract, shared with the plain versions in ``ref.py`` (``ops.py`` checks
+slot ids for both): slot ids must be distinct and in range, else
+``ValueError``. The JAX versions instead let the last duplicate win (the
+oracle's scan) and clamp an out-of-range slot (``dynamic_slice``).
+``kv_scatter_read`` returns caches whose unmapped slots are zero: the
+output is allocated with ``torch.zeros``, as the JAX oracle path does
+(``repro/kernels/ops.py:69-74``); the Pallas kernel leaves them unwritten.
+
+Each wrapper counts its launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGS = [_P, _P, _P, _P, _I, _I, _I, _LL, _P]
+SIGNATURES = {
+    "kv_gather_write": (_ARGS, ctypes.c_int),
+    "kv_scatter_read": (_ARGS, ctypes.c_int),
+}
+
+
+def check_slots(slot_ids, n_slots: int) -> list[int]:
+    """Slot ids as a list; raises on a duplicate or out-of-range id."""
+    ids = torch.as_tensor(slot_ids).tolist()
+    bad = [s for s in ids if not 0 <= s < n_slots]
+    if bad:
+        raise ValueError(f"slot ids {bad} out of range [0, {n_slots})")
+    if len(set(ids)) != len(ids):
+        raise ValueError(f"duplicate slot ids in {ids}")
+    return ids
+
+
+def _frag_vec(block_tokens: int, hkv: int, hd: int, dtype: torch.dtype) -> int:
+    frag_bytes = block_tokens * hkv * hd * dtype.itemsize
+    if frag_bytes % 16:
+        raise ValueError(f"fragment of {frag_bytes} bytes is not a multiple of 16")
+    return frag_bytes // 16
+
+
+def _check_cuda(*ts: torch.Tensor) -> None:
+    for t in ts:
+        if t.device.type != "cuda" or not t.is_contiguous():
+            raise ValueError("the CUDA kernel takes contiguous tensors on the card")
+        if t.dtype != ts[0].dtype:
+            raise ValueError(f"dtype mismatch: {t.dtype} vs {ts[0].dtype}")
+
+
+def _launch(fn: str, args: list, device: torch.device) -> None:
+    lib = build.load("kv_transfer", SIGNATURES)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(lib, fn)(*args, stream)
+    if rc:
+        raise RuntimeError(f"{fn} launch failed: cudaError_t {rc}")
+
+
+def kv_gather_write(
+    k_cache: torch.Tensor,  # (L, T, hkv, hd)
+    v_cache: torch.Tensor,
+    slot_ids: list[int],  # checked by ``check_slots``
+    block_tokens: int,
+) -> torch.Tensor:
+    """-> pool payload (n_blocks, 2L, block_tokens, hkv, hd)."""
+    _check_cuda(k_cache, v_cache)
+    L, T, hkv, hd = k_cache.shape
+    if v_cache.shape != k_cache.shape or T % block_tokens:
+        raise ValueError(f"bad cache shapes {k_cache.shape}, {v_cache.shape}")
+    n = len(slot_ids)
+    out = torch.empty(
+        (n, 2 * L, block_tokens, hkv, hd), dtype=k_cache.dtype, device=k_cache.device
+    )
+    slots = torch.tensor(slot_ids, dtype=torch.int32, device=k_cache.device)
+    _launch("kv_gather_write", [
+        k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), slots.data_ptr(),
+        n, L, T // block_tokens, _frag_vec(block_tokens, hkv, hd, k_cache.dtype),
+    ], k_cache.device)
+    kv_gather_write.launches += 1
+    return out
+
+
+kv_gather_write.launches = 0
+
+
+def kv_scatter_read(
+    pool_blocks: torch.Tensor,  # (n_blocks, 2L, bt, hkv, hd)
+    slot_ids: list[int],  # checked by ``check_slots``
+    n_slots: int,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (k_cache, v_cache), each (L, n_slots * bt, hkv, hd), zero where unmapped."""
+    _check_cuda(pool_blocks)
+    n, two_l, bt, hkv, hd = pool_blocks.shape
+    L = two_l // 2
+    k = torch.zeros((L, n_slots * bt, hkv, hd), dtype=pool_blocks.dtype,
+                    device=pool_blocks.device)
+    v = torch.zeros_like(k)
+    slots = torch.tensor(slot_ids, dtype=torch.int32, device=pool_blocks.device)
+    _launch("kv_scatter_read", [
+        pool_blocks.data_ptr(), k.data_ptr(), v.data_ptr(), slots.data_ptr(),
+        n, L, n_slots, _frag_vec(bt, hkv, hd, pool_blocks.dtype),
+    ], pool_blocks.device)
+    kv_scatter_read.launches += 1
+    return k, v
+
+
+kv_scatter_read.launches = 0

@@ -1,0 +1,72 @@
+"""Dispatcher between the CUDA kernels and their plain PyTorch versions.
+
+``mode`` (twin of ``repro/kernels/ops.py``'s ``kernel_mode``):
+  * "auto"   — the kernel for a tensor on the card, the plain version for a
+               tensor on the CPU (the only reason the plain version runs);
+  * "kernel" — the kernel; raises for a tensor on the CPU;
+  * "ref"    — the plain version wherever the tensor lies (tests and
+               ``chip_smoke.py`` compare the two with it).
+
+There is no fallback: a kernel that fails to build or launch raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import kv_transfer as _kv
+from repro_torch.kernels import ref as _ref
+
+MODES = ("auto", "kernel", "ref")
+KERNELS = {
+    "kv_gather_write": _kv.kv_gather_write,
+    "kv_scatter_read": _kv.kv_scatter_read,
+    "flash_attention": _fa.flash_attention,
+}
+
+
+def use_kernel(t: torch.Tensor, mode: str) -> bool:
+    if mode not in MODES:
+        raise ValueError(f"mode {mode!r} not in {MODES}")
+    if mode == "kernel" and t.device.type != "cuda":
+        raise ValueError(f"mode='kernel' needs a tensor on the card, got {t.device}")
+    return mode == "kernel" or (mode == "auto" and t.device.type == "cuda")
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def reset_launch_counts() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def flash_attention(q, k, v, *, causal: bool = True, mode: str = "auto"):
+    if use_kernel(q, mode):
+        return _fa.flash_attention(q, k, v, causal=causal)
+    return _ref.flash_attention_ref(q, k, v, causal=causal)
+
+
+def kv_gather_write(k_cache, v_cache, slot_ids, block_tokens: int, *, mode: str = "auto"):
+    """(L, T, hkv, hd) caches -> pool payload (n_blocks, 2L, bt, hkv, hd)."""
+    ids = _kv.check_slots(slot_ids, k_cache.shape[1] // block_tokens)
+    if use_kernel(k_cache, mode):
+        return _kv.kv_gather_write(k_cache, v_cache, ids, block_tokens)
+    slots = torch.tensor(ids, dtype=torch.long, device=k_cache.device)
+    return _ref.kv_gather_write_ref(k_cache, v_cache, slots, block_tokens)
+
+
+def kv_scatter_read(pool_blocks, slot_ids, n_slots: int, *, mode: str = "auto"):
+    """Pool payload -> (k, v) caches (L, n_slots * bt, hkv, hd), zero where unmapped."""
+    ids = _kv.check_slots(slot_ids, n_slots)
+    if len(ids) != pool_blocks.shape[0]:
+        raise ValueError(f"{len(ids)} slot ids for {pool_blocks.shape[0]} blocks")
+    if use_kernel(pool_blocks, mode):
+        return _kv.kv_scatter_read(pool_blocks, ids, n_slots)
+    n, two_l, bt, hkv, hd = pool_blocks.shape
+    k0 = torch.zeros((two_l // 2, n_slots * bt, hkv, hd), dtype=pool_blocks.dtype,
+                     device=pool_blocks.device)
+    slots = torch.tensor(ids, dtype=torch.long, device=pool_blocks.device)
+    return _ref.kv_scatter_read_ref(pool_blocks, slots, k0, k0, bt)
