@@ -8,22 +8,36 @@ Phases, each a hard check (any failure exits non-zero):
 1. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
    for sm_90a, one nvcc per source, all at once.
 2. kernels: each kernel against its plain PyTorch version on the card, at
-   the shapes the main path gives it (Llama-3.1-8B: 32 layers, 8 kv heads,
-   head_dim 128; 1024-token prompts = 64 pool blocks; max_len 2048).
-   Gather and scatter must be bit-exact; flash attention within bf16 2e-2
-   (the tolerance of tests/test_kernels.py). Each is timed with CUDA events
-   against its plain version, its bound and, for flash attention, one
+   the shapes the paths give it (Llama-3.1-8B: 32 layers, 8 kv heads,
+   head_dim 128; 1024-token prompts = 64 pool blocks; max_len 2048; decode
+   at a context of 1040 tokens. Mamba-2 2.7B: chunks of 256, 80 heads of 64,
+   d_state 128, prompts of 1024 and 4096 tokens). Gather and scatter must be
+   bit-exact; flash attention within bf16 2e-2 (tests/test_kernels.py);
+   paged attention within two bf16 steps at its largest output, ssd_chunk
+   within 1e-4 of its output's scale (both sides get the same inputs, so the
+   limits sit a few times above the readings). Each is timed with CUDA events
+   against its plain version, its bound and, for the attention kernels, one
    ``scaled_dot_product_attention`` call (timed only; the port never calls it).
 3. small: a reduced Llama-3.1-8B in float32 served cold and warm on the card
-   (kernels) and on the CPU (plain versions) with the same weights; the
+   (kernels) and on the CPU (plain versions) with the same weights, and a
+   reduced Mamba-2 2.7B in float32 prefilled and decoded on both; the
    per-step logits must agree within 1e-4.
 4. main path: full-width Llama-3.1-8B (random weights from a seed, bf16)
    served through ``RealEngine`` (kernels for tensors on the card): two cold
    prompts, two that hit a 512-token shared prefix, two full repeats. Checks
    hit counts, that the cache restored from the pool equals the KV prefill
    wrote bit for bit, that warm logits agree with cold ones and with a
-   fresh prefill, and that every kernel was launched during the run; then
-   a profiled window of decode steps shows where a step's time goes.
+   fresh prefill, and that every kernel of the path was launched during the
+   run, paged attention 32 times per decode step; then a profiled window of
+   decode steps shows where a step's time goes.
+5. Mamba-2 path: full-width mamba2-2.7b (64 layers, bf16, random weights
+   from a seed under the JAX init rules): prefill of 1000 and 4095 tokens,
+   each followed by 16 greedy decode steps, through ``Model``. Checks finite
+   logits, 64 ssd_chunk launches per prefill, the final SSM state against
+   the plain path's, and continuity: prefill of 4095 tokens then one decode
+   step against a prefill of all 4096, beside the noise floor of the same
+   prefill with the plain ssd_chunk, in float32 and in bf16 (see
+   CONTINUITY_TOL); then a profiled prefill and decode.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
@@ -45,6 +59,17 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12  # dense tensor-core bf16
 FLASH_TOL = 2e-2  # bf16, tests/test_kernels.py:42
+# paged attention, bf16: kernel and plain version take the same inputs and
+# both accumulate in f32, so they differ only where the two f32 results round
+# to neighbouring bf16 values; the limit is two such steps at the largest
+# output (about 2e-3 at ctx 1040), far below what a dropped block moves
+PAGED_ULPS = 2
+# ssd_chunk, relative to the output's scale: the same f32 x and bf16 B/C on
+# both sides, f32 accumulation, so only the summation order differs (about
+# 1e-5); rounding x to bf16 or to TF32 inside the kernel would read above it
+SSD_TOL = 1e-4
+F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+QUEUE_SPIN_CYCLES = 50_000_000  # about 25 ms at the H100's boost clock
 SMALL_TOL = 1e-4  # float32 reduced model, card vs CPU
 # warm vs cold logits at full width, bf16 (logit std about 1.3): the two
 # paths round the bf16 residual stream at different points (a 1024-row
@@ -55,6 +80,22 @@ SMALL_TOL = 1e-4  # float32 reduced model, card vs CPU
 # kernel.
 LOGIT_TOL = 0.5
 PROMPT, SHARED, MAX_LEN, POOL_BLOCKS, MAX_NEW = 1024, 512, 2048, 512, 16
+DECODE_CTX = 1040  # a 1024-token prompt and 16 decode steps
+LLAMA_KERNELS = ("kv_gather_write", "kv_scatter_read", "flash_attention", "paged_attention")
+MAMBA_PROMPTS, MAMBA_STEPS = (1000, 4095), 16
+# the final SSM state of the kernel path against the plain path's, relative to
+# its largest entry: layer 0 sees the same inputs on both paths, so only the
+# kernel's f32 summation order differs; deeper layers also inherit bf16
+# roundings of the residual stream that flip where the two paths' f32 results
+# straddle a rounding boundary
+STATE_TOL_L0, STATE_TOL = 1e-4, 5e-2
+# continuity, relative to the largest logit (tests/test_models.py:127). In
+# float32 the noise floor (the same prefill with the plain ssd_chunk in place
+# of the kernel) is about 1e-5, and the limit about ten times that. In bf16
+# the 64 layers of random weights amplify any rounding flip, so the floor is
+# about 3e-2 already: there continuity is held to twice the floor measured in
+# the same run, which a gross bf16-only fault still crosses
+CONTINUITY_TOL, CONTINUITY_BF16_FLOORS = 1e-4, 2
 
 
 def check(cond: bool, what: str) -> None:
@@ -64,12 +105,17 @@ def check(cond: bool, what: str) -> None:
 
 
 def time_ms(fn, iters: int = 20) -> float:
+    """Device time of one call: CUDA events around ``iters`` calls, queued
+    behind a spin on the card long enough that the host's launch overhead
+    (tens of microseconds a call through a Python wrapper, more than a short
+    kernel takes) does not stand in for the device's time."""
     import torch
 
     for _ in range(3):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
     start.record()
     for _ in range(iters):
         fn()
@@ -78,7 +124,143 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def phase_kernels(cfg) -> list[dict]:
+def cycling(fn, n: int):
+    """fn(i) for i = 0, 1, ..., n - 1, 0, ...: each call reads another layer's
+    data, so that repeated calls find it cold in L2 as decode does."""
+    it = iter(range(1 << 30))
+    return lambda: fn(next(it) % n)
+
+
+def paged_row(cfg, randn) -> dict:
+    """paged_attention as Llama-3.1-8B decode runs it: each layer's dense
+    (1, 2048, 8, 128) cache seen as 128 blocks of 16 through the identity
+    table, context 1040; then once on one layer of the fused pool layout."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    L, hkv, hd, hq, bt = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim, cfg.n_heads, 16
+    n_blk = MAX_LEN // bt
+    kc, vc = randn(L, 1, MAX_LEN, hkv, hd), randn(L, 1, MAX_LEN, hkv, hd)
+    q = randn(L, 1, hq, hd)
+    table = pa.make_block_table([list(range(n_blk))], n_blk, dev)
+    ctx = torch.tensor([DECODE_CTX], dtype=torch.int32, device=dev)
+
+    def kernel(i):
+        return pa.paged_attention(q[i], pa.dense_blocks(kc[i], bt), pa.dense_blocks(vc[i], bt),
+                                  table, ctx)
+
+    def plain(i):
+        return ref.paged_attention_ref(q[i], pa.dense_blocks(kc[i], bt),
+                                       pa.dense_blocks(vc[i], bt), table, ctx)
+
+    err, tol = bf16_check(torch.stack([kernel(i) for i in range(L)]),
+                          torch.stack([plain(i) for i in range(L)]))
+    check(err <= tol, f"paged_attention over {L} layers' dense caches, ctx {DECODE_CTX}: "
+          f"max |err| {err:.3g} <= {tol:.3g} ({PAGED_ULPS} bf16 steps at the largest output; "
+          f"margin {tol / max(err, 1e-30):.3g}x)")
+    # layout (ii): one layer of the port's fused pool (n, 2L, bt, hkv, hd),
+    # blocks in a shuffled order, read in place
+    n_ctx = -(-DECODE_CTX // bt)
+    pool = randn(n_ctx, 2 * L, bt, hkv, hd)
+    order = torch.randperm(n_ctx, generator=torch.Generator().manual_seed(2)).tolist()
+    ptable = pa.make_block_table([order], n_ctx, dev)
+    layer = L // 2
+    kl, vl = pa.pool_layer(pool, layer)
+    perr, ptol = bf16_check(pa.paged_attention(q[0], kl, vl, ptable, ctx),
+                            ref.paged_attention_ref(q[0], kl, vl, ptable, ctx))
+    check(perr <= ptol, f"paged_attention on layer {layer} of a fused pool "
+          f"{tuple(pool.shape)}: max |err| {perr:.3g} <= {ptol:.3g} "
+          f"(margin {ptol / max(perr, 1e-30):.3g}x)")
+    del pool, kl, vl
+    moved = (2 * DECODE_CTX * hkv * hd + 2 * hq * hd) * q.element_size()  # K, V rows; q, out
+    flops = 4 * hq * DECODE_CTX * hd
+    qs = q.unsqueeze(3)  # (L, 1, hq, 1, hd)
+    ks, vs = kc[:, :, :DECODE_CTX].transpose(2, 3), vc[:, :, :DECODE_CTX].transpose(2, 3)
+    return dict(
+        name="paged_attention", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:128", max_abs_err=max(err, perr),
+        ms=time_ms(cycling(kernel, L)),
+        plain_ms=time_ms(cycling(plain, L)),
+        bound_ms=max(moved / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
+        bound_by="bytes" if moved / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S else "operations",
+        library_ms=time_ms(cycling(lambda i: F.scaled_dot_product_attention(
+            qs[i], ks[i], vs[i], enable_gqa=True), L)),
+    )
+
+
+def bf16_check(got, want) -> tuple[float, float]:
+    """max |got - want| and the limit: PAGED_ULPS bf16 rounding steps at
+    the largest |want| (a step at x is 2**(floor(log2 x) - 7))."""
+    import math
+
+    top = want.float().abs().max().item()
+    step = 2.0 ** (math.floor(math.log2(top)) - 7)
+    return (got.float() - want.float()).abs().max().item(), PAGED_ULPS * step
+
+
+def ssd_inputs(cfg, seq: int, g):
+    """ssd_chunk's inputs as one layer of a seq-token Mamba-2 prefill gives
+    them: x and a f32, B and C bf16 slices of one projection, one group."""
+    import torch
+
+    ssm = cfg.ssm
+    nh, hp, n, lc = ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state, ssm.chunk_size
+    nb = seq // lc
+    dev = torch.device("cuda")
+    x = torch.randn((nb, lc, nh, hp), generator=g, device=dev) * 0.05
+    dt = torch.rand((nb, lc, nh), generator=g, device=dev) * 0.1 + 1e-3
+    a = -dt * (torch.rand((nh,), generator=g, device=dev) * 15 + 1)  # dt * A
+    bc = (torch.randn((nb, lc, 2 * n), generator=g, device=dev) * 0.5).to(torch.bfloat16)
+    return x, a, bc[..., :n].reshape(nb, lc, 1, n), bc[..., n:].reshape(nb, lc, 1, n)
+
+
+def ssd_row(cfg, g) -> dict:
+    """ssd_chunk at the full-width Mamba-2 2.7B shapes, prompts of 1024 and
+    4096 tokens; the row reports the 1024-token call."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    rows = {}
+    for seq in (1024, 4096):
+        x, a, b, c = ssd_inputs(cfg, seq, g)
+        y, st = ssd.ssd_chunk(x, a, b, c)
+        yr, sr = ref.ssd_chunk_ref(x, a, b, c)
+        err = max((y - yr).abs().max().item(), (st - sr).abs().max().item())
+        rel = max((y - yr).abs().max().item() / yr.abs().max().item(),
+                  (st - sr).abs().max().item() / sr.abs().max().item())
+        check(rel <= SSD_TOL, f"ssd_chunk at x {tuple(x.shape)}: max |err| {err:.3g}, "
+              f"{rel:.3g} of the output's scale <= {SSD_TOL} "
+              f"(margin {SSD_TOL / max(rel, 1e-30):.3g}x)")
+        nb, lc, nh, hp = x.shape
+        n = b.shape[-1]
+        moved = 4 * (2 * x.numel() + a.numel() + st.numel()) + 2 * 2 * nb * lc * n
+        pairs = lc * (lc + 1) // 2
+        flops = nb * (2 * pairs * n + nh * (2 * pairs * hp + 2 * lc * n * hp))
+        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        rows[seq] = dict(
+            name="ssd_chunk", route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
+            replaces="src/repro/kernels/ssd_chunk.py:72", max_abs_err=err,
+            ms=time_ms(lambda: ssd.ssd_chunk(x, a, b, c)),
+            plain_ms=time_ms(lambda: ref.ssd_chunk_ref(x, a, b, c), iters=5),
+            bound_ms=max(t_bytes, t_ops) * 1e3,
+            bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=None,
+        )
+        r = rows[seq]
+        print(f"  ssd_chunk, {seq} tokens: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f} by {r['bound_by']}: {moved / 1e6:.1f} MB, "
+              f"{flops / 1e9:.2f} GFLOP f32)")
+        del x, a, b, c, y, st, yr, sr
+    return rows[1024]
+
+
+def phase_kernels(cfg, mamba_cfg) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
@@ -154,6 +336,9 @@ def phase_kernels(cfg) -> list[dict]:
         library_ms=time_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
     ))
+    del q, fk, fv, out, want, qt, kt, vt
+    rows.append(paged_row(cfg, randn))
+    rows.append(ssd_row(mamba_cfg, g))
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
@@ -164,7 +349,7 @@ def phase_small() -> None:
     import torch
 
     from repro_torch.configs.registry import reduced_config
-    from repro_torch.models.model import init_params
+    from repro_torch.models.model import Model, init_params
     from repro_torch.serving.real_runner import RealEngine
 
     cfg = dataclasses.replace(reduced_config("llama3.1-8b"), dtype="float32")
@@ -187,9 +372,26 @@ def phase_small() -> None:
               f"reduced fp32 {label}: card vs CPU logits max |diff| {diff:.3g} "
               f"<= {SMALL_TOL}, hits {ig['hit_tokens']}")
 
+    # reduced Mamba-2: prefill (three chunks, the last padded) and decode
+    mcfg = dataclasses.replace(reduced_config("mamba2-2.7b"), dtype="float32")
+    mparams = init_params(mcfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _to(mparams, "cuda")
+    model = Model(mcfg)
+    tokens = torch.randint(0, mcfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(4))
+    lg_cpu, cache_cpu = model.prefill_fn(mparams, tokens)
+    lg_gpu, cache_gpu = model.prefill_fn(on_card, tokens.cuda())
+    diffs = [(lg_gpu.cpu() - lg_cpu).abs().max().item()]
+    for step in range(8):
+        tok, pos = tokens[:, step], torch.full((2,), 70 + step)
+        lc = model.decode_fn(mparams, cache_cpu, tok, pos)
+        diffs.append((model.decode_fn(on_card, cache_gpu, tok.cuda(), pos.cuda()).cpu()
+                      - lc).abs().max().item())
+    check(max(diffs) <= SMALL_TOL, f"reduced fp32 mamba2: card vs CPU prefill and 8 decode "
+          f"steps, logits max |diff| {max(diffs):.3g} <= {SMALL_TOL}")
+
 
 def _to(tree: dict, device) -> dict:
-    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+    return _map(tree, lambda t: t.to(device))
 
 
 def compare_steps(a, b) -> tuple[int, float]:
@@ -241,7 +443,17 @@ def phase_main(cfg) -> dict:
         check(info["hit_tokens"] == want, f"req {i} hit_tokens {info['hit_tokens']} == {want}")
         check(len(toks) == MAX_NEW and lg.shape == (MAX_NEW, cfg.padded_vocab)
               and bool(torch.isfinite(lg).all()), f"req {i}: {MAX_NEW} finite logit rows")
-    check(all(n > 0 for n in launches.values()), f"every kernel launched on the path: {launches}")
+    check(all(launches[k] > 0 for k in LLAMA_KERNELS) and launches["ssd_chunk"] == 0,
+          f"every kernel of the path launched: {launches}")
+    # decode steps: a hit's tail (or its re-fed last token), then MAX_NEW - 1
+    steps = sum(
+        (len(p) - min(info["hit_tokens"], len(p) - 1) if info["hit_tokens"] else 0)
+        + len(toks) - 1
+        for p, (toks, info) in zip(prompts, results)
+    )
+    check(launches["paged_attention"] == cfg.n_layers * steps,
+          f"paged_attention launched {launches['paged_attention']} times = "
+          f"{cfg.n_layers} layers x {steps} decode steps")
 
     # the cache restored from the pool is the KV prefill wrote, bit for bit
     cold_k, cold_v = results[0][1]["kv"]
@@ -311,6 +523,167 @@ def phase_profile(eng, cold) -> None:
               f"x{e.count // steps}  {e.key[:90]}")
 
 
+def _rel(a, b) -> float:
+    """max |a - b| relative to the largest |b|."""
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+
+
+def phase_mamba(cfg) -> dict:
+    """Full-width mamba2-2.7b through ``Model``: prefill then greedy decode,
+    the port's twin of examples/quickstart.py:46-60."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, init_params
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  {cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters up in "
+          f"{time.perf_counter() - t0:.1f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+    rng = np.random.default_rng(5)
+    full = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, MAMBA_PROMPTS[1] + 1))).to(dev)
+    prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, MAMBA_PROMPTS[0])))
+               .to(dev), full[:, :-1]]
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    runs = []
+    for tokens in prompts:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill_fn(params, tokens)
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        state = cache["state"].clone()
+        steps, out = [logits[:, 0]], [int(logits[0, 0].argmax())]
+        t0 = time.perf_counter()
+        for i in range(MAMBA_STEPS):
+            pos = torch.tensor([tokens.shape[1] + i], device=dev)
+            lg = model.decode_fn(params, cache, torch.tensor([out[-1]], device=dev), pos)
+            steps.append(lg)
+            out.append(int(lg[0].argmax()))
+        torch.cuda.synchronize()
+        runs.append(dict(prefill_s=prefill_s, decode_s=time.perf_counter() - t0,
+                         logits=torch.cat(steps), tokens=out, state=state))
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+
+    for tokens, r in zip(prompts, runs):
+        print(f"  prompt {tokens.shape[1]}: prefill {r['prefill_s'] * 1e3:.1f} ms, "
+              f"{MAMBA_STEPS} decode steps {r['decode_s'] * 1e3:.1f} ms, tokens {r['tokens'][:6]}...")
+        check(r["logits"].shape == (MAMBA_STEPS + 1, cfg.padded_vocab)
+              and bool(torch.isfinite(r["logits"]).all()),
+              f"prompt {tokens.shape[1]}: {MAMBA_STEPS + 1} finite logit rows")
+    check(launches["ssd_chunk"] == cfg.n_layers * len(prompts)
+          and all(launches[k] == 0 for k in LLAMA_KERNELS),
+          f"ssd_chunk launched {cfg.n_layers} times per prefill: {launches}")
+
+    # the final SSM state of the kernel path against the plain path's
+    plain = Model(cfg, kernel_mode="ref")
+    _, pcache = plain.prefill_fn(params, prompts[0])
+    got, want = runs[0]["state"], pcache["state"]
+    rel0, rel = _rel(got[0], want[0]), _rel(got, want)
+    check(rel0 <= STATE_TOL_L0 and rel <= STATE_TOL,
+          f"final SSM state, kernel vs plain path ({MAMBA_PROMPTS[0]} tokens): layer 0 "
+          f"{rel0:.3g} <= {STATE_TOL_L0}, all {cfg.n_layers} layers {rel:.3g} <= {STATE_TOL} "
+          "of the largest entry")
+    del pcache, got, want
+
+    # continuity, in the model's bf16 (against the floor measured here) and
+    # on the same weights in float32 (against CONTINUITY_TOL)
+    what = f"prefill {MAMBA_PROMPTS[1]} + decode 1 vs prefill {full.shape[1]}"
+    cont_bf16, floor_bf16 = continuity(cfg, params, full)
+    lim_bf16 = CONTINUITY_BF16_FLOORS * floor_bf16
+    check(cont_bf16 <= lim_bf16, f"bf16 continuity: {what}: {cont_bf16:.3g} of the largest "
+          f"logit <= {lim_bf16:.3g} = {CONTINUITY_BF16_FLOORS} x the noise floor (the same "
+          f"prefill with plain vs kernel ssd_chunk) {floor_bf16:.3g}")
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = _map(params, lambda t: t.float())
+    cont, floor = continuity(cfg32, params32, full)
+    del params32
+    check(cont <= CONTINUITY_TOL, f"float32 continuity: {what}: {cont:.3g} of the largest "
+          f"logit <= {CONTINUITY_TOL} (noise floor {floor:.3g}; margin "
+          f"{CONTINUITY_TOL / max(cont, 1e-30):.3g}x)")
+
+    decode_s = sum(r["decode_s"] for r in runs)
+    summary = {
+        "prefill_ms": {str(t.shape[1]): r["prefill_s"] * 1e3 for t, r in zip(prompts, runs)},
+        "decode_tok_per_s": MAMBA_STEPS * len(runs) / decode_s,
+        "peak_mem_gib": peak / 2**30,
+        "launches": launches,
+        "continuity_rel": {"bfloat16": cont_bf16, "float32": cont},
+        "noise_floor_rel": {"bfloat16": floor_bf16, "float32": floor},
+    }
+    print("  mamba path: " + json.dumps(summary))
+    profile_mamba(model, params, prompts[0], runs[0]["tokens"])
+    return launches
+
+
+def continuity(cfg, params, full) -> tuple[float, float]:
+    """Prefill all but the last token, decode the last at its position, and
+    compare with the last logits of a prefill of all of them; the noise
+    floor is that prefill with the plain ssd_chunk against the kernel."""
+    import torch
+
+    from repro_torch.models.model import Model
+
+    model, plain = Model(cfg), Model(cfg, kernel_mode="ref")
+    s = full.shape[1] - 1
+    _, cache = model.prefill_fn(params, full[:, :-1])
+    stepped = model.decode_fn(params, cache, full[:, -1], torch.tensor([s], device=full.device))
+    del cache
+    whole, _ = model.prefill_fn(params, full)
+    whole_plain, _ = plain.prefill_fn(params, full)
+    return _rel(stepped, whole[:, 0]), _rel(whole_plain[:, 0], whole[:, 0])
+
+
+def _map(tree: dict, fn) -> dict:
+    return {k: _map(v, fn) if isinstance(v, dict) else fn(v) for k, v in tree.items()}
+
+
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else [v])
+
+
+def profile_mamba(model, params, prompt, toks) -> None:
+    """Where a 1000-token prefill's and a decode step's time go."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def report(label, events, n, wall_ms):
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+        ops_n = sum(e.count for e in events if e.key.startswith("aten::")) / n
+        print(f"  {label} (profiled): {wall_ms:.2f} ms wall, device kernels {busy_ms:.2f} ms "
+              f"({busy_ms / wall_ms:.1%} busy), {ops_n:.0f} aten ops")
+        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+            print(f"    {e.self_device_time_total / 1e3 / n:.3f} ms  x{e.count // n}  "
+                  f"{e.key[:90]}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, cache = model.prefill_fn(params, prompt)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report(f"prefill {prompt.shape[1]}", prof.key_averages(), 1, wall_ms)
+    steps, dev = 8, prompt.device
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            model.decode_fn(params, cache, torch.tensor([toks[i]], device=dev),
+                            torch.tensor([prompt.shape[1] + i], device=dev))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    report("decode step", prof.key_averages(), steps, wall_ms)
+
+
 def main() -> None:
     import torch
 
@@ -319,6 +692,9 @@ def main() -> None:
     from repro_torch.configs.registry import get_config
     from repro_torch.kernels import build
 
+    # float32 matmuls in full float32 (the default, stated): the float32
+    # checks compare against the CPU and against float32 references
+    torch.backends.cuda.matmul.allow_tf32 = False
     t_all = time.perf_counter()
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
@@ -331,15 +707,17 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    cfg = get_config("llama3.1-8b")
+    cfg, mamba_cfg = get_config("llama3.1-8b"), get_config("mamba2-2.7b")
     print("[2] kernels vs plain versions", flush=True)
-    rows = phase_kernels(cfg)
-    print("[3] reduced model, card vs CPU", flush=True)
+    rows = phase_kernels(cfg, mamba_cfg)
+    print("[3] reduced models, card vs CPU", flush=True)
     phase_small()
     print("[4] main path: Llama-3.1-8B full width", flush=True)
     launches = phase_main(cfg)
+    print("[5] Mamba-2 path: mamba2-2.7b full width", flush=True)
+    mamba_launches = phase_mamba(mamba_cfg)
     for r in rows:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = (mamba_launches if r["name"] == "ssd_chunk" else launches)[r["name"]]
     print(f"done in {time.perf_counter() - t_all:.1f} s", flush=True)
 
     smi = subprocess.run(

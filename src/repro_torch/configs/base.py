@@ -41,6 +41,12 @@ class SSMConfig:
     n_groups: int = 1
     chunk_size: int = 256
 
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
 
 @dataclass(frozen=True)
 class ModelConfig:
@@ -76,6 +82,25 @@ class ModelConfig:
     @property
     def head_dim(self) -> int:
         return self.d_head if self.d_head else self.d_model // self.n_heads
+
+    def attn_layer_ids(self) -> list[int]:
+        """Indices of attention layers in the stack."""
+        if self.family == "ssm":
+            return []
+        if self.attn_period and self.attn_period > 1:
+            # Jamba: attention at position (attn_period - 1) of each period.
+            return [
+                i
+                for i in range(self.n_layers)
+                if i % self.attn_period == self.attn_period - 1
+            ]
+        return list(range(self.n_layers))
+
+    def moe_layer_ids(self) -> list[int]:
+        if not self.moe.enabled:
+            return []
+        p = self.moe.layer_period
+        return [i for i in range(self.n_layers) if (i % p) == (p - 1)]
 
     @property
     def padded_vocab(self) -> int:

@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import param_shapes, torch_dtype
+from repro_torch.models.model import param_shapes
 
 
 def tensor_from_numpy(arr: np.ndarray, device) -> torch.Tensor:
@@ -24,8 +24,7 @@ def tensor_from_numpy(arr: np.ndarray, device) -> torch.Tensor:
 
 
 def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
-    """Checks names, shapes and dtype against ``param_shapes(cfg)``."""
-    want_dtype = torch_dtype(cfg.dtype)
+    """Checks names, shapes and each leaf's own dtype against ``param_shapes(cfg)``."""
 
     def walk(got: dict, spec: dict, path: str) -> dict:
         if set(got) != set(spec):
@@ -36,10 +35,9 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
                 out[k] = walk(got[k], s, f"{path}/{k}")
                 continue
             t = tensor_from_numpy(np.asarray(got[k]), device)
-            if tuple(t.shape) != s[0] or t.dtype != want_dtype:
-                raise ValueError(
-                    f"{path}/{k}: {tuple(t.shape)} {t.dtype}, want {s[0]} {want_dtype}"
-                )
+            shape, _, dtype = s
+            if tuple(t.shape) != shape or t.dtype != dtype:
+                raise ValueError(f"{path}/{k}: {tuple(t.shape)} {t.dtype}, want {shape} {dtype}")
             out[k] = t
         return out
 

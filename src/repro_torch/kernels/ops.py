@@ -16,13 +16,17 @@ import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kv_transfer as _kv
+from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels import ssd_chunk as _ssd
 
 MODES = ("auto", "kernel", "ref")
 KERNELS = {
     "kv_gather_write": _kv.kv_gather_write,
     "kv_scatter_read": _kv.kv_scatter_read,
     "flash_attention": _fa.flash_attention,
+    "paged_attention": _pa.paged_attention,
+    "ssd_chunk": _ssd.ssd_chunk,
 }
 
 
@@ -70,3 +74,26 @@ def kv_scatter_read(pool_blocks, slot_ids, n_slots: int, *, mode: str = "auto"):
                      device=pool_blocks.device)
     slots = torch.tensor(ids, dtype=torch.long, device=pool_blocks.device)
     return _ref.kv_scatter_read_ref(pool_blocks, slots, k0, k0, bt)
+
+
+def paged_attention(q, k_blocks, v_blocks, block_table, context_lens, *, mode: str = "auto"):
+    """q (b, hq, d) over (n_blocks, bt, hkv, d) K/V blocks -> (b, hq, d).
+
+    The table is one built by ``paged_attention.make_block_table`` on q's
+    device, which checked its entries once; it is not checked again here.
+    """
+    if not (isinstance(block_table, torch.Tensor) and block_table.device == q.device
+            and block_table.dtype == torch.int32):
+        raise ValueError("block_table must be an int32 tensor on q's device, built by "
+                         "paged_attention.make_block_table")
+    context_lens = context_lens.to(device=q.device, dtype=torch.int32)
+    if use_kernel(q, mode):
+        return _pa.paged_attention(q, k_blocks, v_blocks, block_table, context_lens)
+    return _ref.paged_attention_ref(q, k_blocks, v_blocks, block_table, context_lens)
+
+
+def ssd_chunk(x, a_log, b_mat, c_mat, *, mode: str = "auto"):
+    """Intra-chunk SSD + chunk states over (nb, Lc) tiles; B/C group-shaped."""
+    if use_kernel(x, mode):
+        return _ssd.ssd_chunk(x, a_log, b_mat, c_mat)
+    return _ref.ssd_chunk_ref(x, a_log, b_mat, c_mat)

@@ -71,3 +71,63 @@ def kv_scatter_read_ref(
     k_out[:, slot_ids] = kv[:, :, 0].transpose(0, 1).to(k_out.dtype)
     v_out[:, slot_ids] = kv[:, :, 1].transpose(0, 1).to(v_out.dtype)
     return k_out.reshape(k_cache.shape), v_out.reshape(v_cache.shape)
+
+
+def paged_attention_ref(
+    q: torch.Tensor,  # (b, hq, d)
+    k_blocks: torch.Tensor,  # (n_blocks, bt, hkv, d)
+    v_blocks: torch.Tensor,
+    block_table: torch.Tensor,  # (b, max_blocks) int, -1 padded
+    context_lens: torch.Tensor,  # (b,) int
+) -> torch.Tensor:
+    """Decode attention through a block table (``ref.py:53-78``).
+
+    The JAX pool ``kv_pool`` (n, 2, bt, hkv, d) is ``k_blocks = kv_pool[:, 0]``,
+    ``v_blocks = kv_pool[:, 1]``. Departs from the JAX oracle in one place: a
+    row with ``context_lens == 0`` gives zeros, as the Pallas kernel does
+    (``paged_attention.py:79-82``); the oracle averages the clamped table's
+    rows instead.
+    """
+    b, hq, d = q.shape
+    _, bt, hkv, _ = k_blocks.shape
+    max_blocks = block_table.shape[1]
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    tbl = block_table.clamp(min=0).long()
+    k = k_blocks[tbl].reshape(b, max_blocks * bt, hkv, d)
+    v = v_blocks[tbl].reshape(b, max_blocks * bt, hkv, d)
+    pos = torch.arange(max_blocks * bt, device=q.device)
+    valid = pos[None, :] < context_lens.reshape(-1, 1).to(q.device)
+    qg = (q * scale).reshape(b, hkv, g, d)  # rounded to q's dtype, as in JAX
+    s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k.float())
+    s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
+    o = o.masked_fill((context_lens.to(q.device) <= 0).reshape(b, 1, 1, 1), 0.0)
+    return o.reshape(b, hq, d).to(q.dtype)
+
+
+def ssd_chunk_ref(
+    x: torch.Tensor,  # (nb, Lc, nh, hp) dt-scaled inputs
+    a_log: torch.Tensor,  # (nb, Lc, nh) per-step log decay
+    b_mat: torch.Tensor,  # (nb, Lc, g, n), g dividing nh (g == nh: per head)
+    c_mat: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 intra-chunk SSD over nb tiles (``ref.py:147-169``, batched as
+    ``ops.py:95`` vmaps it). Head h reads group ``h // (nh // g)`` of B and C.
+    Returns (y_intra (nb, Lc, nh, hp) f32, chunk states (nb, nh, n, hp) f32)."""
+    nb, lc, nh, _ = x.shape
+    rep = nh // b_mat.shape[2]
+    bh = b_mat.float().repeat_interleave(rep, dim=2)  # (nb, Lc, nh, n)
+    ch = c_mat.float().repeat_interleave(rep, dim=2)
+    xf = x.float()
+    cum = torch.cumsum(a_log.float(), dim=1)  # (nb, Lc, nh)
+    seg = cum[:, :, None, :] - cum[:, None, :, :]  # (nb, Lc, Lc, nh)
+    li = torch.arange(lc, device=x.device)
+    causal = (li[:, None] >= li[None, :])[None, :, :, None]
+    decay = torch.where(causal, torch.exp(seg), torch.zeros((), device=x.device))
+    scores = torch.einsum("zlhn,zmhn->zlmh", ch, bh)
+    y = torch.einsum("zlmh,zmhp->zlhp", scores * decay, xf)
+    decay_to_end = torch.exp(cum[:, -1:, :] - cum)  # (nb, Lc, nh)
+    state = torch.einsum("zlhn,zlh,zlhp->zhnp", bh, decay_to_end, xf)
+    return y, state

@@ -1,21 +1,68 @@
-"""Decoder stack for period-1 attention stacks (dense llama/olmo/qwen-style).
+"""Decoder stack over layer periods, for period-1 stacks on one device.
 
-Twin of ``repro/models/transformer.py`` restricted to what the serving
-path runs: ``forward_full`` (prefill through the flash-attention kernel,
-optionally collecting the KV cache)
-and ``decode_step_stack`` (one token through every layer). Parameters keep
-the JAX tree, ``params["stack"]["pos_0"][...]`` with a leading layer
-dimension; where JAX scans over that dimension the port loops.
+Twin of ``repro/models/transformer.py`` restricted to what the port runs:
+``period_length`` and ``layer_kinds`` whole, ``forward_full`` (prefill,
+optionally collecting the decode cache) and ``decode_step_stack`` (one
+token through every layer), each dispatching on the mixer: "attn" (flash
+attention in prefill, paged attention in decode) or "ssm" (Mamba-2, no
+FFN). Parameters keep the JAX tree, ``params["stack"]["pos_<i>"][...]`` with
+a leading period dimension; where JAX scans over that dimension the port
+loops. The attention cache is a pair of (L, b, max_len, hkv, hd) tensors,
+the SSM cache a dict of ``state`` (L, b, nh, n, hp) and ``conv``
+(L, b, d_conv - 1, conv_dim); both are updated in place.
 """
 
 from __future__ import annotations
+
+import math
+from dataclasses import dataclass
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.paged_attention import dense_blocks, make_block_table
 from repro_torch.models import attention as attn_lib
+from repro_torch.models import mamba as mamba_lib
 from repro_torch.models.layers import mlp_apply, norm_apply, rope_tables
+
+# tokens per block when decode attention reads the dense cache as blocks
+DECODE_BLOCK_TOKENS = 16
+
+
+@dataclass(frozen=True)
+class LayerKind:
+    mixer: str  # "attn" | "ssm"
+    ffn: str  # "mlp" | "moe" | "none"
+
+
+def period_length(cfg: ModelConfig) -> int:
+    if cfg.family == "hybrid":
+        p = cfg.attn_period
+        if cfg.moe.enabled:
+            p = p * cfg.moe.layer_period // math.gcd(p, cfg.moe.layer_period)
+        return p
+    return 1
+
+
+def layer_kinds(cfg: ModelConfig) -> list[LayerKind]:
+    """Kind of each position within one period."""
+    p = period_length(cfg)
+    attn_ids = set(cfg.attn_layer_ids())
+    moe_ids = set(cfg.moe_layer_ids())
+    kinds = []
+    for pos in range(p):
+        mixer = "attn" if pos in attn_ids or (p == 1 and cfg.family != "ssm") else "ssm"
+        if p == 1:
+            mixer = "ssm" if cfg.family == "ssm" else "attn"
+        if cfg.family == "ssm":
+            ffn = "none"
+        elif cfg.moe.enabled and (p == 1 or pos in moe_ids):
+            ffn = "moe" if (p > 1 and pos in moe_ids) or (p == 1) else "mlp"
+        else:
+            ffn = "mlp"
+        kinds.append(LayerKind(mixer=mixer, ffn=ffn))
+    return kinds
 
 
 def layer_params(stacked: dict, i: int) -> dict:
@@ -26,7 +73,9 @@ def layer_params(stacked: dict, i: int) -> dict:
     }
 
 
-def _ffn(lp: dict, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def _ffn(lp: dict, kind: LayerKind, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    if kind.ffn == "none":
+        return h
     return h + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], h, cfg), cfg)
 
 
@@ -36,45 +85,89 @@ def forward_full(
     positions: torch.Tensor,  # (b, s)
     cfg: ModelConfig,
     kernel_mode: str,
-    cache: tuple[torch.Tensor, torch.Tensor] | None = None,
+    cache=None,
 ) -> torch.Tensor:
     """Run the full stack; returns the hidden states. ``cache``, if given,
-    is a pair of (L, b, max_len, hkv, hd) tensors that receive each layer's
-    k and v in positions [0, s) (JAX's ``collect_cache``)."""
+    receives each layer's decode state (JAX's ``collect_cache``): k and v in
+    positions [0, s) of the attention pair, or the final SSM state and the
+    conv window of the SSM dict."""
+    kind = layer_kinds(cfg)[0]  # period 1: ``Model`` refuses the rest
     s = x.shape[1]
     stack = params["stack"]["pos_0"]
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
+    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta) if kind.mixer == "attn" else None
     h = x
     for i in range(cfg.n_layers):
         lp = layer_params(stack, i)
         hn = norm_apply(lp["ln1"], h, cfg)
-        q, k, v = attn_lib.qkv_proj(lp["attn"], hn, cfg, rope)
-        o = ops.flash_attention(q, k, v, causal=True, mode=kernel_mode)
-        h = _ffn(lp, h + attn_lib.out_proj(lp["attn"], o), cfg)
-        if cache is not None:
-            cache[0][i, :, :s] = k
-            cache[1][i, :, :s] = v
+        if kind.mixer == "attn":
+            q, k, v = attn_lib.qkv_proj(lp["attn"], hn, cfg, rope)
+            o = ops.flash_attention(q, k, v, causal=True, mode=kernel_mode)
+            h = h + attn_lib.out_proj(lp["attn"], o)
+            if cache is not None:
+                cache[0][i, :, :s] = k
+                cache[1][i, :, :s] = v
+        elif cache is not None:
+            out, state, conv = mamba_lib.mamba_apply(lp["ssm"], hn, cfg, kernel_mode,
+                                                     return_state=True)
+            h = h + out
+            cache["state"][i] = state
+            cache["conv"][i] = conv
+        else:
+            h = h + mamba_lib.mamba_apply(lp["ssm"], hn, cfg, kernel_mode)
+        h = _ffn(lp, kind, h, cfg)
     return h
 
 
 def decode_step_stack(
     params: dict,
-    cache: tuple[torch.Tensor, torch.Tensor],  # (L, b, s_max, hkv, hd), updated in place
+    cache,  # as ``forward_full`` fills it; updated in place
     x: torch.Tensor,  # (b, 1, d)
     pos: torch.Tensor,  # (b,) write positions
     cfg: ModelConfig,
+    kernel_mode: str = "auto",
+    block_table: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """One decode token through the stack; returns the hidden state."""
-    k_cache, v_cache = cache
+    """One decode token through the stack; returns the hidden state.
+
+    Attention reads each layer's dense cache (b, max_len, hkv, hd) as
+    ``max_len / DECODE_BLOCK_TOKENS`` blocks through ``block_table``, the
+    identity table ``identity_block_table`` gives, with context ``pos + 1``.
+    """
+    kind = layer_kinds(cfg)[0]  # period 1: ``Model`` refuses the rest
     stack = params["stack"]["pos_0"]
-    cache_len = pos + 1
-    rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
     h = x
+    if kind.mixer == "attn":
+        if block_table is None:
+            raise ValueError("attention decode needs the cache's block table")
+        cache_len = (pos + 1).to(torch.int32)  # once, not per layer
+        rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
+        k_cache, v_cache = cache
     for i in range(cfg.n_layers):
         lp = layer_params(stack, i)
         hn = norm_apply(lp["ln1"], h, cfg)
-        q, k_new, v_new = attn_lib.qkv_proj(lp["attn"], hn, cfg, rope)
-        attn_lib.update_kv_cache(k_cache[i], v_cache[i], k_new, v_new, pos)
-        o = attn_lib.decode_attention_replicated(q, k_cache[i], v_cache[i], cache_len)
-        h = _ffn(lp, h + attn_lib.out_proj(lp["attn"], o), cfg)
+        if kind.mixer == "attn":
+            q, k_new, v_new = attn_lib.qkv_proj(lp["attn"], hn, cfg, rope)
+            attn_lib.update_kv_cache(k_cache[i], v_cache[i], k_new, v_new, pos)
+            o = ops.paged_attention(
+                q[:, 0],
+                dense_blocks(k_cache[i], DECODE_BLOCK_TOKENS),
+                dense_blocks(v_cache[i], DECODE_BLOCK_TOKENS),
+                block_table, cache_len, mode=kernel_mode,
+            )
+            h = h + attn_lib.out_proj(lp["attn"], o[:, None])
+        else:
+            out, state, conv = mamba_lib.mamba_decode(
+                lp["ssm"], hn, cache["state"][i], cache["conv"][i], cfg
+            )
+            cache["state"][i] = state
+            cache["conv"][i] = conv
+            h = h + out
+        h = _ffn(lp, kind, h, cfg)
     return h
+
+
+def identity_block_table(batch: int, max_len: int, device) -> torch.Tensor:
+    """Row i of a dense (batch, max_len) cache seen as blocks: i * nb + j."""
+    nb = max_len // DECODE_BLOCK_TOKENS
+    rows = torch.arange(batch * nb, dtype=torch.int32).reshape(batch, nb)
+    return make_block_table(rows, batch * nb, device)

@@ -35,6 +35,7 @@ from repro_torch.core.index import PrefixIndex
 from repro_torch.core.pool import KVBlockLayout, KVBlockPool
 from repro_torch.kernels import ops
 from repro_torch.models.model import Model, init_params, torch_dtype
+from repro_torch.models.transformer import layer_kinds
 
 BLOCK_TOKENS = 16
 
@@ -61,6 +62,15 @@ class RealEngine:
     ) -> "RealEngine":
         """``params`` (e.g. converted from JAX) replaces the seeded init."""
         cfg = get_config(arch) if isinstance(arch, str) else arch
+        kinds = layer_kinds(cfg)
+        if len(kinds) != 1 or kinds[0].mixer != "attn":
+            # JAX asserts the same (repro/serving/real_runner.py:56): the pool
+            # holds per-layer KV blocks, which an SSM layer does not have
+            raise ValueError(
+                f"{cfg.name}: RealEngine serves period-1 attention stacks only "
+                f"(layer kinds {[(k.mixer, k.ffn) for k in kinds]}); run an SSM "
+                "stack through models.model.Model"
+            )
         dev = resolve_device(device)
         if max_len % BLOCK_TOKENS:
             raise ValueError(f"max_len {max_len} is not a multiple of {BLOCK_TOKENS}")

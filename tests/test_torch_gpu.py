@@ -6,7 +6,9 @@ card is present (decided at run time, never at import). On a GPU machine:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: data movement bit-exact; flash attention f32 2e-5, bf16 2e-2
-(those of tests/test_kernels.py:42).
+(those of tests/test_kernels.py:42); paged attention f32 2e-5, bf16 3e-2
+(tests/test_kernels.py:84); ssd_chunk f32 2e-4, bf16 5e-2
+(tests/test_kernels.py:175).
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ import torch
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_transfer as kv
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_chunk as ssd
 
 pytestmark = pytest.mark.gpu
 
@@ -99,9 +103,156 @@ def test_dispatch_counts_launches_on_the_card(cuda):
     ops.kv_scatter_read(blocks, [0, 1], 2)
     ops.flash_attention(x[None, 0], x[None, 0], x[None, 0])
     ops.kv_gather_write(x, x, [1, 0], 16, mode="ref")
+    q = torch.zeros((2, 4, 16), device=cuda)
+    ops.paged_attention(q, x, x, pa.make_block_table([[0], [1]], 2, cuda),
+                        torch.tensor([3, 16]))
+    ops.ssd_chunk(x[None, 0], torch.zeros((1, 32, 2), device=cuda), x[None, 0, :, :1],
+                  x[None, 0, :, :1])
+    ops.ssd_chunk(x[None, 0], torch.zeros((1, 32, 2), device=cuda), x[None, 0, :, :1],
+                  x[None, 0, :, :1], mode="ref")
     assert ops.launch_counts() == {
         "kv_gather_write": 1, "kv_scatter_read": 1, "flash_attention": 1,
+        "paged_attention": 1, "ssd_chunk": 1,
     }
+
+
+PAGED_CASES = [
+    # (b, hq, hkv, d, bt, max_blocks, n_blocks)
+    (3, 8, 2, 64, 16, 6, 32),  # tests/test_kernels.py PAGED_SHAPES
+    (2, 4, 4, 128, 16, 4, 16),
+    (1, 16, 8, 64, 32, 3, 8),
+    (1, 32, 8, 128, 16, 128, 128),  # Llama-3.1-8B decode
+    (2, 4, 2, 16, 16, 2, 4),  # the reduced configs
+    (2, 64, 8, 32, 8, 5, 12),  # a group of 8
+]
+PAGED_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+
+
+def _table_and_ctx(rng, b, mb, bt, n_blocks):
+    table = np.stack([rng.choice(n_blocks, size=mb, replace=mb > n_blocks) for _ in range(b)])
+    ctx = rng.integers(1, mb * bt + 1, size=b)
+    for i in range(b):  # pad past the context with -1
+        table[i, -(-ctx[i] // bt):] = -1
+    ctx[0] = min(ctx[0], bt + 1)  # a short row beside long ones
+    table[0, 0] = -1  # -1 inside the context reads block 0
+    return table, torch.from_numpy(ctx)
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_matches_plain(cuda, case, dtype):
+    b, hq, hkv, d, bt, mb, nb = case
+    rng = np.random.default_rng(sum(case))
+    q = _randn(rng, (b, hq, d), dtype, cuda)
+    pool = _randn(rng, (nb, 2, bt, hkv, d), dtype, cuda)  # the JAX pool layout
+    table, ctx = _table_and_ctx(rng, b, mb, bt, nb)
+    tbl = pa.make_block_table(table, nb, cuda)
+    out = pa.paged_attention(q, pool[:, 0], pool[:, 1], tbl, ctx.to(cuda, torch.int32))
+    want = ref.paged_attention_ref(q, pool[:, 0], pool[:, 1], tbl, ctx.to(cuda))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), want.float(), atol=PAGED_TOL[dtype],
+                               rtol=PAGED_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_reads_three_layouts(cuda, dtype):
+    """The JAX pool, one layer of the fused pool and a dense cache give one answer."""
+    b, hq, hkv, d, bt, L, nb = 2, 8, 2, 64, 16, 3, 8
+    rng = np.random.default_rng(7)
+    q = _randn(rng, (b, hq, d), dtype, cuda)
+    fused = _randn(rng, (nb, 2 * L, bt, hkv, d), dtype, cuda)  # the port's pool
+    ctx = torch.tensor([50, 64], dtype=torch.int32, device=cuda)
+    tbl = pa.make_block_table([[5, 2, 7, 0], [1, 3, 6, 4]], nb, cuda)
+    k1, v1 = pa.pool_layer(fused, 1)
+    got_fused = pa.paged_attention(q, k1, v1, tbl, ctx)
+    jax_pool = torch.stack([k1, v1], dim=1).contiguous()  # (n, 2, bt, hkv, d)
+    got_jax = pa.paged_attention(q, jax_pool[:, 0], jax_pool[:, 1], tbl, ctx)
+    dense_k = k1[tbl.long()].reshape(b, 4 * bt, hkv, d).contiguous()
+    dense_v = v1[tbl.long()].reshape(b, 4 * bt, hkv, d).contiguous()
+    ident = pa.make_block_table(np.arange(b * 4).reshape(b, 4), b * 4, cuda)
+    got_dense = pa.paged_attention(q, pa.dense_blocks(dense_k, bt), pa.dense_blocks(dense_v, bt),
+                                   ident, ctx)
+    want = ref.paged_attention_ref(q, k1, v1, tbl, ctx)
+    torch.cuda.synchronize()
+    assert torch.equal(got_fused, got_jax) and torch.equal(got_fused, got_dense)
+    torch.testing.assert_close(got_fused.float(), want.float(), atol=PAGED_TOL[dtype],
+                               rtol=PAGED_TOL[dtype])
+    zero = pa.paged_attention(q, k1, v1, tbl, torch.zeros_like(ctx))
+    assert not zero.any()  # context 0 gives zeros, as the Pallas kernel does
+
+
+def test_paged_kernel_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 4, 48), device=cuda)
+    blocks = torch.zeros((2, 16, 1, 48), device=cuda)
+    tbl = pa.make_block_table([[0, 1]], 2, cuda)
+    ctx = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        pa.paged_attention(q, blocks, blocks, tbl, ctx)
+    with pytest.raises(ValueError, match="outside"):
+        pa.make_block_table([[0, 2]], 2, cuda)
+    q16, b16 = torch.zeros((1, 16, 16), device=cuda), torch.zeros((2, 16, 1, 16), device=cuda)
+    with pytest.raises(ValueError, match="group"):
+        pa.paged_attention(q16, b16, b16, tbl, ctx)
+
+
+SSD_CASES = [
+    # (nb, Lc, nh, hp, n, groups)
+    (2, 32, 8, 16, 8, 8),  # tests/test_kernels.py shapes, B/C per head
+    (1, 16, 4, 8, 16, 4),
+    (3, 40, 8, 16, 16, 1),  # a chunk that is no multiple of the 64-row tile
+    (2, 32, 8, 16, 16, 2),  # two groups
+    (1, 256, 80, 64, 128, 1),  # Mamba-2 2.7B
+    (2, 256, 12, 64, 128, 1),  # heads no multiple of the 8-head block
+]
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 5e-2}
+
+
+def _ssd_inputs(rng, case, dtype, device):
+    nb, lc, nh, hp, n, g = case
+    x = _randn(rng, (nb, lc, nh, hp), torch.float32, device)
+    a = torch.from_numpy(-np.abs(rng.normal(size=(nb, lc, nh))).astype(np.float32) * 0.1)
+    b = _randn(rng, (nb, lc, g, n), dtype, device)
+    c = _randn(rng, (nb, lc, g, n), dtype, device)
+    return x, a.to(device), b, c
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(cuda, case, dtype):
+    x, a, b, c = _ssd_inputs(np.random.default_rng(sum(case)), case, dtype, cuda)
+    y, st = ssd.ssd_chunk(x, a, b, c)
+    yr, sr = ref.ssd_chunk_ref(x, a, b, c)
+    torch.cuda.synchronize()
+    tol = SSD_TOL[dtype]
+    # relative to the output's scale: full-width chunks sum 256 x 128 terms
+    scale_y, scale_s = yr.abs().max().item(), sr.abs().max().item()
+    torch.testing.assert_close(y / scale_y, yr / scale_y, atol=tol, rtol=tol)
+    torch.testing.assert_close(st / scale_s, sr / scale_s, atol=tol, rtol=tol)
+
+
+def test_ssd_kernel_reads_expanded_and_sliced_b_c(cuda):
+    """Group-shaped B/C, the same expanded over heads with stride 0, and B/C
+    as slices of one projection (the model's layout) give one answer."""
+    nb, lc, nh, hp, n = 2, 64, 16, 16, 32
+    rng = np.random.default_rng(11)
+    x, a, _, _ = _ssd_inputs(rng, (nb, lc, nh, hp, n, 1), torch.float32, cuda)
+    bc = _randn(rng, (nb, lc, 2 * n), torch.bfloat16, cuda)
+    b, c = bc[..., :n].reshape(nb, lc, 1, n), bc[..., n:].reshape(nb, lc, 1, n)
+    y1, s1 = ssd.ssd_chunk(x, a, b, c)
+    y2, s2 = ssd.ssd_chunk(x, a, b.expand(nb, lc, nh, n), c.expand(nb, lc, nh, n))
+    y3, s3 = ssd.ssd_chunk(x, a, b.contiguous(), c.contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
+    assert torch.equal(y1, y3) and torch.equal(s1, s3)
+
+
+@pytest.mark.parametrize("lc,n,hp", [(512, 16, 16), (32, 256, 16), (32, 16, 128)])
+def test_ssd_kernel_rejects_outside_its_domain(cuda, lc, n, hp):
+    x = torch.zeros((1, lc, 2, hp), device=cuda)
+    a = torch.zeros((1, lc, 2), device=cuda)
+    b = torch.zeros((1, lc, 1, n), device=cuda)
+    with pytest.raises(ValueError, match="ssd_chunk takes Lc <= 256"):
+        ssd.ssd_chunk(x, a, b, b)
 
 
 @pytest.mark.parametrize("arch", ["llama3.1-8b", "olmo-1b", "qwen1.5-0.5b"])
@@ -118,6 +269,50 @@ def test_reduced_model_card_matches_cpu(cuda, arch):
     lg_gpu, cache_gpu = model.prefill_fn(on_card, tokens.to(cuda), max_len=64)
     torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
     torch.testing.assert_close(cache_gpu[0].cpu(), cache_cpu[0], atol=1e-4, rtol=1e-4)
+
+
+def test_reduced_mamba_card_matches_cpu(cuda):
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.model import Model, init_params
+
+    cfg = dataclasses.replace(reduced_config("mamba2-2.7b"), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _tree_to(params, cuda)
+    model = Model(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 70)))
+    lg_cpu, cache_cpu = model.prefill_fn(params, tokens)
+    ssd.ssd_chunk.launches = 0
+    lg_gpu, cache_gpu = model.prefill_fn(on_card, tokens.to(cuda))
+    assert ssd.ssd_chunk.launches == cfg.n_layers
+    torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(cache_gpu["state"].cpu(), cache_cpu["state"], atol=1e-4,
+                               rtol=1e-4)
+    for step in range(4):
+        tok, pos = torch.tensor([3 + step, 9]), torch.tensor([70 + step] * 2)
+        lc = model.decode_fn(params, cache_cpu, tok, pos)
+        lg = model.decode_fn(on_card, cache_gpu, tok.to(cuda), pos.to(cuda))
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+
+
+def test_reduced_llama_decode_card_matches_cpu(cuda):
+    """Decode attention through the paged kernel against the plain version."""
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.model import Model, init_params
+
+    cfg = dataclasses.replace(reduced_config("llama3.1-8b"), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _tree_to(params, cuda)
+    model = Model(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 40)))
+    _, cache_cpu = model.prefill_fn(params, tokens, max_len=64)
+    _, cache_gpu = model.prefill_fn(on_card, tokens.to(cuda), max_len=64)
+    pa.paged_attention.launches = 0
+    for step in range(4):
+        tok, pos = torch.tensor([5 + step, 7]), torch.tensor([40 + step, 40 + step])
+        lc = model.decode_fn(params, cache_cpu, tok, pos)
+        lg = model.decode_fn(on_card, cache_gpu, tok.to(cuda), pos.to(cuda))
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+    assert pa.paged_attention.launches == 4 * cfg.n_layers
 
 
 def _tree_to(tree, device):

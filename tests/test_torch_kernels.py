@@ -21,6 +21,8 @@ from repro_torch.convert import tensor_from_numpy
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_transfer as kv
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import ssd_chunk as ssd
 
 # tiny shapes: one intra-op thread is as fast, and more threads would only
 # spin against the other test workers, which share the CPU's cores
@@ -166,9 +168,13 @@ def test_dispatch_takes_plain_version_on_cpu_and_counts_nothing():
     out = ops.flash_attention(x[None, 0], x[None, 0], x[None, 0])
     assert torch.equal(k, x[:, torch.cat([torch.arange(16, 32), torch.arange(16)])])
     assert out.shape == (1, 32, 2, 16)
-    assert ops.launch_counts() == {
-        "kv_gather_write": 0, "kv_scatter_read": 0, "flash_attention": 0,
-    }
+    q = torch.randn(2, 4, 16)
+    table = pa.make_block_table([[0], [1]], 2, "cpu")
+    assert ops.paged_attention(q, x, x, table, torch.tensor([5, 9])).shape == q.shape
+    a = -torch.rand(1, 32, 2)
+    y, st = ops.ssd_chunk(x[None, 0], a, x[None, 0, :, :1], x[None, 0, :, :1])
+    assert y.shape == (1, 32, 2, 16) and st.shape == (1, 2, 16, 16)
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0) and len(ops.KERNELS) == 5
 
 
 def test_no_silent_fallback_for_cpu_tensors():
@@ -186,6 +192,15 @@ def test_no_silent_fallback_for_cpu_tensors():
         kv.kv_gather_write(x, x, [0], 16)
     with pytest.raises(ValueError, match="on the card"):
         kv.kv_scatter_read(torch.zeros(1, 4, 16, 2, 16), [0], 2)
-    assert ops.launch_counts() == {
-        "kv_gather_write": 0, "kv_scatter_read": 0, "flash_attention": 0,
-    }
+    q, ctx = torch.zeros(2, 4, 16), torch.tensor([1, 1])
+    with pytest.raises(ValueError, match="on the card"):
+        ops.paged_attention(q, x, x, pa.make_block_table([[0], [1]], 2, "cpu"), ctx,
+                            mode="kernel")
+    with pytest.raises(ValueError, match="on the card"):
+        pa.paged_attention(q, x, x, torch.zeros(2, 1, dtype=torch.int32), ctx.int())
+    a = torch.zeros(1, 32, 2)
+    with pytest.raises(ValueError, match="on the card"):
+        ops.ssd_chunk(x[None, 0], a, x[None, 0], x[None, 0], mode="kernel")
+    with pytest.raises(ValueError, match="on the card"):
+        ssd.ssd_chunk(x[None, 0], a, x[None, 0], x[None, 0])
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
