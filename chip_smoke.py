@@ -11,13 +11,19 @@ Phases, each a hard check (any failure exits non-zero):
    the shapes the paths give it (Llama-3.1-8B: 32 layers, 8 kv heads,
    head_dim 128; 1024-token prompts = 64 pool blocks; max_len 2048; decode
    at a context of 1040 tokens. Mamba-2 2.7B: chunks of 256, 80 heads of 64,
-   d_state 128, prompts of 1024 and 4096 tokens). Gather and scatter must be
-   bit-exact; flash attention within bf16 2e-2 (tests/test_kernels.py);
+   d_state 128, prompts of 1024 and 4096 tokens. The sparse gather: the
+   16-token reads of phase 6, 8,192 pieces of 256 B from the Llama-3.1-8B
+   pool and 16,384 of 160 B from a qwen3-32b pool of 512 blocks, with ids
+   -1, -N, N and 2**31 - 1 added). Gather, scatter and the sparse gather
+   (its NaN fill and negative-id wrap included) must be bit-exact; flash
+   attention within bf16 2e-2 (tests/test_kernels.py);
    paged attention within two bf16 steps at its largest output, ssd_chunk
    within 1e-4 of its output's scale (both sides get the same inputs, so the
    limits sit a few times above the readings). Each is timed with CUDA events
-   against its plain version, its bound and, for the attention kernels, one
-   ``scaled_dot_product_attention`` call (timed only; the port never calls it).
+   against its plain version, its bound and, where one PyTorch call computes
+   the same thing, that call (``scaled_dot_product_attention`` for the
+   attention kernels, ``index_select`` for the sparse gather; timed only, the
+   port never calls them).
 3. small: a reduced Llama-3.1-8B in float32 served cold and warm on the card
    (kernels) and on the CPU (plain versions) with the same weights, and a
    reduced Mamba-2 2.7B in float32 prefilled and decoded on both; the
@@ -38,6 +44,16 @@ Phases, each a hard check (any failure exits non-zero):
    step against a prefill of all 4096, beside the noise floor of the same
    prefill with the plain ssd_chunk, in float32 and in bf16 (see
    CONTINUITY_TOL); then a profiled prefill and decode.
+6. sparse reads: the port's twin of exp10 (Table 6), then of exp09
+   (Fig. 14), on the card. exp10: full-width qwen3-32b at depth 1 (layer 0
+   is all it reads) selects the top-32 of 256 tokens per query head and
+   gathers those rows of K and V in one launch; then 16 sparse tokens per
+   (layer, kv head) are read in ONE launch from phase 4's Llama-3.1-8B pool
+   (checked against the cold prefill's KV bit for bit) and from a seeded
+   qwen3-32b pool of 512 blocks. exp09: one block of each bf16 layout
+   written and read back, and the one-launch check. Checks one launch per
+   read, bit-exact pieces, finite scores; prints the rows (the fabric rows
+   are MODELED by the paper's CXL/RDMA constants, not measured).
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
@@ -56,7 +72,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+from repro_torch.experiments.common import HBM_BYTES_PER_S, cycled_ms, device_ms  # noqa: E402
+
 BF16_FLOP_PER_S = 989e12  # dense tensor-core bf16
 FLASH_TOL = 2e-2  # bf16, tests/test_kernels.py:42
 # paged attention, bf16: kernel and plain version take the same inputs and
@@ -69,7 +86,6 @@ PAGED_ULPS = 2
 # 1e-5); rounding x to bf16 or to TF32 inside the kernel would read above it
 SSD_TOL = 1e-4
 F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
-QUEUE_SPIN_CYCLES = 50_000_000  # about 25 ms at the H100's boost clock
 SMALL_TOL = 1e-4  # float32 reduced model, card vs CPU
 # warm vs cold logits at full width, bf16 (logit std about 1.3): the two
 # paths round the bf16 residual stream at different points (a 1024-row
@@ -102,33 +118,6 @@ def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
     print(f"  ok: {what}", flush=True)
-
-
-def time_ms(fn, iters: int = 20) -> float:
-    """Device time of one call: CUDA events around ``iters`` calls, queued
-    behind a spin on the card long enough that the host's launch overhead
-    (tens of microseconds a call through a Python wrapper, more than a short
-    kernel takes) does not stand in for the device's time."""
-    import torch
-
-    for _ in range(3):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    torch.cuda._sleep(QUEUE_SPIN_CYCLES)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def cycling(fn, n: int):
-    """fn(i) for i = 0, 1, ..., n - 1, 0, ...: each call reads another layer's
-    data, so that repeated calls find it cold in L2 as decode does."""
-    it = iter(range(1 << 30))
-    return lambda: fn(next(it) % n)
 
 
 def paged_row(cfg, randn) -> dict:
@@ -184,12 +173,12 @@ def paged_row(cfg, randn) -> dict:
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:128", max_abs_err=max(err, perr),
-        ms=time_ms(cycling(kernel, L)),
-        plain_ms=time_ms(cycling(plain, L)),
+        ms=cycled_ms(kernel, range(L)),
+        plain_ms=cycled_ms(plain, range(L)),
         bound_ms=max(moved / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
         bound_by="bytes" if moved / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S else "operations",
-        library_ms=time_ms(cycling(lambda i: F.scaled_dot_product_attention(
-            qs[i], ks[i], vs[i], enable_gqa=True), L)),
+        library_ms=cycled_ms(lambda i: F.scaled_dot_product_attention(
+            qs[i], ks[i], vs[i], enable_gqa=True), range(L)),
     )
 
 
@@ -247,8 +236,8 @@ def ssd_row(cfg, g) -> dict:
         rows[seq] = dict(
             name="ssd_chunk", route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
             replaces="src/repro/kernels/ssd_chunk.py:72", max_abs_err=err,
-            ms=time_ms(lambda: ssd.ssd_chunk(x, a, b, c)),
-            plain_ms=time_ms(lambda: ref.ssd_chunk_ref(x, a, b, c), iters=5),
+            ms=device_ms(lambda: ssd.ssd_chunk(x, a, b, c)),
+            plain_ms=device_ms(lambda: ref.ssd_chunk_ref(x, a, b, c), iters=5),
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=None,
         )
@@ -260,10 +249,60 @@ def ssd_row(cfg, g) -> dict:
     return rows[1024]
 
 
+def sparse_row(cfg, qwen_cfg, g) -> dict:
+    """sparse_kv_gather at phase 6's reads, built by the exp10 twin's own
+    helpers: 16 tokens per (layer, kv head) of a 1024-token context in a
+    full-width Llama-3.1-8B pool of 512 blocks, and of an 8192-token context
+    in a qwen3-32b pool of 512 blocks, each read one launch of
+    (-1, 1, head_dim) pieces, timed over exp10's 32 reads cold in L2; the
+    row reports Llama's."""
+    import torch
+
+    from repro_torch.core.pool import KVBlockLayout
+    from repro_torch.experiments import exp10_sparse as exp10
+    from repro_torch.kernels import kv_transfer as kv
+    from repro_torch.kernels import ref
+
+    rows = {}
+    for c, ctx_blocks in ((cfg, PROMPT // 16), (qwen_cfg, POOL_BLOCKS)):
+        lay = KVBlockLayout.for_model(c, 16)
+        pool = exp10.random_pool(lay, POOL_BLOCKS, g)[0]
+        view = pool.view(-1, 1, lay.head_dim)
+        n = view.shape[0]
+        id_sets = exp10.cold_id_sets(lay, POOL_BLOCKS, ctx_blocks, g)
+        edge = torch.tensor([-1, -n, n, 2**31 - 1], dtype=torch.int32, device=g.device)
+        ids = torch.cat([id_sets[0], edge])
+        out, want = kv.sparse_kv_gather(view, ids), ref.sparse_kv_gather_ref(view, ids)
+        torch.cuda.synchronize()
+        nan_rows = torch.isnan(out).all(dim=(1, 2))
+        n_sel = id_sets[0].numel()
+        check(torch.equal(out.view(torch.int16), want.view(torch.int16))
+              and nan_rows.nonzero().flatten().tolist() == [n_sel + 2, n_sel + 3]
+              and torch.equal(out[n_sel], view[n - 1]) and torch.equal(out[n_sel + 1], view[0]),
+              f"sparse_kv_gather bit-exact on {c.name}'s pool {tuple(pool.shape)}: {n_sel} "
+              f"pieces + ids -1, -N (wrapped), N, 2**31-1 (NaN rows, exactly those)")
+        moved = 2 * n_sel * lay.head_dim * pool.element_size()
+        rows[c.name] = r = dict(
+            name="sparse_kv_gather", route="cuda",
+            source="src/repro_torch/kernels/csrc/kv_transfer.cu",
+            replaces="src/repro/kernels/kv_transfer.py:172", max_abs_err=0.0,
+            ms=cycled_ms(lambda i: kv.sparse_kv_gather(view, i), id_sets),
+            plain_ms=cycled_ms(lambda i: ref.sparse_kv_gather_ref(view, i), id_sets),
+            bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=cycled_ms(lambda i: view.index_select(0, i), id_sets),
+        )
+        print(f"  sparse_kv_gather, {c.name}: {n_sel} pieces of {lay.head_dim * 2} B: "
+              f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, index_select "
+              f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by bytes: {moved / 1e6:.2f} MB)")
+        del pool, view, id_sets, out, want
+    return rows[cfg.name]
+
+
 def phase_kernels(cfg, mamba_cfg) -> list[dict]:
     import torch
     import torch.nn.functional as F
 
+    from repro_torch.configs.registry import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import kv_transfer as kv
     from repro_torch.kernels import ref
@@ -291,8 +330,8 @@ def phase_kernels(cfg, mamba_cfg) -> list[dict]:
         name="kv_gather_write", route="cuda",
         source="src/repro_torch/kernels/csrc/kv_transfer.cu",
         replaces="src/repro/kernels/kv_transfer.py:76", max_abs_err=0.0,
-        ms=time_ms(lambda: kv.kv_gather_write(k, v, slots, bt)),
-        plain_ms=time_ms(lambda: ref.kv_gather_write_ref(k, v, slots_t, bt)),
+        ms=device_ms(lambda: kv.kv_gather_write(k, v, slots, bt)),
+        plain_ms=device_ms(lambda: ref.kv_gather_write_ref(k, v, slots_t, bt)),
         bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
     ))
     # -- kv_scatter_read: the hit path's fetch of those blocks
@@ -307,8 +346,8 @@ def phase_kernels(cfg, mamba_cfg) -> list[dict]:
         name="kv_scatter_read", route="cuda",
         source="src/repro_torch/kernels/csrc/kv_transfer.cu",
         replaces="src/repro/kernels/kv_transfer.py:132", max_abs_err=0.0,
-        ms=time_ms(lambda: kv.kv_scatter_read(blocks, slots, n_slots)),
-        plain_ms=time_ms(
+        ms=device_ms(lambda: kv.kv_scatter_read(blocks, slots, n_slots)),
+        plain_ms=device_ms(
             lambda: ref.kv_scatter_read_ref(blocks, slots_t, zeros, zeros, bt)),
         bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
     ))
@@ -328,17 +367,18 @@ def phase_kernels(cfg, mamba_cfg) -> list[dict]:
         name="flash_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:135", max_abs_err=err,
-        ms=time_ms(lambda: fa.flash_attention(q, fk, fv, causal=True)),
-        plain_ms=time_ms(lambda: ref.flash_attention_ref(q, fk, fv, causal=True)),
+        ms=device_ms(lambda: fa.flash_attention(q, fk, fv, causal=True)),
+        plain_ms=device_ms(lambda: ref.flash_attention_ref(q, fk, fv, causal=True)),
         bound_ms=max(flops / BF16_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3,
         bound_by="operations" if flops / BF16_FLOP_PER_S > moved / HBM_BYTES_PER_S
         else "bytes",
-        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True)),
     ))
     del q, fk, fv, out, want, qt, kt, vt
     rows.append(paged_row(cfg, randn))
     rows.append(ssd_row(mamba_cfg, g))
+    rows.append(sparse_row(cfg, get_config("qwen3-32b"), g))
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
@@ -494,7 +534,8 @@ def phase_main(cfg) -> dict:
     }
     print("  main path: " + json.dumps(summary))
     phase_profile(eng, results[0])
-    return launches
+    # phase 6 reads this engine's pool: the blocks of p0 and the KV they hold
+    return launches, (eng, [b for _, b, _ in hits], cold_k[:, 0], cold_v[:, 0])
 
 
 def phase_profile(eng, cold) -> None:
@@ -538,13 +579,16 @@ def phase_mamba(cfg) -> dict:
     from repro_torch.models.model import Model, init_params
 
     dev = torch.device("cuda")
+    # phase 4's engine stays resident for phase 6: memory is counted above it
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = Model(cfg)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in _leaves(params))
     print(f"  {cfg.n_layers} layers, {n_params / 1e9:.3f} B parameters up in "
-          f"{time.perf_counter() - t0:.1f} s ({torch.cuda.memory_allocated() / 2**30:.2f} GiB)")
+          f"{time.perf_counter() - t0:.1f} s "
+          f"({(torch.cuda.memory_allocated() - base) / 2**30:.2f} GiB)")
     rng = np.random.default_rng(5)
     full = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, MAMBA_PROMPTS[1] + 1))).to(dev)
     prompts = [torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, MAMBA_PROMPTS[0])))
@@ -614,7 +658,7 @@ def phase_mamba(cfg) -> dict:
     summary = {
         "prefill_ms": {str(t.shape[1]): r["prefill_s"] * 1e3 for t, r in zip(prompts, runs)},
         "decode_tok_per_s": MAMBA_STEPS * len(runs) / decode_s,
-        "peak_mem_gib": peak / 2**30,
+        "peak_mem_gib": (peak - base) / 2**30,
         "launches": launches,
         "continuity_rel": {"bfloat16": cont_bf16, "float32": cont},
         "noise_floor_rel": {"bfloat16": floor_bf16, "float32": floor},
@@ -684,6 +728,56 @@ def profile_mamba(model, params, prompt, toks) -> None:
     report("decode step", prof.key_averages(), steps, wall_ms)
 
 
+def _fields(derived: str) -> dict:
+    """``a=1;b=x`` -> {"a": "1", "b": "x"}: a twin row's derived column."""
+    return dict(f.split("=", 1) for f in derived.split(";") if "=" in f)
+
+
+def phase_sparse(llama_pool) -> dict:
+    """The exp10 twin (on phase 4's pool for Llama-3.1-8B) then the exp09
+    twin, untimed: their kernels' times are phase 2's, at the same reads."""
+    import torch
+
+    from repro_torch.experiments import exp09_dense_transfer as exp09
+    from repro_torch.experiments import exp10_sparse as exp10
+    from repro_torch.experiments.common import emit
+    from repro_torch.kernels import ops
+
+    eng, block_ids, k, v = llama_pool
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    rows10 = exp10.run(pools={"llama3.1-8b": (eng.pool.data, block_ids, k, v)}, timed=False)
+    rows09 = exp09.run(timed=False)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    print("  rows (exp10.sparse16.<arch> and exp09.<layout>.write|read without a suffix are "
+          "MODELED by the paper's CXL/RDMA fabric, not measured):")
+    emit(rows10 + rows09)
+    rows = {r[0]: r for r in rows10 + rows09}
+    reads = ["exp10.topk_gather", "exp10.sparse16.llama3.1-8b.device",
+             "exp10.sparse16.qwen3-32b.device"]
+    for name in reads:
+        f = _fields(rows[name][2])
+        check(f["launches"] == "1" and f["bit_exact"] == "True",
+              f"{name}: {f.get('pieces', f.get('ids'))} pieces in one launch, bit-exact"
+              + (" against the cold prefill's KV" if "llama" in name else ""))
+    check(_fields(rows["exp10.topk_gather"][2])["finite"] == "True"
+          and rows["exp10.kernel_allclose"][2] == "ok=True",
+          "full-width qwen3-32b layer-0 scores finite; the JAX toy case equal to the plain "
+          f"version; non-contiguous fraction {rows['exp10.noncontiguous_fraction'][1]} %")
+    check(all(_fields(r[2])["bit_exact"] == "True" for n, r in rows.items()
+              if n.startswith("exp09.") and n.endswith(".device"))
+          and " in 1 kernel launch" in rows["exp09.kernel_single_launch"][2],
+          "exp09: one block of each bf16 layout written and read back bit for bit; "
+          "one launch packs every fragment")
+    check(launches["sparse_kv_gather"] == len(reads) + 1,
+          f"sparse_kv_gather launched once per read ({len(reads)} reads + the toy case): "
+          f"{launches}")
+    print(f"  sparse path: {wall:.1f} s wall, launches {json.dumps(launches)}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -713,11 +807,17 @@ def main() -> None:
     print("[3] reduced models, card vs CPU", flush=True)
     phase_small()
     print("[4] main path: Llama-3.1-8B full width", flush=True)
-    launches = phase_main(cfg)
+    launches, llama_pool = phase_main(cfg)
     print("[5] Mamba-2 path: mamba2-2.7b full width", flush=True)
     mamba_launches = phase_mamba(mamba_cfg)
+    print("[6] sparse reads: exp10 and exp09 twins, full width", flush=True)
+    sparse_launches = phase_sparse(llama_pool)
+    del llama_pool
+    paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches}
+    own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse"}
     for r in rows:
-        r["launches"] = (mamba_launches if r["name"] == "ssd_chunk" else launches)[r["name"]]
+        r["launches"] = paths[own.get(r["name"], "llama")][r["name"]]
+        r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
     print(f"done in {time.perf_counter() - t_all:.1f} s", flush=True)
 
     smi = subprocess.run(

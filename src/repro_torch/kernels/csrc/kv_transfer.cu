@@ -1,7 +1,9 @@
-// KV gather-write / scatter-read between per-layer caches and pool blocks.
+// KV gather-write / scatter-read between per-layer caches and pool blocks,
+// and the sparse gather of token rows.
 //
 // Replaces the Pallas TPU kernels repro/kernels/kv_transfer.py:
-// kv_gather_write (pallas_call at :76) and kv_scatter_read (:132).
+// kv_gather_write (pallas_call at :76), kv_scatter_read (:132) and
+// sparse_kv_gather (:172; the sparse gather's notes are at its kernel below).
 //
 // Layouts (all contiguous):
 //   caches  k, v : (L, n_slots * bt, hkv, hd)
@@ -70,7 +72,78 @@ int launch(int dir, void* k, void* v, void* blocks, const void* slot_ids,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Sparse gather: out[i] = kv[ids[i]] for n_sel rows of row_vec units of V
+// (uint4 when a row is a multiple of 16 bytes and both bases are 16-byte
+// aligned, else the element itself, 2 or 4 bytes). The contract is the JAX
+// oracle's jnp.take, not the Pallas kernel's (which clamps): an id in
+// [-N, 0) wraps to id + N; any other id out of [0, N) writes the dtype's
+// quiet NaN, `nan` replicated over V. The ids are checked here, on the
+// card, so the wrapper never syncs to look at them.
+//
+// Bound on an H100: bytes, n_sel rows read and written once; at exp10's
+// shapes (8,192 pieces of 256 B, 16,384 of 160 B) that is 1.3-1.6 us, below
+// a launch's own latency. The design: ONE launch for all n_sel rows, the
+// paper's "thousands of tiny pieces, one kernel" (§6.1, Exp #10). Rows are
+// far smaller than a thread block, so threads walk the flat (row, unit)
+// space in a grid-stride loop: neighbouring threads copy neighbouring units
+// of one row, and a warp spans two or more rows when they are short.
+template <typename V>
+__global__ void sparse_gather_kernel(const V* __restrict__ kv, V* __restrict__ out,
+                                     const int32_t* __restrict__ ids,
+                                     int n_rows, long long row_vec,
+                                     long long total, V nan) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       t < total; t += stride) {
+    const long long i = t / row_vec;
+    const long long j = t - i * row_vec;
+    int id = __ldg(ids + i);
+    if (id < -n_rows || id >= n_rows) {
+      out[t] = nan;
+    } else {
+      if (id < 0) id += n_rows;
+      out[t] = __ldg(kv + (long long)id * row_vec + j);
+    }
+  }
+}
+
+template <typename V>
+int launch_sparse(const void* kv, void* out, const void* ids, int n_sel,
+                  int n_rows, long long row_vec, V nan, void* stream) {
+  const long long total = (long long)n_sel * row_vec;
+  if (total == 0) return 0;
+  long long grid = (total + kThreads - 1) / kThreads;
+  if (grid > 132 * 32) grid = 132 * 32;
+  sparse_gather_kernel<V><<<(int)grid, kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const V*>(kv), static_cast<V*>(out),
+      static_cast<const int32_t*>(ids), n_rows, row_vec, total, nan);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
+
+// unit_bytes: 16 (row_vec uint4 per row), 4 or 2 (row_vec elements);
+// nan_bits: the dtype's quiet NaN, replicated to fill a 4-byte word.
+extern "C" int sparse_kv_gather(const void* kv, void* out, const void* ids,
+                                int n_sel, int n_rows, long long row_vec,
+                                int unit_bytes, unsigned int nan_bits,
+                                void* stream) {
+  switch (unit_bytes) {
+    case 16:
+      return launch_sparse<uint4>(kv, out, ids, n_sel, n_rows, row_vec,
+                                  make_uint4(nan_bits, nan_bits, nan_bits, nan_bits),
+                                  stream);
+    case 4:
+      return launch_sparse<uint32_t>(kv, out, ids, n_sel, n_rows, row_vec,
+                                     nan_bits, stream);
+    case 2:
+      return launch_sparse<uint16_t>(kv, out, ids, n_sel, n_rows, row_vec,
+                                     static_cast<uint16_t>(nan_bits), stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 extern "C" int kv_gather_write(const void* k, const void* v, void* blocks,
                                const void* slot_ids, int n_blocks, int n_layers,

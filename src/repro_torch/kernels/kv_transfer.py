@@ -1,10 +1,12 @@
-"""KV gather-write / scatter-read on the card: wrappers of ``csrc/kv_transfer.cu``.
+"""KV gather-write / scatter-read and the sparse token gather on the card:
+wrappers of ``csrc/kv_transfer.cu``.
 
 Replaces the Pallas TPU kernels ``repro/kernels/kv_transfer.py``
-``kv_gather_write`` (pallas_call at :76) and ``kv_scatter_read`` (:132).
-One launch moves every (block, layer, k|v) fragment, each a contiguous run
-of ``bt * hkv * hd`` elements on both sides, with 16-byte vector copies.
-The bound is bytes: (bytes read + bytes written) / 3.35 TB/s on an H100.
+``kv_gather_write`` (pallas_call at :76), ``kv_scatter_read`` (:132) and
+``sparse_kv_gather`` (:172). One launch moves every (block, layer, k|v)
+fragment, each a contiguous run of ``bt * hkv * hd`` elements on both
+sides, with 16-byte vector copies; one launch gathers every selected token
+row. The bound is bytes: (bytes read + bytes written) / 3.35 TB/s on an H100.
 
 Contract, shared with the plain versions in ``ref.py`` (``ops.py`` checks
 slot ids for both): slot ids must be distinct and in range, else
@@ -14,12 +16,17 @@ oracle's scan) and clamp an out-of-range slot (``dynamic_slice``).
 output is allocated with ``torch.zeros``, as the JAX oracle path does
 (``repro/kernels/ops.py:69-74``); the Pallas kernel leaves them unwritten.
 
+``sparse_kv_gather`` follows the JAX oracle (``jnp.take``), as
+``ref.sparse_kv_gather_ref`` does: ids in [-N, 0) wrap, any other id out of
+range gives a NaN row. The Pallas kernel clamps such ids instead.
+
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
@@ -30,7 +37,11 @@ _ARGS = [_P, _P, _P, _P, _I, _I, _I, _LL, _P]
 SIGNATURES = {
     "kv_gather_write": (_ARGS, ctypes.c_int),
     "kv_scatter_read": (_ARGS, ctypes.c_int),
+    "sparse_kv_gather": ([_P, _P, _P, _I, _I, _LL, _I, ctypes.c_uint, _P], ctypes.c_int),
 }
+# each float dtype's quiet NaN, replicated to fill a 4-byte word
+NAN_BITS = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC07FC0, torch.float16: 0x7E007E00}
+INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 
 
 def check_slots(slot_ids, n_slots: int) -> list[int]:
@@ -68,6 +79,19 @@ def _launch(fn: str, args: list, device: torch.device) -> None:
         raise RuntimeError(f"{fn} launch failed: cudaError_t {rc}")
 
 
+def _device_ids(ids, device: torch.device) -> torch.Tensor:
+    """int32 ids on ``device``, cast after clamping to int32's range (an id
+    past it stays out of range). Ids from the host are staged in pinned
+    memory and copied without blocking, so the call never waits for the
+    card (a plain ``torch.tensor(..., device="cuda")`` synchronises)."""
+    ids = (ids if isinstance(ids, torch.Tensor) else torch.as_tensor(ids)).reshape(-1)
+    if ids.dtype != torch.int32:
+        ids = ids.clamp(INT32_MIN, INT32_MAX).to(torch.int32)
+    if ids.device.type == "cpu" and device.type == "cuda":
+        ids = ids.pin_memory()
+    return ids.to(device, non_blocking=True).contiguous()
+
+
 def kv_gather_write(
     k_cache: torch.Tensor,  # (L, T, hkv, hd)
     v_cache: torch.Tensor,
@@ -83,7 +107,7 @@ def kv_gather_write(
     out = torch.empty(
         (n, 2 * L, block_tokens, hkv, hd), dtype=k_cache.dtype, device=k_cache.device
     )
-    slots = torch.tensor(slot_ids, dtype=torch.int32, device=k_cache.device)
+    slots = _device_ids(slot_ids, k_cache.device)
     _launch("kv_gather_write", [
         k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), slots.data_ptr(),
         n, L, T // block_tokens, _frag_vec(block_tokens, hkv, hd, k_cache.dtype),
@@ -107,7 +131,7 @@ def kv_scatter_read(
     k = torch.zeros((L, n_slots * bt, hkv, hd), dtype=pool_blocks.dtype,
                     device=pool_blocks.device)
     v = torch.zeros_like(k)
-    slots = torch.tensor(slot_ids, dtype=torch.int32, device=pool_blocks.device)
+    slots = _device_ids(slot_ids, pool_blocks.device)
     _launch("kv_scatter_read", [
         pool_blocks.data_ptr(), k.data_ptr(), v.data_ptr(), slots.data_ptr(),
         n, L, n_slots, _frag_vec(bt, hkv, hd, pool_blocks.dtype),
@@ -117,3 +141,33 @@ def kv_scatter_read(
 
 
 kv_scatter_read.launches = 0
+
+
+def sparse_kv_gather(
+    kv: torch.Tensor,  # (N, hkv, hd) token-major, contiguous, on the card
+    token_ids,  # (n_sel,) ints: a list or a tensor
+) -> torch.Tensor:
+    """-> (n_sel, hkv, hd): row ``token_ids[i]`` of ``kv``, NaN where the id
+    is out of range (see the module's note). One launch; none for no ids."""
+    _check_cuda(kv)
+    if kv.dtype not in NAN_BITS:
+        raise ValueError(f"sparse_kv_gather takes {tuple(NAN_BITS)}, got {kv.dtype}")
+    if kv.shape[0] > INT32_MAX:
+        raise ValueError(f"{kv.shape[0]} rows do not fit the kernel's int32 ids")
+    ids = _device_ids(token_ids, kv.device)
+    n_sel = ids.numel()
+    out = torch.empty((n_sel, *kv.shape[1:]), dtype=kv.dtype, device=kv.device)
+    if n_sel == 0:
+        return out
+    row_bytes = math.prod(kv.shape[1:]) * kv.element_size()
+    aligned = kv.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    unit = 16 if row_bytes % 16 == 0 and aligned else kv.element_size()
+    _launch("sparse_kv_gather", [
+        kv.data_ptr(), out.data_ptr(), ids.data_ptr(), n_sel, kv.shape[0],
+        row_bytes // unit, unit, NAN_BITS[kv.dtype],
+    ], kv.device)
+    sparse_kv_gather.launches += 1
+    return out
+
+
+sparse_kv_gather.launches = 0

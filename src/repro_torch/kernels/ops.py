@@ -27,6 +27,7 @@ KERNELS = {
     "flash_attention": _fa.flash_attention,
     "paged_attention": _pa.paged_attention,
     "ssd_chunk": _ssd.ssd_chunk,
+    "sparse_kv_gather": _kv.sparse_kv_gather,
 }
 
 
@@ -74,6 +75,14 @@ def kv_scatter_read(pool_blocks, slot_ids, n_slots: int, *, mode: str = "auto"):
                      device=pool_blocks.device)
     slots = torch.tensor(ids, dtype=torch.long, device=pool_blocks.device)
     return _ref.kv_scatter_read_ref(pool_blocks, slots, k0, k0, bt)
+
+
+def sparse_kv_gather(kv, token_ids, *, mode: str = "auto"):
+    """Rows ``token_ids`` of a token-major (N, hkv, hd) view -> (n_sel, hkv, hd);
+    ids in [-N, 0) wrap, any other out-of-range id gives a NaN row."""
+    if use_kernel(kv, mode):
+        return _kv.sparse_kv_gather(kv, token_ids)
+    return _ref.sparse_kv_gather_ref(kv, token_ids)
 
 
 def paged_attention(q, k_blocks, v_blocks, block_table, context_lens, *, mode: str = "auto"):

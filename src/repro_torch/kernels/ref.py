@@ -107,6 +107,28 @@ def paged_attention_ref(
     return o.reshape(b, hq, d).to(q.dtype)
 
 
+NAN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def sparse_kv_gather_ref(
+    kv: torch.Tensor,  # (N, hkv, hd) token-major pool view
+    token_ids,  # (n_sel,) ints
+) -> torch.Tensor:
+    """Rows ``token_ids`` of ``kv``, as the JAX oracle's ``jnp.take``
+    (``ref.py:135``): an id in [-N, 0) wraps to id + N, any other id out of
+    [0, N) gives a row of NaN, no ids give ``(0, hkv, hd)``. The Pallas
+    kernel clamps out-of-range ids instead; the oracle is the contract."""
+    if kv.dtype not in NAN_DTYPES:
+        raise TypeError(f"sparse_kv_gather takes {NAN_DTYPES}, got {kv.dtype} (the oracle "
+                        "fills an integer dtype's out-of-range rows with INT_MIN)")
+    ids = torch.as_tensor(token_ids, device=kv.device).long().reshape(-1)
+    n = kv.shape[0]
+    valid = (ids >= -n) & (ids < n)
+    rows = kv.index_select(0, torch.where(ids < 0, ids + n, ids).clamp(0, max(n - 1, 0)))
+    mask = valid.reshape(-1, *[1] * (kv.dim() - 1))
+    return torch.where(mask, rows, torch.full((), math.nan, dtype=kv.dtype, device=kv.device))
+
+
 def ssd_chunk_ref(
     x: torch.Tensor,  # (nb, Lc, nh, hp) dt-scaled inputs
     a_log: torch.Tensor,  # (nb, Lc, nh) per-step log decay

@@ -110,10 +110,74 @@ def test_dispatch_counts_launches_on_the_card(cuda):
                   x[None, 0, :, :1])
     ops.ssd_chunk(x[None, 0], torch.zeros((1, 32, 2), device=cuda), x[None, 0, :, :1],
                   x[None, 0, :, :1], mode="ref")
+    ops.sparse_kv_gather(x[0], [3, 1])
+    ops.sparse_kv_gather(x[0], [3, 1], mode="ref")
+    ops.sparse_kv_gather(x[0], [])  # no ids: no launch
     assert ops.launch_counts() == {
         "kv_gather_write": 1, "kv_scatter_read": 1, "flash_attention": 1,
-        "paged_attention": 1, "ssd_chunk": 1,
+        "paged_attention": 1, "ssd_chunk": 1, "sparse_kv_gather": 1,
     }
+
+
+SPARSE_CASES = [
+    # (N, hkv, hd, n_sel): row bytes in bf16 / f32
+    (64, 2, 32, 17),  # tests/test_kernels.py:111; 128 / 256 B: 16-byte copies
+    (4096, 1, 128, 8192),  # Llama-3.1-8B pool pieces, 256 B
+    (8192, 1, 80, 16384),  # qwen3-32b pool pieces, 160 B
+    (256, 8, 80, 4096),  # exp10's top-k rows of one layer's K and V
+    (50, 3, 5, 20),  # 30 / 60 B: element by element
+    (33, 1, 1, 7),  # one element a row
+]
+
+
+def _sparse_ids(rng, n, n_sel):
+    """In-range ids with repeats, every wrapped id, and out-of-range ids."""
+    ids = rng.integers(-n, n, size=n_sel)
+    ids[:6] = [n, -n - 1, 2**31 - 1, -(2**31), -1, -n][: len(ids[:6])]
+    return ids
+
+
+@pytest.mark.parametrize("case", SPARSE_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
+def test_sparse_kernel_bit_exact_with_nan_fill(cuda, case, dtype):
+    n, hkv, hd, n_sel = case
+    rng = np.random.default_rng(n + n_sel)
+    src = _randn(rng, (n, hkv, hd), dtype, cuda)
+    ids = _sparse_ids(rng, n, n_sel)
+    for given in (ids.tolist(), torch.from_numpy(ids), torch.from_numpy(ids).to(cuda).int()):
+        out = kv.sparse_kv_gather(src, given)
+        want = ref.sparse_kv_gather_ref(src, torch.from_numpy(ids))
+        torch.cuda.synchronize()
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        assert torch.equal(out.view(bits), want.view(bits))  # NaN rows by their bits
+    bad = torch.from_numpy((ids >= n) | (ids < -n)).to(cuda)
+    assert torch.isnan(out).all(dim=(1, 2)).equal(bad)
+
+
+def test_sparse_kernel_element_path_on_unaligned_rows(cuda):
+    """A contiguous view at an odd offset is not 16-byte aligned: the same
+    kernel copies element by element, with the same result."""
+    base = torch.randn((65 * 2 * 32,), device=cuda, dtype=torch.bfloat16)
+    src = base[1:].view(-1)[: 64 * 2 * 32].view(64, 2, 32)
+    assert src.data_ptr() % 16 and src.is_contiguous()
+    ids = [3, 63, -1, 64, 0]
+    out = kv.sparse_kv_gather(src, ids)
+    want = ref.sparse_kv_gather_ref(src, ids)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+
+
+def test_sparse_kernel_edges(cuda):
+    src = torch.randn((16, 2, 8), device=cuda)
+    before = kv.sparse_kv_gather.launches
+    empty = kv.sparse_kv_gather(src, [])
+    assert empty.shape == (0, 2, 8) and kv.sparse_kv_gather.launches == before
+    with pytest.raises(ValueError, match="contiguous"):
+        kv.sparse_kv_gather(src.transpose(0, 1), [0])
+    with pytest.raises(ValueError, match="takes"):
+        kv.sparse_kv_gather(src.to(torch.int32), [0])
+    kv.sparse_kv_gather(src, [1])
+    assert kv.sparse_kv_gather.launches == before + 1
 
 
 PAGED_CASES = [

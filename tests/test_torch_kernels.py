@@ -174,7 +174,8 @@ def test_dispatch_takes_plain_version_on_cpu_and_counts_nothing():
     a = -torch.rand(1, 32, 2)
     y, st = ops.ssd_chunk(x[None, 0], a, x[None, 0, :, :1], x[None, 0, :, :1])
     assert y.shape == (1, 32, 2, 16) and st.shape == (1, 2, 16, 16)
-    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0) and len(ops.KERNELS) == 5
+    assert torch.equal(ops.sparse_kv_gather(x[0], [31, 0]), x[0, [31, 0]])
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0) and len(ops.KERNELS) == 6
 
 
 def test_no_silent_fallback_for_cpu_tensors():
@@ -203,4 +204,8 @@ def test_no_silent_fallback_for_cpu_tensors():
         ops.ssd_chunk(x[None, 0], a, x[None, 0], x[None, 0], mode="kernel")
     with pytest.raises(ValueError, match="on the card"):
         ssd.ssd_chunk(x[None, 0], a, x[None, 0], x[None, 0])
+    with pytest.raises(ValueError, match="on the card"):
+        ops.sparse_kv_gather(x[0], [0], mode="kernel")
+    with pytest.raises(ValueError, match="on the card"):
+        kv.sparse_kv_gather(x[0], [0])
     assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0)
