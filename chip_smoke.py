@@ -6,7 +6,10 @@
 Phases, each a hard check (any failure exits non-zero):
 
 1. build: compile every ``src/repro_torch/kernels/csrc/*.cu`` with nvcc
-   for sm_90a, one nvcc per source, all at once.
+   for sm_90a, one nvcc per source, all at once; print ptxas's registers,
+   spills and the dynamic shared memory of flash_attention's wgmma kernels,
+   and fail unless ``cuobjdump -sass`` of the flash library holds HGMMA
+   (tensor cores) and UTMALDG (TMA) instructions.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it (Llama-3.1-8B: 32 layers, 8 kv heads,
    head_dim 128; 1024-token prompts = 64 pool blocks; max_len 2048; decode
@@ -16,26 +19,32 @@ Phases, each a hard check (any failure exits non-zero):
    pool and 16,384 of 160 B from a qwen3-32b pool of 512 blocks, with ids
    -1, -N, N and 2**31 - 1 added). Gather, scatter and the sparse gather
    (its NaN fill and negative-id wrap included) must be bit-exact; flash
-   attention within bf16 2e-2 (tests/test_kernels.py);
+   attention within bf16 2e-2 (tests/test_kernels.py), its wgmma route at
+   the main path's shape and at the ragged, GQA and non-causal shapes of
+   FLASH_SHAPES, and its CUDA-core route on the main path's inputs;
    paged attention within two bf16 steps at its largest output, ssd_chunk
    within 1e-4 of its output's scale (both sides get the same inputs, so the
    limits sit a few times above the readings). Each is timed with CUDA events
    against its plain version, its bound and, where one PyTorch call computes
    the same thing, that call (``scaled_dot_product_attention`` for the
    attention kernels, ``index_select`` for the sparse gather; timed only, the
-   port never calls them).
+   port never calls them); flash's row also gives the CUDA-core route's time
+   on the same inputs and the wgmma route's TFLOP/s.
 3. small: a reduced Llama-3.1-8B in float32 served cold and warm on the card
    (kernels) and on the CPU (plain versions) with the same weights, and a
    reduced Mamba-2 2.7B in float32 prefilled and decoded on both; the
-   per-step logits must agree within 1e-4.
+   per-step logits must agree within 1e-4; the Llama prefill's flash calls
+   (head_dim 16, float32) take the cuda_cores route.
 4. main path: full-width Llama-3.1-8B (random weights from a seed, bf16)
    served through ``RealEngine`` (kernels for tensors on the card): two cold
    prompts, two that hit a 512-token shared prefix, two full repeats. Checks
    hit counts, that the cache restored from the pool equals the KV prefill
    wrote bit for bit, that warm logits agree with cold ones and with a
    fresh prefill, and that every kernel of the path was launched during the
-   run, paged attention 32 times per decode step; then a profiled window of
-   decode steps shows where a step's time goes.
+   run, paged attention 32 times per decode step and flash attention 32
+   times per cold request, all on the wgmma route; then a profiled cold
+   request (prefill, writeback, first token) and a profiled window of
+   decode steps show where TTFT and a step's time go.
 5. Mamba-2 path: full-width mamba2-2.7b (64 layers, bf16, random weights
    from a seed under the JAX init rules): prefill of 1000 and 4095 tokens,
    each followed by 16 greedy decode steps, through ``Model``. Checks finite
@@ -97,6 +106,19 @@ SMALL_TOL = 1e-4  # float32 reduced model, card vs CPU
 LOGIT_TOL = 0.5
 PROMPT, SHARED, MAX_LEN, POOL_BLOCKS, MAX_NEW = 1024, 512, 2048, 512, 16
 DECODE_CTX = 1040  # a 1024-token prompt and 16 decode steps
+# the wgmma route against the plain version beside the main path's shape:
+# (b, sq, skv, hq, hkv, d, causal); d 64 and 128, several K/V tiles, ragged
+# lengths, sq != skv under the causal mask, non-causal, b 2, groups 1, 4, 8
+FLASH_SHAPES = (
+    (1, 2048, 2048, 8, 1, 128, True), (1, 1024, 1024, 8, 8, 64, True),
+    (1, 2048, 2048, 16, 2, 64, True), (1, 100, 100, 8, 2, 128, True),
+    (2, 200, 200, 16, 2, 64, True), (2, 200, 200, 8, 8, 128, True),
+    (1, 37, 80, 4, 1, 128, True), (1, 37, 80, 8, 2, 64, True),
+    (1, 64, 300, 8, 2, 64, False), (1, 64, 300, 8, 1, 128, False),
+    (2, 1024, 1024, 4, 4, 128, False),
+)
+# the flash library's SASS must hold tensor-core and TMA instructions
+FLASH_SASS = ("HGMMA", "UTMALDG")
 LLAMA_KERNELS = ("kv_gather_write", "kv_scatter_read", "flash_attention", "paged_attention")
 MAMBA_PROMPTS, MAMBA_STEPS = (1000, 4095), 16
 # the final SSM state of the kernel path against the plain path's, relative to
@@ -298,6 +320,75 @@ def sparse_row(cfg, qwen_cfg, g) -> dict:
     return rows[cfg.name]
 
 
+def flash_row(cfg, randn) -> dict:
+    """flash_attention at one layer of the 1024-token Llama-3.1-8B prefill
+    (bf16, d 128: the wgmma route), timed against the CUDA-core route on the
+    same inputs, the plain version and SDPA; then the wgmma route against the
+    plain version at the ragged and GQA shapes of FLASH_SHAPES."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    hkv, hd, hq = cfg.n_kv_heads, cfg.head_dim, cfg.n_heads
+    q, fk, fv = randn(1, PROMPT, hq, hd), randn(1, PROMPT, hkv, hd), randn(1, PROMPT, hkv, hd)
+    picked = fa.route(q.dtype, hd)
+    before = dict(fa.flash_attention.launches_by_route)
+    out = fa.flash_attention(q, fk, fv, causal=True)
+    want = ref.flash_attention_ref(q, fk, fv, causal=True)
+    err = (out.float() - want.float()).abs().max().item()
+    took = fa.flash_attention.launches_by_route["wgmma"] - before["wgmma"]
+    check(picked == "wgmma" and took == 1,
+          f"flash_attention at q {tuple(q.shape)} bf16 takes the {picked} route")
+    check(torch.allclose(out.float(), want.float(), atol=FLASH_TOL, rtol=FLASH_TOL),
+          f"flash_attention (wgmma) within {FLASH_TOL} at q {tuple(q.shape)} (max |err| {err:.3g})")
+    slow = fa.flash_attention(q, fk, fv, causal=True, force_route="cuda_cores")
+    slow_err = (slow.float() - want.float()).abs().max().item()
+    check(torch.allclose(slow.float(), want.float(), atol=FLASH_TOL, rtol=FLASH_TOL),
+          f"flash_attention (cuda_cores) on the same inputs within {FLASH_TOL} "
+          f"(max |err| {slow_err:.3g})")
+    pairs = PROMPT * (PROMPT + 1) // 2  # causal (q, k) pairs
+    flops = 4 * hq * hd * pairs
+    moved = (2 * q.numel() + 2 * fk.numel()) * q.element_size()  # q, k, v in; out
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, fk, fv))
+    ms = device_ms(lambda: fa.flash_attention(q, fk, fv, causal=True))
+    row = dict(
+        name="flash_attention", route="cuda", dispatch_route=picked,
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:135", max_abs_err=err,
+        ms=ms,
+        cuda_cores_ms=device_ms(
+            lambda: fa.flash_attention(q, fk, fv, causal=True, force_route="cuda_cores")),
+        plain_ms=device_ms(lambda: ref.flash_attention_ref(q, fk, fv, causal=True)),
+        bound_ms=max(flops / BF16_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3,
+        bound_by="operations" if flops / BF16_FLOP_PER_S > moved / HBM_BYTES_PER_S
+        else "bytes",
+        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)),
+        tflops=flops / (ms * 1e-3) / 1e12,
+        cuda_cores_max_abs_err=slow_err,
+    )
+    print(f"  flash_attention, {flops / 1e9:.2f} GFLOP: wgmma {row['ms']:.4f} ms "
+          f"({row['tflops']:.1f} TFLOP/s), cuda_cores {row['cuda_cores_ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f}, SDPA {row['library_ms']:.4f}, bound {row['bound_ms']:.4f}")
+    del q, fk, fv, out, want, slow, qt, kt, vt
+    errs = []
+    for b, sq, skv, nq, nkv, d, causal in FLASH_SHAPES:
+        q, k, v = randn(b, sq, nq, d), randn(b, skv, nkv, d), randn(b, skv, nkv, d)
+        before = fa.flash_attention.launches_by_route["wgmma"]
+        out = fa.flash_attention(q, k, v, causal=causal)
+        want = ref.flash_attention_ref(q, k, v, causal=causal)
+        e = (out.float() - want.float()).abs().max().item()
+        errs.append(e)
+        check(fa.flash_attention.launches_by_route["wgmma"] == before + 1
+              and torch.allclose(out.float(), want.float(), atol=FLASH_TOL, rtol=FLASH_TOL),
+              f"flash_attention (wgmma) within {FLASH_TOL} at b {b}, sq {sq}, skv {skv}, heads "
+              f"{nq}/{nkv}, d {d}, {'causal' if causal else 'non-causal'} (max |err| {e:.3g})")
+    row["max_abs_err_shapes"] = max(errs)
+    return row
+
+
 def phase_kernels(cfg, mamba_cfg) -> list[dict]:
     import torch
     import torch.nn.functional as F
@@ -352,30 +443,7 @@ def phase_kernels(cfg, mamba_cfg) -> list[dict]:
         bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
     ))
     del k, v, blocks, want, kr, vr, kw, vw, zeros
-    # -- flash_attention: one layer of the 1024-token prefill
-    q, fk, fv = randn(1, PROMPT, hq, hd), randn(1, PROMPT, hkv, hd), randn(1, PROMPT, hkv, hd)
-    out = fa.flash_attention(q, fk, fv, causal=True)
-    want = ref.flash_attention_ref(q, fk, fv, causal=True)
-    err = (out.float() - want.float()).abs().max().item()
-    check(torch.allclose(out.float(), want.float(), atol=FLASH_TOL, rtol=FLASH_TOL),
-          f"flash_attention within {FLASH_TOL} at q {tuple(q.shape)} (max |err| {err:.3g})")
-    pairs = PROMPT * (PROMPT + 1) // 2  # causal (q, k) pairs
-    flops = 4 * hq * hd * pairs
-    moved = (2 * q.numel() + 2 * fk.numel()) * q.element_size()  # q, k, v in; out
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, fk, fv))
-    rows.append(dict(
-        name="flash_attention", route="cuda",
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
-        replaces="src/repro/kernels/flash_attention.py:135", max_abs_err=err,
-        ms=device_ms(lambda: fa.flash_attention(q, fk, fv, causal=True)),
-        plain_ms=device_ms(lambda: ref.flash_attention_ref(q, fk, fv, causal=True)),
-        bound_ms=max(flops / BF16_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3,
-        bound_by="operations" if flops / BF16_FLOP_PER_S > moved / HBM_BYTES_PER_S
-        else "bytes",
-        library_ms=device_ms(lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True)),
-    ))
-    del q, fk, fv, out, want, qt, kt, vt
+    rows.append(flash_row(cfg, randn))
     rows.append(paged_row(cfg, randn))
     rows.append(ssd_row(mamba_cfg, g))
     rows.append(sparse_row(cfg, get_config("qwen3-32b"), g))
@@ -385,6 +453,29 @@ def phase_kernels(cfg, mamba_cfg) -> list[dict]:
     return rows
 
 
+def flash_build_proof(build) -> None:
+    """The wgmma route's kernels as ptxas built them (registers, spills, the
+    CTA's dynamic shared memory), and the flash library's SASS holding the
+    tensor-core (HGMMA) and TMA (UTMALDG) instructions."""
+    import re
+
+    from repro_torch.kernels import flash_attention as fa
+
+    log = build.build_log("flash_attention")
+    for fn, body in re.findall(r"Compiling entry function '(\S*flash_wgmma_kernel\S*)'"
+                               r"(.*?)Compile time", log, flags=re.S):
+        d = re.search(r"ILi(\d+)E", fn).group(1)
+        regs = re.search(r"Used (\d+) registers", body).group(1)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        smem = build.load("flash_attention", fa.SIGNATURES).flash_attention_wgmma_smem(int(d))
+        print(f"  flash wgmma kernel, d {d}: {regs} registers at launch, spill stores "
+              f"{spill.group(1)} B / loads {spill.group(2)} B, {smem} B dynamic shared memory")
+    sass = build.sass("flash_attention")
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in FLASH_SASS}
+    check(all(counts.values()), f"flash library SASS holds tensor-core and TMA instructions: "
+          f"{counts}")
+
+
 def phase_small() -> None:
     import torch
 
@@ -392,8 +483,11 @@ def phase_small() -> None:
     from repro_torch.models.model import Model, init_params
     from repro_torch.serving.real_runner import RealEngine
 
+    from repro_torch.kernels import ops
+
     cfg = dataclasses.replace(reduced_config("llama3.1-8b"), dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    ops.reset_launch_counts()
     engines = {
         "cuda": RealEngine.create(cfg, max_len=128, pool_blocks=64, device="cuda",
                                   params=_to(params, "cuda")),
@@ -404,6 +498,10 @@ def phase_small() -> None:
     got = {}
     for name, eng in engines.items():
         got[name] = [eng.generate(prompt.tolist(), max_new=8) for _ in range(2)]
+    routes = ops.flash_routes()
+    check(routes["cuda_cores"] == cfg.n_layers and routes["wgmma"] == 0,
+          f"reduced fp32 Llama (head_dim {cfg.head_dim}) prefill took the cuda_cores route: "
+          f"{routes}")
     for i, label in enumerate(("cold", "warm")):
         (tg, ig), (tc, ic) = got["cuda"][i], got["cpu"][i]
         diff = (ig["logits"].cpu() - ic["logits"]).abs().max().item()
@@ -473,6 +571,7 @@ def phase_main(cfg) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
+    routes = ops.flash_routes()
     peak = torch.cuda.max_memory_allocated()
 
     for i, ((toks, info), want) in enumerate(zip(results, want_hits)):
@@ -491,6 +590,11 @@ def phase_main(cfg) -> dict:
         + len(toks) - 1
         for p, (toks, info) in zip(prompts, results)
     )
+    cold = want_hits.count(0)
+    check(launches["flash_attention"] == routes["wgmma"] == cold * cfg.n_layers
+          and routes["cuda_cores"] == 0,
+          f"all {launches['flash_attention']} flash launches ({cold} cold prefills x "
+          f"{cfg.n_layers} layers) took the wgmma route: {routes}")
     check(launches["paged_attention"] == cfg.n_layers * steps,
           f"paged_attention launched {launches['paged_attention']} times = "
           f"{cfg.n_layers} layers x {steps} decode steps")
@@ -531,18 +635,45 @@ def phase_main(cfg) -> dict:
         "decode_tok_per_s": decode_tok / decode_s,
         "peak_mem_gib": peak / 2**30,
         "launches": launches,
+        "flash_routes": routes,
     }
     print("  main path: " + json.dumps(summary))
-    phase_profile(eng, results[0])
+    phase_profile(eng, results[0], fresh(PROMPT), results[1][1]["ttft_s"])
     # phase 6 reads this engine's pool: the blocks of p0 and the KV they hold
     return launches, (eng, [b for _, b, _ in hits], cold_k[:, 0], cold_v[:, 0])
 
 
-def phase_profile(eng, cold) -> None:
-    """Where one decode step's time goes: a short profiled window."""
+def report_profile(label, events, n, wall_ms, top=5) -> None:
+    """Wall, device-kernel time, busy share, aten calls and the top kernels
+    of a profiled window of n repeats."""
+    import torch
+
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    ops_n = sum(e.count for e in events if e.key.startswith("aten::")) / n
+    print(f"  {label} (profiled): {wall_ms:.2f} ms wall, device kernels {busy_ms:.2f} ms "
+          f"({busy_ms / wall_ms:.1%} busy), {ops_n:.0f} aten ops")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
+        print(f"    {e.self_device_time_total / 1e3 / n:.3f} ms  x{e.count // n}  {e.key[:90]}")
+
+
+def phase_profile(eng, cold, prompt, ttft_s) -> None:
+    """Where a cold request's time to first token goes (one profiled cold
+    request of a fresh prompt: prefill, pool writeback, first token) and where
+    one decode step's time goes (a short profiled window)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, info = eng.generate(prompt, max_new=1)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    print(f"  cold TTFT, req 1 of the run: {ttft_s * 1e3:.2f} ms; profiled cold request "
+          f"(hit {info['hit_tokens']}): ttft {info['ttft_s'] * 1e3:.2f} ms")
+    report_profile(f"cold prefill of {len(prompt)} tokens + writeback", prof.key_averages(), 1,
+                   wall_ms, top=8)
     toks, info = cold
     cache = info["kv"]
     pos, steps = PROMPT + len(toks), 8
@@ -553,15 +684,7 @@ def phase_profile(eng, cold) -> None:
             eng._decode(cache, toks[-1], pos + i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    events = prof.key_averages()
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    ops_per_step = sum(e.count for e in events if e.key.startswith("aten::")) / steps
-    print(f"  decode step (profiled): {wall_ms:.2f} ms wall, device kernels "
-          f"{busy_ms:.2f} ms ({busy_ms / wall_ms:.1%} busy), {ops_per_step:.0f} aten ops")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]:
-        print(f"    {e.self_device_time_total / 1e3 / steps:.3f} ms/step  "
-              f"x{e.count // steps}  {e.key[:90]}")
+    report_profile("decode step", prof.key_averages(), steps, wall_ms)
 
 
 def _rel(a, b) -> float:
@@ -700,23 +823,13 @@ def profile_mamba(model, params, prompt, toks) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    def report(label, events, n, wall_ms):
-        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
-        ops_n = sum(e.count for e in events if e.key.startswith("aten::")) / n
-        print(f"  {label} (profiled): {wall_ms:.2f} ms wall, device kernels {busy_ms:.2f} ms "
-              f"({busy_ms / wall_ms:.1%} busy), {ops_n:.0f} aten ops")
-        for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-            print(f"    {e.self_device_time_total / 1e3 / n:.3f} ms  x{e.count // n}  "
-                  f"{e.key[:90]}")
-
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         _, cache = model.prefill_fn(params, prompt)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report(f"prefill {prompt.shape[1]}", prof.key_averages(), 1, wall_ms)
+    report_profile(f"prefill {prompt.shape[1]}", prof.key_averages(), 1, wall_ms, top=6)
     steps, dev = 8, prompt.device
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -725,7 +838,7 @@ def profile_mamba(model, params, prompt, toks) -> None:
                             torch.tensor([prompt.shape[1] + i], device=dev))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    report("decode step", prof.key_averages(), steps, wall_ms)
+    report_profile("decode step", prof.key_averages(), steps, wall_ms, top=6)
 
 
 def _fields(derived: str) -> dict:
@@ -798,8 +911,9 @@ def main() -> None:
     print(f"  built {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
     for name in libs:
         for line in build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}")
+    flash_build_proof(build)
 
     cfg, mamba_cfg = get_config("llama3.1-8b"), get_config("mamba2-2.7b")
     print("[2] kernels vs plain versions", flush=True)

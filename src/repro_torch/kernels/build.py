@@ -35,15 +35,25 @@ def sources() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def nvcc() -> str:
-    found = shutil.which("nvcc")
+def tool(name: str) -> str:
+    """A CUDA toolkit program (nvcc, cuobjdump): on PATH or under $CUDA_HOME/bin."""
+    found = shutil.which(name)
     if found:
         return found
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(cuda_home, "bin", "nvcc")
+    path = os.path.join(cuda_home, "bin", name)
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found (on PATH or under $CUDA_HOME/bin)")
+        raise RuntimeError(f"{name} not found (on PATH or under $CUDA_HOME/bin)")
     return path
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of the built library ``name``: the instructions
+    the card runs (chip_smoke.py checks the flash library for HGMMA and
+    UTMALDG there)."""
+    out = subprocess.run([tool("cuobjdump"), "-sass", str(build_all([name])[name])],
+                         capture_output=True, text=True, check=True, timeout=120)
+    return out.stdout
 
 
 def lib_path(name: str) -> Path:
@@ -59,7 +69,7 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     if not todo:
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    exe = nvcc()
+    exe = tool("nvcc")
     procs = {}
     for n in todo:
         tmp = out[n].with_suffix(f".tmp{os.getpid()}.so")

@@ -5,10 +5,20 @@ Replaces the Pallas TPU kernel ``repro/kernels/flash_attention.py``
 of q (b, sq, hq, d) against k, v (b, skv, hkv, d), online softmax in f32,
 tiles above the diagonal skipped. The bound is operations:
 4 * b * hq * sq * skv * d (halved when causal) at 989 TFLOP/s in bf16.
-The source's header says what the design does about it.
+The source's header says what each design does about it.
 
-Takes float32 or bfloat16, head_dim a multiple of 16 up to 128; raises on
-anything else. Counts its launches in ``flash_attention.launches``.
+Two routes, picked from dtype and head_dim alone (``route``), never one
+as a fallback for the other:
+
+  * ``"wgmma"``: bfloat16 with head_dim 64 or 128, the tensor cores fed by
+    TMA. P is rounded to bf16 for P.V, so it is not bit-equal to the plain
+    version (within the bf16 tolerance of tests/test_kernels.py).
+  * ``"cuda_cores"``: float32, and bfloat16 at the other multiples of 16 up
+    to 128, on the f32 CUDA cores.
+
+Raises on anything else, and on a build or launch failure of either route.
+Counts its launches in ``flash_attention.launches`` and per route in
+``flash_attention.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -20,14 +30,64 @@ import torch
 
 from repro_torch.kernels import build
 
+ROUTES = ("wgmma", "cuda_cores")
+WGMMA_HEAD_DIMS = (64, 128)
+# the wgmma route's tiles (csrc/flash_attention.cu, namespace wgmma_route)
+BLOCK_Q = 128  # query rows per CTA
+BOX_COLS = 64  # 128 B of bf16: the widest box row under the 128-byte swizzle
+BOX = (BOX_COLS, 1, BLOCK_Q, 1)  # (d, h, s, b) elements per TMA load
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_U64P, _U32P = ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint32)
 SIGNATURES = {
     "flash_attention_fwd": (
         [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
         ctypes.c_int,
     ),
+    "flash_attention_wgmma_fwd": (
+        [_P, _P, _P, _P, _U64P, _U64P, _U64P, _U64P, _U32P,
+         _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        ctypes.c_int,
+    ),
+    "flash_attention_wgmma_smem": ([_I], ctypes.c_int),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_NO_ENCODER, _ENCODE_FAILED = 9999, 10000
+
+
+def route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel that takes these inputs: bf16 at d 64 or 128 goes to the
+    tensor cores, float32 and the other bf16 widths to the CUDA cores."""
+    if dtype not in _DTYPES:
+        raise ValueError(f"flash_attention takes float32 or bfloat16, not {dtype}")
+    if head_dim % 16 or not 16 <= head_dim <= 128:
+        raise ValueError(f"head_dim {head_dim} is not a multiple of 16 in [16, 128]")
+    if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
+        return "wgmma"
+    return "cuda_cores"
+
+
+def q_tile_order(n_q_tiles: int, heads_x_batch: int) -> list[int]:
+    """The q tile each block of the wgmma route takes, by launch order: block
+    x takes tile n_q_tiles - 1 - x // heads_x_batch, so every head's longest
+    causal tile starts first and the short ones fill the last wave (the
+    kernel computes the same from blockIdx.x)."""
+    return [n_q_tiles - 1 - x // heads_x_batch for x in range(n_q_tiles * heads_x_batch)]
+
+
+def tensor_map_args(shape: tuple[int, ...], elem_bytes: int = 2):
+    """(dims, byte strides, box) of the rank-4 TMA map over a contiguous
+    (b, s, h, d) tensor as it lies: dims innermost first (d, h, s, b), the
+    byte strides of h, s and b (d's is the element), and the box of one load:
+    64 columns of one head over BLOCK_Q rows."""
+    b, s, h, d = shape
+    dims = (d, h, s, b)
+    strides = (d * elem_bytes, h * d * elem_bytes, s * h * d * elem_bytes)
+    return dims, strides, BOX
+
+
+def _u64(vals):
+    return (ctypes.c_uint64 * len(vals))(*vals)
 
 
 def flash_attention(
@@ -35,31 +95,65 @@ def flash_attention(
     k: torch.Tensor,  # (b, skv, hkv, d)
     v: torch.Tensor,
     causal: bool = True,
+    *,
+    force_route: str | None = None,
 ) -> torch.Tensor:
+    """``force_route`` runs the named route where ``route`` would pick the
+    other (chip_smoke.py times both on the same inputs); it raises where
+    that route cannot take the inputs."""
     for t in (q, k, v):
         if t.device.type != "cuda" or not t.is_contiguous() or t.dtype != q.dtype:
             raise ValueError("flash_attention takes contiguous q, k, v of one dtype on the card")
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"flash_attention takes float32 or bfloat16, not {q.dtype}")
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
-    if d % 16 or not 16 <= d <= 128:
-        raise ValueError(f"head_dim {d} is not a multiple of 16 in [16, 128]")
+    picked = route(q.dtype, d)
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {q.shape}, k {k.shape}, v {v.shape}")
+    if force_route is not None:
+        if force_route not in ROUTES:
+            raise ValueError(f"route {force_route!r} not in {ROUTES}")
+        if force_route == "wgmma" and picked != "wgmma":
+            raise ValueError(f"the wgmma route takes bf16 at head_dim {WGMMA_HEAD_DIMS}")
+        picked = force_route
     out = torch.empty_like(q)
     lib = build.load("flash_attention", SIGNATURES)
+    if picked == "wgmma":
+        for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"the wgmma route's TMA needs 16-byte aligned tensors; "
+                                 f"{name} starts at {t.data_ptr():#x}")
+        q_dims, q_strides, box = tensor_map_args(tuple(q.shape))
+        kv_dims, kv_strides, _ = tensor_map_args(tuple(k.shape))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = lib.flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, sq, skv, hq, hkv, d, int(causal),
-            1.0 / math.sqrt(d), stream,
-        )
+        if picked == "wgmma":
+            rc = lib.flash_attention_wgmma_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _u64(q_dims), _u64(q_strides), _u64(kv_dims), _u64(kv_strides),
+                (ctypes.c_uint32 * 4)(*box), b, sq, skv, hq, hkv, d, int(causal),
+                1.0 / math.sqrt(d), stream,
+            )
+        else:
+            rc = lib.flash_attention_fwd(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                _DTYPES[q.dtype], b, sq, skv, hq, hkv, d, int(causal),
+                1.0 / math.sqrt(d), stream,
+            )
+    if rc == _NO_ENCODER:
+        raise RuntimeError("flash_attention (wgmma): libcuda has no cuTensorMapEncodeTiled")
+    if rc >= _ENCODE_FAILED:
+        raise RuntimeError(f"flash_attention (wgmma): cuTensorMapEncodeTiled refused a map: "
+                           f"CUresult {rc - _ENCODE_FAILED}")
     if rc:
-        raise RuntimeError(f"flash_attention launch failed: cudaError_t {rc}")
+        raise RuntimeError(f"flash_attention ({picked}) launch failed: cudaError_t {rc}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[picked] += 1
     return out
 
 
-flash_attention.launches = 0
+def reset_launch_counts() -> None:
+    flash_attention.launches = 0
+    flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+
+
+reset_launch_counts()

@@ -43,9 +43,15 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def flash_routes() -> dict[str, int]:
+    """flash_attention's launches per route ("wgmma", "cuda_cores")."""
+    return dict(_fa.flash_attention.launches_by_route)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    _fa.reset_launch_counts()
 
 
 def flash_attention(q, k, v, *, causal: bool = True, mode: str = "auto"):

@@ -6,7 +6,8 @@ card is present (decided at run time, never at import). On a GPU machine:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances: data movement bit-exact; flash attention f32 2e-5, bf16 2e-2
-(those of tests/test_kernels.py:42); paged attention f32 2e-5, bf16 3e-2
+(those of tests/test_kernels.py:42; the wgmma route, bf16 at d 64 and 128,
+rounds P to bf16 and is held to the same 2e-2); paged attention f32 2e-5, bf16 3e-2
 (tests/test_kernels.py:84); ssd_chunk f32 2e-4, bf16 5e-2
 (tests/test_kernels.py:175).
 """
@@ -62,10 +63,80 @@ def test_flash_kernel_matches_plain(cuda, case, dtype):
     q = _randn(rng, (b, sq, hq, d), dtype, cuda)
     k = _randn(rng, (b, skv, hkv, d), dtype, cuda)
     v = _randn(rng, (b, skv, hkv, d), dtype, cuda)
+    expected = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "cuda_cores"
+    before = dict(fa.flash_attention.launches_by_route)
     out = fa.flash_attention(q, k, v, causal=causal)
     want = ref.flash_attention_ref(q, k, v, causal=causal)
     torch.cuda.synchronize()
     torch.testing.assert_close(out.float(), want.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    assert fa.flash_attention.launches_by_route[expected] == before[expected] + 1
+
+
+WGMMA_CASES = [
+    # (b, sq, skv, hq, hkv, d, causal); groups hq/hkv of 1, 4 and 8
+    (1, 1024, 1024, 32, 8, 128, True),  # one layer of the Llama-3.1-8B prefill
+    (1, 2048, 2048, 8, 1, 128, True),  # 16 K/V tiles through the 2-stage ring
+    (1, 1024, 1024, 8, 8, 64, True),
+    (1, 2048, 2048, 16, 2, 64, True),
+    (1, 100, 100, 8, 2, 128, True),  # ragged: no multiple of 64 or 128
+    (2, 200, 200, 16, 2, 64, True),
+    (2, 200, 200, 8, 8, 128, True),
+    (1, 37, 80, 4, 1, 128, True),  # sq != skv, causal aligned at position 0
+    (1, 37, 80, 8, 2, 64, True),
+    (1, 64, 300, 8, 2, 64, False),  # non-causal: keys past skv in the last tile
+    (1, 64, 300, 8, 1, 128, False),
+    (2, 1024, 1024, 4, 4, 128, False),
+]
+
+
+@pytest.mark.parametrize("case", WGMMA_CASES)
+def test_flash_wgmma_route_matches_plain(cuda, case):
+    b, sq, skv, hq, hkv, d, causal = case
+    rng = np.random.default_rng(sum(case[:6]) + 1)
+    q = _randn(rng, (b, sq, hq, d), torch.bfloat16, cuda)
+    k = _randn(rng, (b, skv, hkv, d), torch.bfloat16, cuda)
+    v = _randn(rng, (b, skv, hkv, d), torch.bfloat16, cuda)
+    before = dict(fa.flash_attention.launches_by_route)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_by_route == {
+        "wgmma": before["wgmma"] + 1, "cuda_cores": before["cuda_cores"]}
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+def test_flash_routes_on_the_same_bf16_inputs(cuda):
+    """The CUDA-core kernel still takes bf16 at d = 128 when asked (chip_smoke
+    times both); the wgmma route refuses float32."""
+    rng = np.random.default_rng(3)
+    q = _randn(rng, (1, 300, 8, 128), torch.bfloat16, cuda)
+    k = _randn(rng, (1, 300, 2, 128), torch.bfloat16, cuda)
+    before = dict(fa.flash_attention.launches_by_route)
+    slow = fa.flash_attention(q, k, k, force_route="cuda_cores")
+    fast = fa.flash_attention(q, k, k)
+    want = ref.flash_attention_ref(q, k, k)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_by_route == {
+        "wgmma": before["wgmma"] + 1, "cuda_cores": before["cuda_cores"] + 1}
+    for got in (slow, fast):
+        torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+    with pytest.raises(ValueError, match="wgmma route takes bf16"):
+        fa.flash_attention(q.float(), k.float(), k.float(), force_route="wgmma")
+
+
+def test_flash_wgmma_route_rejects_unaligned_q(cuda):
+    """A contiguous view at an odd offset is no 16-byte TMA base: it raises."""
+    shape = (1, 64, 4, 128)
+    n = int(np.prod(shape))
+    base = torch.randn((n + 8,), device=cuda, dtype=torch.bfloat16)
+    q = base[1:1 + n].view(shape)
+    k = torch.randn((1, 64, 2, 128), device=cuda, dtype=torch.bfloat16)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fa.flash_attention(q, k, k)
+    assert fa.flash_attention.launches == before
 
 
 @pytest.mark.parametrize("d", [24, 144, 256])
@@ -117,6 +188,13 @@ def test_dispatch_counts_launches_on_the_card(cuda):
         "kv_gather_write": 1, "kv_scatter_read": 1, "flash_attention": 1,
         "paged_attention": 1, "ssd_chunk": 1, "sparse_kv_gather": 1,
     }
+    assert ops.flash_routes() == {"wgmma": 0, "cuda_cores": 1}  # float32, d = 16
+    ops.reset_launch_counts()
+    assert ops.flash_routes() == {"wgmma": 0, "cuda_cores": 0}
+    y = torch.zeros((1, 40, 2, 64), device=cuda, dtype=torch.bfloat16)
+    ops.flash_attention(y, y, y)
+    assert ops.flash_routes() == {"wgmma": 1, "cuda_cores": 0}
+    assert ops.launch_counts()["flash_attention"] == 1
 
 
 SPARSE_CASES = [
