@@ -9,7 +9,10 @@ Phases, each a hard check (any failure exits non-zero):
    for sm_90a, one nvcc per source, all at once; print ptxas's registers,
    spills and the dynamic shared memory of flash_attention's wgmma kernels,
    and fail unless ``cuobjdump -sass`` of the flash library holds HGMMA
-   (tensor cores) and UTMALDG (TMA) instructions.
+   (tensor cores) and UTMALDG (TMA) instructions; then each paged_attention
+   instantiation by name (dtype, head_dim, group) with its registers,
+   spills, shared memory and CTAs per SM, failing if the one Llama decode
+   runs (bf16, d 128, group 4) spills.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it (Llama-3.1-8B: 32 layers, 8 kv heads,
    head_dim 128; 1024-token prompts = 64 pool blocks; max_len 2048; decode
@@ -22,7 +25,10 @@ Phases, each a hard check (any failure exits non-zero):
    attention within bf16 2e-2 (tests/test_kernels.py), its wgmma route at
    the main path's shape and at the ragged, GQA and non-causal shapes of
    FLASH_SHAPES, and its CUDA-core route on the main path's inputs;
-   paged attention within two bf16 steps at its largest output, ssd_chunk
+   paged attention within two bf16 steps at its largest output (also at
+   contexts {0, 17, 1040} in one batch, 1 and the full table, with its
+   split plan checked: every CTA has work and every cluster is resident,
+   and one device kernel per call under torch.profiler), ssd_chunk
    within 1e-4 of its output's scale (both sides get the same inputs, so the
    limits sit a few times above the readings). Each is timed with CUDA events
    against its plain version, its bound and, where one PyTorch call computes
@@ -44,7 +50,8 @@ Phases, each a hard check (any failure exits non-zero):
    run, paged attention 32 times per decode step and flash attention 32
    times per cold request, all on the wgmma route; then a profiled cold
    request (prefill, writeback, first token) and a profiled window of
-   decode steps show where TTFT and a step's time go.
+   decode steps show where TTFT and a step's time go (the window must hold
+   32 paged kernels a step: one launch per layer).
 5. Mamba-2 path: full-width mamba2-2.7b (64 layers, bf16, random weights
    from a seed under the JAX init rules): prefill of 1000 and 4095 tokens,
    each followed by 16 greedy decode steps, through ``Model``. Checks finite
@@ -187,6 +194,35 @@ def paged_row(cfg, randn) -> dict:
           f"{tuple(pool.shape)}: max |err| {perr:.3g} <= {ptol:.3g} "
           f"(margin {ptol / max(perr, 1e-30):.3g}x)")
     del pool, kl, vl
+    # the split plan's edges on the same caches: a batch of 3 with contexts
+    # {0, 17, 1040} (the dense caches of layers 0-2 as three rows), then one
+    # row at ctx 1 and at the full table, 2048
+    errs = [err, perr]
+    rows3 = kc[:3, 0], vc[:3, 0]  # (3, 2048, hkv, hd)
+    table3 = pa.make_block_table([[i * n_blk + j for j in range(n_blk)] for i in range(3)],
+                                 3 * n_blk, dev)
+    for qq, kk, vv, tbl, ctxs in (
+            (q[:3, 0], *rows3, table3, [0, 17, DECODE_CTX]),
+            (q[0], kc[0], vc[0], table, [1]), (q[0], kc[0], vc[0], table, [MAX_LEN])):
+        cl = torch.tensor(ctxs, dtype=torch.int32, device=dev)
+        kb, vb = pa.dense_blocks(kk, bt), pa.dense_blocks(vv, bt)
+        got = pa.paged_attention(qq, kb, vb, tbl, cl)
+        e, t = bf16_check(got, ref.paged_attention_ref(qq, kb, vb, tbl, cl))
+        errs.append(e)
+        check(e <= t and (ctxs[0] or not got[0].any()),
+              f"paged_attention at contexts {ctxs}: max |err| {e:.3g} <= {t:.3g}"
+              + (" (the context-0 row all zeros)" if not ctxs[0] else ""))
+    del rows3
+    splits, per_sm = pa.plan(dev, q.dtype, hd, hq // hkv, 1, hkv, n_blk)
+    resident = pa.clusters_resident(dev, q.dtype, hd, hq // hkv, splits)
+    idle = splits - len(pa.split_ranges(DECODE_CTX, bt, splits))
+    check(resident >= hkv and idle == 0,
+          f"paged plan at Llama decode: {splits} splits x {hkv} kv heads = {splits * hkv} CTAs "
+          f"in {hkv} clusters ({resident} resident at once), {per_sm} CTAs per SM, {idle} "
+          f"without work at ctx {DECODE_CTX}")
+    per_call = kernels_per_call(lambda: [kernel(i) for i in range(4)], 4, "paged")
+    check(per_call == 1, f"paged_attention is {per_call} device kernel per call "
+          "(torch.profiler over 4 calls)")
     moved = (2 * DECODE_CTX * hkv * hd + 2 * hq * hd) * q.element_size()  # K, V rows; q, out
     flops = 4 * hq * DECODE_CTX * hd
     qs = q.unsqueeze(3)  # (L, 1, hq, 1, hd)
@@ -194,7 +230,9 @@ def paged_row(cfg, randn) -> dict:
     return dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
-        replaces="src/repro/kernels/paged_attention.py:128", max_abs_err=max(err, perr),
+        replaces="src/repro/kernels/paged_attention.py:128", max_abs_err=max(errs),
+        splits=splits, ctas_per_sm=per_sm, clusters_resident=resident,
+        kernels_per_call=per_call,
         ms=cycled_ms(kernel, range(L)),
         plain_ms=cycled_ms(plain, range(L)),
         bound_ms=max(moved / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
@@ -202,6 +240,25 @@ def paged_row(cfg, randn) -> dict:
         library_ms=cycled_ms(lambda i: F.scaled_dot_product_attention(
             qs[i], ks[i], vs[i], enable_gqa=True), range(L)),
     )
+
+
+def kernels_per_call(run, calls: int, name: str) -> float:
+    """Device kernels per call in a torch.profiler window of ``run`` (which
+    makes ``calls`` calls); fails if a kernel without ``name`` in its name
+    ran in the window."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(all(name in e.key for e in kernels),
+          f"only {name} kernels in the window: {[(e.key[:60], e.count) for e in kernels]}")
+    return sum(e.count for e in kernels) / calls
 
 
 def bf16_check(got, want) -> tuple[float, float]:
@@ -476,6 +533,39 @@ def flash_build_proof(build) -> None:
           f"{counts}")
 
 
+def paged_build_proof(build) -> None:
+    """Each paged_attention instantiation as ptxas built it, by name (dtype,
+    head_dim, group): registers, spill stores and loads, static shared
+    memory, and its K/V ring (dynamic shared memory); the one that Llama
+    decode runs (bf16, d 128, group 4) must not spill."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels import paged_attention as pa
+
+    log = build.build_log("paged_attention")
+    seen = {}
+    for fn, body in re.findall(r"Compiling entry function '(\S*paged_attention_kernel\S*)'"
+                               r"(.*?)Compile time", log, flags=re.S):
+        m = re.search(r"paged_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", fn)
+        dtype = torch.float32 if m.group(1) == "f" else torch.bfloat16
+        d, g = int(m.group(2)), int(m.group(3))
+        regs = int(re.search(r"Used (\d+) registers", body).group(1))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        smem = re.search(r"(\d+) bytes smem", body)
+        dev = torch.device("cuda", torch.cuda.current_device())
+        seen[(dtype, d, g)] = stores, loads = int(spill.group(1)), int(spill.group(2))
+        print(f"  paged kernel {str(dtype)[6:]}, d {d}, group {g}: {regs} registers, spill "
+              f"stores {stores} B / loads {loads} B, {smem.group(1) if smem else 0} B static "
+              f"+ {pa.ring_bytes(dev, dtype, d, g)} B ring shared memory, "
+              f"{pa.ctas_per_sm(dev, dtype, d, g)} CTAs per SM")
+    check(len(seen) == 2 * len(pa.HEAD_DIMS) * 4, f"ptxas reported all {len(seen)} paged "
+          "instantiations (2 dtypes x 4 head_dims x groups 1, 2, 4, 8)")
+    check(seen[(torch.bfloat16, 128, 4)] == (0, 0),
+          "the paged instantiation Llama decode runs (bf16, d 128, group 4) does not spill")
+
+
 def phase_small() -> None:
     import torch
 
@@ -684,7 +774,12 @@ def phase_profile(eng, cold, prompt, ttft_s) -> None:
             eng._decode(cache, toks[-1], pos + i)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    report_profile("decode step", prof.key_averages(), steps, wall_ms)
+    events = prof.key_averages()
+    report_profile("decode step", events, steps, wall_ms)
+    paged = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                and "paged" in e.key) / steps
+    check(paged == eng.cfg.n_layers, f"profiled decode step: {paged:g} paged kernels a step "
+          f"= {eng.cfg.n_layers} layers (one launch per layer, no merge kernel)")
 
 
 def _rel(a, b) -> float:
@@ -914,6 +1009,7 @@ def main() -> None:
             if "registers" in line or "spill" in line or "Performance Loss" in line:
                 print(f"  {name}: {line.strip()}")
     flash_build_proof(build)
+    paged_build_proof(build)
 
     cfg, mamba_cfg = get_config("llama3.1-8b"), get_config("mamba2-2.7b")
     print("[2] kernels vs plain versions", flush=True)

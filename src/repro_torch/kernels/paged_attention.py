@@ -18,14 +18,27 @@ Block tables are checked on the host where they are built
 kernel trusts a table that already lies on the card, so a decode loop
 builds its table once and never syncs to re-check it.
 
+One call is one kernel launch: ``plan`` picks S CTAs per (row, kv head),
+one thread-block cluster, from the SM count, the kernel's resident CTAs per
+SM and the clusters that fit at once (read once per device and shape, then
+cached); the kernel takes each row's share of blocks from its context on
+the card (``split_ranges`` is the same formula) and the cluster merges its
+splits through distributed shared memory in the same launch. The call
+needs no scratch in device memory: a warm call allocates only its output
+(from PyTorch's caching allocator) and never synchronises, so it can be
+captured into a CUDA graph after one warm-up call at its shapes (which
+builds the kernel and reads the plan) and replayed with new
+``context_lens`` written in place.
+
 Takes float32 or bfloat16, head_dim 16, 32, 64 or 128, at most 8 query
 heads per kv head; raises on anything else. Counts its launches in
-``paged_attention.launches``.
+``paged_attention.launches``, one per kernel launched.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -35,17 +48,91 @@ from repro_torch.kernels import build
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "paged_attention_fwd": (
-        [_P, _P, _P, _LL, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-         ctypes.c_float, _P],
+        [_P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
         ctypes.c_int,
     ),
+    "paged_attention_ctas_per_sm": ([_I, _I, _I, ctypes.POINTER(_I)], ctypes.c_int),
+    "paged_attention_smem": ([_I, _I, _I, ctypes.POINTER(_I)], ctypes.c_int),
+    "paged_attention_max_clusters": ([_I, _I, _I, _I, ctypes.POINTER(_I)], ctypes.c_int),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 128)
 MAX_GROUP = 8
-# the context is cut into splits of about this many tokens, each its own
-# thread block (at most MAX_SPLITS), and the splits are merged after
-SPLIT_TOKENS, MAX_SPLITS = 64, 64
+MAX_SPLITS = 16  # the CTAs of one (row, kv head) form one thread-block cluster
+
+
+def plan_splits(n_sms: int, ctas_per_sm: int, b: int, hkv: int, max_blocks: int,
+                clusters_resident=None) -> int:
+    """S, the CTAs per (row, kv head), one thread-block cluster: enough that
+    b * hkv * S fill the card's resident capacity (SMs x CTAs per SM) in one
+    wave, at most MAX_SPLITS (a cluster's limit) and the table's blocks, and
+    no more than lets all b * hkv clusters be resident at once
+    (``clusters_resident(S)``, when given). Llama-3.1-8B decode (b 1, hkv 8)
+    on 132 SMs at one CTA per SM takes 16."""
+    pairs = max(1, b * hkv)
+    splits = max(1, min(max_blocks, MAX_SPLITS, n_sms * ctas_per_sm // pairs))
+    while splits > 1 and clusters_resident is not None and clusters_resident(splits) < pairs:
+        splits -= 1
+    return splits
+
+
+def split_ranges(ctx: int, bt: int, splits: int) -> list[tuple[int, int]]:
+    """The pool blocks [lo, hi) each active split of a row reads, as the
+    kernel computes them on the card (``csrc/paged_attention.cu``): nb =
+    ceil(ctx / bt) blocks over S_r = min(splits, nb) splits, split s taking
+    [s * nb // S_r, (s + 1) * nb // S_r). ``ctx`` is the row's context,
+    already clamped to the table; a row of context 0 has no split."""
+    if ctx <= 0:
+        return []
+    nb = -(-ctx // bt)
+    active = min(splits, nb)
+    return [(s * nb // active, (s + 1) * nb // active) for s in range(active)]
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=None)
+def ctas_per_sm(device: torch.device, dtype: torch.dtype, d: int, g: int) -> int:
+    """Resident CTAs per SM of the kernel that takes (dtype, d, group), from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    return _query(device, "paged_attention_ctas_per_sm", dtype, d, g)
+
+
+@functools.lru_cache(maxsize=None)
+def clusters_resident(device: torch.device, dtype: torch.dtype, d: int, g: int,
+                      splits: int) -> int:
+    """Clusters of ``splits`` CTAs of that kernel resident at once, from
+    ``cudaOccupancyMaxActiveClusters``."""
+    return _query(device, "paged_attention_max_clusters", dtype, d, g, splits)
+
+
+def ring_bytes(device: torch.device, dtype: torch.dtype, d: int, g: int) -> int:
+    """Dynamic shared memory (the K/V stages) of that kernel, in bytes."""
+    return _query(device, "paged_attention_smem", dtype, d, g)
+
+
+def _query(device, fn: str, dtype, d: int, g: int, *more: int) -> int:
+    lib = build.load("paged_attention", SIGNATURES)
+    out = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn)(_DTYPES[dtype], d, g, *more, ctypes.byref(out))
+    if rc or out.value < 1:
+        raise RuntimeError(f"{fn}({dtype}, d {d}, group {g}, {more}) failed: "
+                           f"cudaError_t {rc}, got {out.value}")
+    return out.value
+
+
+@functools.lru_cache(maxsize=None)
+def plan(device: torch.device, dtype: torch.dtype, d: int, g: int, b: int, hkv: int,
+         max_blocks: int) -> tuple[int, int]:
+    """(splits, CTAs per SM) of a call on ``device``; read once per shape."""
+    per_sm = ctas_per_sm(device, dtype, d, g)
+    splits = plan_splits(sm_count(device), per_sm, b, hkv, max_blocks,
+                         lambda s: clusters_resident(device, dtype, d, g, s))
+    return splits, per_sm
 
 
 def make_block_table(rows, n_blocks: int, device) -> torch.Tensor:
@@ -103,24 +190,25 @@ def paged_attention(
     item = q.element_size()
     if (k_blocks.data_ptr() | v_blocks.data_ptr()) % 16 or k_blocks.stride(0) * item % 16:
         raise ValueError("k/v blocks must be 16-byte aligned, as must the block stride")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     if (block_table.dtype != torch.int32 or block_table.dim() != 2
             or block_table.shape[0] != b or not block_table.is_contiguous()):
         raise ValueError(f"block table must be ({b}, max_blocks) int32, contiguous")
     if context_lens.dtype != torch.int32 or tuple(context_lens.shape) != (b,):
         raise ValueError(f"context_lens must be ({b},) int32")
     out = torch.empty_like(q)
+    if b == 0:
+        return out
     max_blocks = block_table.shape[1]
-    splits = max(1, min(MAX_SPLITS, -(-max_blocks * bt // SPLIT_TOKENS)))
-    part = torch.empty((2 + d) * b * hq * splits, dtype=torch.float32, device=q.device)
-    part_m, part_l = part[: b * hq * splits], part[b * hq * splits: 2 * b * hq * splits]
-    part_acc = part[2 * b * hq * splits:]
+    g = hq // hkv
+    splits, _ = plan(q.device, q.dtype, d, g, b, hkv, max_blocks)
     lib = build.load("paged_attention", SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.paged_attention_fwd(
             q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(), k_blocks.stride(0),
             block_table.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            part_m.data_ptr(), part_l.data_ptr(), part_acc.data_ptr(),
             _DTYPES[q.dtype], b, hq, hkv, d, bt, max_blocks, splits, 1.0 / math.sqrt(d), stream,
         )
     if rc:

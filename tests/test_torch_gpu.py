@@ -337,6 +337,106 @@ def test_paged_kernel_rejects_what_it_cannot_take(cuda):
         pa.paged_attention(q16, b16, b16, tbl, ctx)
 
 
+
+def _paged_rows(rng, dtype, device, ctxs, hq, hkv, d, bt, mb):
+    """q, JAX-layout pool, a shuffled table with -1 past each row's context
+    and the contexts, for rows of the given contexts."""
+    b = len(ctxs)
+    nb = b * mb
+    q = _randn(rng, (b, hq, d), dtype, device)
+    pool = _randn(rng, (nb, 2, bt, hkv, d), dtype, device)
+    table = rng.permutation(nb).reshape(b, mb).astype(np.int32)
+    for i, c in enumerate(ctxs):
+        table[i, -(-c // bt):] = -1
+    return (q, pool, pa.make_block_table(table, nb, device),
+            torch.tensor(ctxs, dtype=torch.int32, device=device))
+
+
+def _paged_check(q, pool, tbl, ctx):
+    out = pa.paged_attention(q, pool[:, 0], pool[:, 1], tbl, ctx)
+    want = ref.paged_attention_ref(q, pool[:, 0], pool[:, 1], tbl, ctx)
+    torch.cuda.synchronize()
+    tol = PAGED_TOL[q.dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+    return out
+
+
+@pytest.mark.parametrize("g", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", pa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_at_split_edges(cuda, dtype, d, g):
+    """Contexts at the edges of the card's split plan: 1, bt - 1, bt, bt + 1,
+    S * bt - 1, S * bt + 1 and the full table, S being the splits the call
+    launches; then b = 3 with a row of context 0 beside long rows."""
+    hkv, bt, mb = 2, 16, 64
+    rng = np.random.default_rng(d + g)
+    for b in (7, 3):
+        splits, _ = pa.plan(cuda, dtype, d, g, b, hkv, mb)
+        full = mb * bt
+        if b == 7:
+            ctxs = [1, bt - 1, bt, bt + 1, min(splits * bt - 1, full),
+                    min(splits * bt + 1, full), full]
+        else:
+            ctxs = [0, full, min(splits * bt + 1, full)]
+        q, pool, tbl, ctx = _paged_rows(rng, dtype, cuda, ctxs, g * hkv, hkv, d, bt, mb)
+        out = _paged_check(q, pool, tbl, ctx)
+        if b == 3:
+            assert not out[0].any()  # context 0 gives zeros
+
+
+def test_paged_kernel_repeats_bit_for_bit(cuda):
+    """Shape A, then another b and context, then A again: the first and third
+    outputs are equal bit for bit, so the counters were left at 0 and the
+    merge takes the splits in a fixed order."""
+    rng = np.random.default_rng(11)
+    a = _paged_rows(rng, torch.bfloat16, cuda, [1000], 32, 8, 128, 16, 128)
+    other = _paged_rows(rng, torch.bfloat16, cuda, [0, 5, 700, 2048], 32, 8, 128, 16, 128)
+    first = _paged_check(*a)
+    _paged_check(*other)
+    third = _paged_check(*a)
+    assert torch.equal(first, third)
+
+
+def test_paged_kernel_replays_in_a_cuda_graph(cuda):
+    """One warm-up call, one call captured in a CUDA graph, new contexts
+    written in place, a replay: the replay equals the plain version on the
+    new contexts and an eager call on them, bit for bit."""
+    rng = np.random.default_rng(12)
+    q, pool, tbl, ctx = _paged_rows(rng, torch.bfloat16, cuda, [1040, 300], 32, 8, 128, 16, 128)
+    k, v = pool[:, 0], pool[:, 1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention(q, k, v, tbl, ctx)  # warm-up: builds the kernel, reads the plan
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(q, k, v, tbl, ctx)
+    ctx.copy_(torch.tensor([17, 2048], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = ref.paged_attention_ref(q, k, v, tbl, ctx)
+    torch.testing.assert_close(out.float(), want.float(), atol=PAGED_TOL[q.dtype],
+                               rtol=PAGED_TOL[q.dtype])
+    assert torch.equal(out, pa.paged_attention(q, k, v, tbl, ctx))
+
+
+def test_paged_kernel_is_one_device_kernel_per_call(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(13)
+    q, pool, tbl, ctx = _paged_rows(rng, torch.bfloat16, cuda, [1040], 32, 8, 128, 16, 128)
+    pa.paged_attention(q, pool[:, 0], pool[:, 1], tbl, ctx)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pa.paged_attention(q, pool[:, 0], pool[:, 1], tbl, ctx)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [(e.count, "paged" in e.key) for e in kernels] == [(1, True)], \
+        [(e.key, e.count) for e in kernels]
+
+
 SSD_CASES = [
     # (nb, Lc, nh, hp, n, groups)
     (2, 32, 8, 16, 8, 8),  # tests/test_kernels.py shapes, B/C per head
