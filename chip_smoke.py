@@ -12,7 +12,9 @@ Phases, each a hard check (any failure exits non-zero):
    (tensor cores) and UTMALDG (TMA) instructions; then each paged_attention
    instantiation by name (dtype, head_dim, group) with its registers,
    spills, shared memory and CTAs per SM, failing if the one Llama decode
-   runs (bf16, d 128, group 4) spills.
+   runs (bf16, d 128, group 4) spills; then each ssd_chunk instantiation
+   (B/C float32, bfloat16) the same way, failing if the bf16 one spills or
+   the ssd_chunk library's SASS holds no tensor-core (HMMA) instruction.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it (Llama-3.1-8B: 32 layers, 8 kv heads,
    head_dim 128; 1024-token prompts = 64 pool blocks; max_len 2048; decode
@@ -29,8 +31,12 @@ Phases, each a hard check (any failure exits non-zero):
    contexts {0, 17, 1040} in one batch, 1 and the full table, with its
    split plan checked: every CTA has work and every cluster is resident,
    and one device kernel per call under torch.profiler), ssd_chunk
-   within 1e-4 of its output's scale (both sides get the same inputs, so the
-   limits sit a few times above the readings). Each is timed with CUDA events
+   within 1e-4 of its output's scale at 1024 and 4096 tokens (both sides
+   get the same inputs, so the limits sit a few times above the readings)
+   and its prefix sums within 1e-6 of torch.cumsum's; its bound is the
+   larger of its bytes and its operations at the tensor-core peak of their
+   type; its human-readable line also prints the same operations over the
+   float32 CUDA-core peak, computed, not timed. Each is timed with CUDA events
    against its plain version, its bound and, where one PyTorch call computes
    the same thing, that call (``scaled_dot_product_attention`` for the
    attention kernels, ``index_select`` for the sparse gather; timed only, the
@@ -59,7 +65,9 @@ Phases, each a hard check (any failure exits non-zero):
    the plain path's, and continuity: prefill of 4095 tokens then one decode
    step against a prefill of all 4096, beside the noise floor of the same
    prefill with the plain ssd_chunk, in float32 and in bf16 (see
-   CONTINUITY_TOL); then a profiled prefill and decode.
+   CONTINUITY_TOL). Each prefill's wall time is the median of five runs
+   after a warm-up, with its spread, outside the counted run and every
+   profiler window; then profiled prefills of both prompts and decode.
 6. sparse reads: the port's twin of exp10 (Table 6), then of exp09
    (Fig. 14), on the card. exp10: full-width qwen3-32b at depth 1 (layer 0
    is all it reads) selects the top-32 of 256 tokens per query head and
@@ -102,6 +110,11 @@ PAGED_ULPS = 2
 # 1e-5); rounding x to bf16 or to TF32 inside the kernel would read above it
 SSD_TOL = 1e-4
 F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # dense tensor-core TF32
+# ssd_chunk's prefix sums against torch.cumsum of the same a, relative to the
+# largest |cum|: a warp's shuffle scan and torch's sum in other orders, 256
+# float32 terms at most
+CUM_TOL = 1e-6
 SMALL_TOL = 1e-4  # float32 reduced model, card vs CPU
 # warm vs cold logits at full width, bf16 (logit std about 1.3): the two
 # paths round the bf16 residual stream at different points (a 1024-row
@@ -126,8 +139,11 @@ FLASH_SHAPES = (
 )
 # the flash library's SASS must hold tensor-core and TMA instructions
 FLASH_SASS = ("HGMMA", "UTMALDG")
+# the ssd_chunk library's SASS must hold tensor-core instructions (either)
+SSD_SASS = ("HMMA", "HGMMA")
 LLAMA_KERNELS = ("kv_gather_write", "kv_scatter_read", "flash_attention", "paged_attention")
 MAMBA_PROMPTS, MAMBA_STEPS = (1000, 4095), 16
+PREFILL_REPEATS = 5  # timed prefills of each prompt, after one warm-up
 # the final SSM state of the kernel path against the plain path's, relative to
 # its largest entry: layer 0 sees the same inputs on both paths, so only the
 # kernel's f32 summation order differs; deeper layers also inherit bf16
@@ -289,7 +305,8 @@ def ssd_inputs(cfg, seq: int, g):
 
 def ssd_row(cfg, g) -> dict:
     """ssd_chunk at the full-width Mamba-2 2.7B shapes, prompts of 1024 and
-    4096 tokens; the row reports the 1024-token call."""
+    4096 tokens, called as the model calls it (with the prefix sums); the row
+    reports the 1024-token call, with the 4096-token time beside it."""
     import torch
 
     from repro_torch.kernels import ref
@@ -298,7 +315,7 @@ def ssd_row(cfg, g) -> dict:
     rows = {}
     for seq in (1024, 4096):
         x, a, b, c = ssd_inputs(cfg, seq, g)
-        y, st = ssd.ssd_chunk(x, a, b, c)
+        y, st, cum = ssd.ssd_chunk(x, a, b, c, return_cum=True)
         yr, sr = ref.ssd_chunk_ref(x, a, b, c)
         err = max((y - yr).abs().max().item(), (st - sr).abs().max().item())
         rel = max((y - yr).abs().max().item() / yr.abs().max().item(),
@@ -306,26 +323,39 @@ def ssd_row(cfg, g) -> dict:
         check(rel <= SSD_TOL, f"ssd_chunk at x {tuple(x.shape)}: max |err| {err:.3g}, "
               f"{rel:.3g} of the output's scale <= {SSD_TOL} "
               f"(margin {SSD_TOL / max(rel, 1e-30):.3g}x)")
+        want = torch.cumsum(a, dim=1)
+        cum_rel = _rel(cum, want)
+        check(cum_rel <= CUM_TOL, f"ssd_chunk's prefix sums at {tuple(a.shape)} against "
+              f"torch.cumsum: {cum_rel:.3g} of the largest |cum| <= {CUM_TOL}")
         nb, lc, nh, hp = x.shape
         n = b.shape[-1]
-        moved = 4 * (2 * x.numel() + a.numel() + st.numel()) + 2 * 2 * nb * lc * n
+        moved = 4 * (2 * x.numel() + 2 * a.numel() + st.numel()) + 2 * 2 * nb * lc * n
         pairs = lc * (lc + 1) // 2
-        flops = nb * (2 * pairs * n + nh * (2 * pairs * hp + 2 * lc * n * hp))
-        t_bytes, t_ops = moved / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+        flops_g = nb * 2 * pairs * n  # C.B^T, in B/C's type (bf16)
+        flops_tf32 = nb * nh * (2 * pairs * hp + 2 * lc * n * hp)  # P.x, B^T.(w x)
+        t_bytes = moved / HBM_BYTES_PER_S
+        t_ops = flops_g / BF16_FLOP_PER_S + flops_tf32 / TF32_FLOP_PER_S
         rows[seq] = dict(
             name="ssd_chunk", route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
             replaces="src/repro/kernels/ssd_chunk.py:72", max_abs_err=err,
-            ms=device_ms(lambda: ssd.ssd_chunk(x, a, b, c)),
-            plain_ms=device_ms(lambda: ref.ssd_chunk_ref(x, a, b, c), iters=5),
+            ms=device_ms(lambda: ssd.ssd_chunk(x, a, b, c, return_cum=True)),
+            plain_ms=device_ms(lambda: ref.ssd_chunk_ref(x, a, b, c, return_cum=True), iters=5),
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=None,
         )
         r = rows[seq]
+        # The float32 CUDA-core figure is a computed lower bound, not a timing:
+        # it stays on this line, out of the kernels JSON row.
+        f32_ops_ms = (flops_g + flops_tf32) / F32_FLOP_PER_S * 1e3
         print(f"  ssd_chunk, {seq} tokens: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
               f"{r['bound_ms']:.4f} by {r['bound_by']}: {moved / 1e6:.1f} MB, "
-              f"{flops / 1e9:.2f} GFLOP f32)")
-        del x, a, b, c, y, st, yr, sr
-    return rows[1024]
+              f"{(flops_g + flops_tf32) / 1e9:.2f} GFLOP on the tensor cores "
+              f"{t_ops * 1e3:.4f} ms; computed for f32 CUDA cores {f32_ops_ms:.4f} ms)")
+        del x, a, b, c, y, st, cum, yr, sr, want
+    row = rows[1024]
+    row["ms_4096"], row["plain_ms_4096"] = rows[4096]["ms"], rows[4096]["plain_ms"]
+    row["max_abs_err_4096"] = rows[4096]["max_abs_err"]
+    return row
 
 
 def sparse_row(cfg, qwen_cfg, g) -> dict:
@@ -564,6 +594,40 @@ def paged_build_proof(build) -> None:
           "instantiations (2 dtypes x 4 head_dims x groups 1, 2, 4, 8)")
     check(seen[(torch.bfloat16, 128, 4)] == (0, 0),
           "the paged instantiation Llama decode runs (bf16, d 128, group 4) does not spill")
+
+
+def ssd_build_proof(build) -> None:
+    """Each ssd_chunk instantiation as ptxas built it, by B/C dtype: registers,
+    spill stores and loads, static and dynamic shared memory, CTAs per SM;
+    the bf16 one (the served model) must not spill, and the library's SASS
+    must hold tensor-core instructions."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    log = build.build_log("ssd_chunk")
+    seen = {}
+    for fn, body in re.findall(r"Compiling entry function '(\S*ssd_chunk_kernel\S*)'"
+                               r"(.*?)Compile time", log, flags=re.S):
+        dtype = torch.bfloat16 if "nv_bfloat16" in fn else torch.float32
+        regs = int(re.search(r"Used (\d+) registers", body).group(1))
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        smem = re.search(r"(\d+) bytes smem", body)
+        seen[dtype] = stores, loads = int(spill.group(1)), int(spill.group(2))
+        print(f"  ssd_chunk kernel, B/C {str(dtype)[6:]}: {regs} registers, spill stores "
+              f"{stores} B / loads {loads} B, {smem.group(1) if smem else 0} B static + "
+              f"{ssd.smem_bytes(dtype)} B dynamic shared memory, "
+              f"{ssd.ctas_per_sm(dtype)} CTAs per SM")
+    check(set(seen) == {torch.float32, torch.bfloat16},
+          "ptxas reported both ssd_chunk instantiations (B/C float32, bfloat16)")
+    check(seen[torch.bfloat16] == (0, 0),
+          "the ssd_chunk instantiation the bf16 model runs does not spill")
+    sass = build.sass("ssd_chunk")
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SSD_SASS}
+    check(sum(counts.values()) > 0, f"ssd_chunk library SASS holds tensor-core "
+          f"instructions: {counts}")
 
 
 def phase_small() -> None:
@@ -835,9 +899,24 @@ def phase_mamba(cfg) -> dict:
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
 
+    # each prefill's wall time: one warm-up, then the median of PREFILL_REPEATS
+    # (outside the counted run above and every profiler window)
     for tokens, r in zip(prompts, runs):
-        print(f"  prompt {tokens.shape[1]}: prefill {r['prefill_s'] * 1e3:.1f} ms, "
-              f"{MAMBA_STEPS} decode steps {r['decode_s'] * 1e3:.1f} ms, tokens {r['tokens'][:6]}...")
+        model.prefill_fn(params, tokens)
+        times = []
+        for _ in range(PREFILL_REPEATS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model.prefill_fn(params, tokens)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        r["prefill_ms"] = sorted(times)
+    for tokens, r in zip(prompts, runs):
+        t = r["prefill_ms"]
+        print(f"  prompt {tokens.shape[1]}: prefill median {t[len(t) // 2]:.1f} ms of "
+              f"{len(t)} (spread {t[0]:.1f}-{t[-1]:.1f}; the counted run's "
+              f"{r['prefill_s'] * 1e3:.1f}), {MAMBA_STEPS} decode steps "
+              f"{r['decode_s'] * 1e3:.1f} ms, tokens {r['tokens'][:6]}...")
         check(r["logits"].shape == (MAMBA_STEPS + 1, cfg.padded_vocab)
               and bool(torch.isfinite(r["logits"]).all()),
               f"prompt {tokens.shape[1]}: {MAMBA_STEPS + 1} finite logit rows")
@@ -874,7 +953,10 @@ def phase_mamba(cfg) -> dict:
 
     decode_s = sum(r["decode_s"] for r in runs)
     summary = {
-        "prefill_ms": {str(t.shape[1]): r["prefill_s"] * 1e3 for t, r in zip(prompts, runs)},
+        "prefill_ms": {str(t.shape[1]): r["prefill_ms"][PREFILL_REPEATS // 2]
+                       for t, r in zip(prompts, runs)},
+        "prefill_ms_spread": {str(t.shape[1]): [r["prefill_ms"][0], r["prefill_ms"][-1]]
+                              for t, r in zip(prompts, runs)},
         "decode_tok_per_s": MAMBA_STEPS * len(runs) / decode_s,
         "peak_mem_gib": (peak - base) / 2**30,
         "launches": launches,
@@ -882,7 +964,7 @@ def phase_mamba(cfg) -> dict:
         "noise_floor_rel": {"bfloat16": floor_bf16, "float32": floor},
     }
     print("  mamba path: " + json.dumps(summary))
-    profile_mamba(model, params, prompts[0], runs[0]["tokens"])
+    profile_mamba(model, params, prompts, runs[0]["tokens"])
     return launches
 
 
@@ -913,18 +995,22 @@ def _leaves(tree: dict):
         yield from (_leaves(v) if isinstance(v, dict) else [v])
 
 
-def profile_mamba(model, params, prompt, toks) -> None:
-    """Where a 1000-token prefill's and a decode step's time go."""
+def profile_mamba(model, params, prompts, toks) -> None:
+    """Where each prefill's (1000 and 4095 tokens) and a decode step's time go."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, cache = model.prefill_fn(params, prompt)
+    caches = []
+    for prompt in prompts:
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(f"prefill {prompt.shape[1]}", prof.key_averages(), 1, wall_ms, top=6)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            caches.append(model.prefill_fn(params, prompt)[1])
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        report_profile(f"prefill {prompt.shape[1]}", prof.key_averages(), 1, wall_ms, top=6)
+    prompt, cache = prompts[0], caches[0]
+    del caches[1:]
     steps, dev = 8, prompt.device
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1010,6 +1096,7 @@ def main() -> None:
                 print(f"  {name}: {line.strip()}")
     flash_build_proof(build)
     paged_build_proof(build)
+    ssd_build_proof(build)
 
     cfg, mamba_cfg = get_config("llama3.1-8b"), get_config("mamba2-2.7b")
     print("[2] kernels vs plain versions", flush=True)

@@ -23,8 +23,6 @@ only.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import subprocess
 
 import torch
 import torch.nn.functional as F
@@ -36,41 +34,19 @@ from repro_torch.kernels import paged_attention as pa
 LAYERS, MAX_LEN, BT, CTX = 32, 2048, 16, 1040
 HKV, HQ, HD = 8, 32, 128
 SPLITS = (4, 8, 12, 16)
-# (old, new) edits of the source: each cuts one phase out of the kernel
+# (old, new, count) edits of the source: each cuts one phase out of the kernel
 ABLATIONS = {
     "no_compute": [
         ("    // scores: kLpr lanes per row",
-         "    if (args.scale < 0.f) {\n    // scores: kLpr lanes per row"),
+         "    if (args.scale < 0.f) {\n    // scores: kLpr lanes per row", 1),
         ("    __syncwarp();  // the stage and P are read",
-         "    }\n    __syncwarp();  // the stage and P are read"),
+         "    }\n    __syncwarp();  // the stage and P are read", 1),
     ],
     "no_cluster_merge": [
         ("  cg::cluster_group cluster = cg::this_cluster();\n",
-         "  return;\n  cg::cluster_group cluster = cg::this_cluster();\n"),
+         "  return;\n  cg::cluster_group cluster = cg::this_cluster();\n", 1),
     ],
 }
-
-
-def _variant(name: str, edits) -> ctypes.CDLL:
-    """The kernel source with ``edits``, built into build/kernels/ and loaded."""
-    src = (build.CSRC / "paged_attention.cu").read_text()
-    for old, new in edits:
-        if src.count(old) != 1:
-            raise RuntimeError(f"ablation {name}: the source no longer holds {old!r} once")
-        src = src.replace(old, new)
-    digest = hashlib.sha1(src.encode()).hexdigest()[:12]
-    cu = build.BUILD_DIR / f"paged_probe_{name}-{digest}.cu"
-    so = cu.with_suffix(".so")
-    if not so.exists():
-        build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        cu.write_text(src)
-        subprocess.run([build.tool("nvcc"), *build.NVCC_FLAGS, "-o", str(so), str(cu)],
-                       check=True, capture_output=True, timeout=600)
-    lib = ctypes.CDLL(str(so))
-    for fn, (argtypes, restype) in pa.SIGNATURES.items():
-        getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = restype
-    return lib
 
 
 def _use(lib: ctypes.CDLL) -> None:
@@ -114,7 +90,7 @@ def run() -> list[tuple]:
                          f"ctas_per_sm={per_sm};card={card}"))
         pa.plan_splits = plan_splits
         for name, edits in ABLATIONS.items():
-            _use(_variant(name, edits))
+            _use(build.load_variant("paged_attention", f"probe_{name}", edits, pa.SIGNATURES))
             rows.append((f"paged_probe.{name}.S{planned}", cycled_ms(kernel, range(LAYERS)) * 1e3,
                          f"output_wrong_by_design=True;card={card}"))
     finally:

@@ -94,14 +94,46 @@ def build_log(name: str) -> str:
     return lib_path(name).with_suffix(".log").read_text()
 
 
+def patched_source(name: str, edits) -> str:
+    """``csrc/<name>.cu`` with ``edits`` applied: each ``(old, new, count)``
+    replaces ``old``, which must occur exactly ``count`` times, by ``new``.
+    The probes in ``repro_torch.experiments`` build such copies to cut one
+    part out of a kernel and time what is left."""
+    src = (CSRC / f"{name}.cu").read_text()
+    for old, new, count in edits:
+        if src.count(old) != count:
+            raise RuntimeError(f"{name}.cu no longer holds {old!r} {count}x")
+        src = src.replace(old, new)
+    return src
+
+
+def load_variant(name: str, tag: str, edits, signatures) -> ctypes.CDLL:
+    """``patched_source(name, edits)`` built into build/kernels/ as
+    ``<name>_<tag>-<hash>.so`` and loaded with ``signatures``."""
+    src = patched_source(name, edits)
+    digest = hashlib.sha1(src.encode()).hexdigest()[:12]
+    cu = BUILD_DIR / f"{name}_{tag}-{digest}.cu"
+    so = cu.with_suffix(".so")
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        cu.write_text(src)
+        subprocess.run([tool("nvcc"), *NVCC_FLAGS, "-o", str(so), str(cu)],
+                       check=True, capture_output=True, timeout=600)
+    return _bind(ctypes.CDLL(str(so)), signatures)
+
+
+def _bind(lib: ctypes.CDLL, signatures) -> ctypes.CDLL:
+    for fn, (argtypes, restype) in signatures.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    return lib
+
+
 def load(name: str, signatures: dict[str, tuple[list, object]]) -> ctypes.CDLL:
     """The loaded library ``name``, built first if needed; ``signatures``
     maps each C function to its (argtypes, restype)."""
     lib = _LIBS.get(name)
     if lib is None:
-        lib = ctypes.CDLL(str(build_all([name])[name]))
-        for fn, (argtypes, restype) in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = restype
+        lib = _bind(ctypes.CDLL(str(build_all([name])[name])), signatures)
         _LIBS[name] = lib
     return lib

@@ -107,8 +107,9 @@ def paged_attention(q, k_blocks, v_blocks, block_table, context_lens, *, mode: s
     return _ref.paged_attention_ref(q, k_blocks, v_blocks, block_table, context_lens)
 
 
-def ssd_chunk(x, a_log, b_mat, c_mat, *, mode: str = "auto"):
-    """Intra-chunk SSD + chunk states over (nb, Lc) tiles; B/C group-shaped."""
+def ssd_chunk(x, a_log, b_mat, c_mat, *, return_cum: bool = False, mode: str = "auto"):
+    """Intra-chunk SSD + chunk states over (nb, Lc) tiles; B/C group-shaped.
+    With ``return_cum`` also the prefix sums of a_log over each chunk."""
     if use_kernel(x, mode):
-        return _ssd.ssd_chunk(x, a_log, b_mat, c_mat)
-    return _ref.ssd_chunk_ref(x, a_log, b_mat, c_mat)
+        return _ssd.ssd_chunk(x, a_log, b_mat, c_mat, return_cum=return_cum)
+    return _ref.ssd_chunk_ref(x, a_log, b_mat, c_mat, return_cum=return_cum)

@@ -134,10 +134,13 @@ def ssd_chunk_ref(
     a_log: torch.Tensor,  # (nb, Lc, nh) per-step log decay
     b_mat: torch.Tensor,  # (nb, Lc, g, n), g dividing nh (g == nh: per head)
     c_mat: torch.Tensor,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_cum: bool = False,
+):
     """Mamba-2 intra-chunk SSD over nb tiles (``ref.py:147-169``, batched as
     ``ops.py:95`` vmaps it). Head h reads group ``h // (nh // g)`` of B and C.
-    Returns (y_intra (nb, Lc, nh, hp) f32, chunk states (nb, nh, n, hp) f32)."""
+    Returns (y_intra (nb, Lc, nh, hp) f32, chunk states (nb, nh, n, hp) f32),
+    and with ``return_cum`` also cum (nb, Lc, nh) f32, the prefix sums of
+    a_log over each chunk."""
     nb, lc, nh, _ = x.shape
     rep = nh // b_mat.shape[2]
     bh = b_mat.float().repeat_interleave(rep, dim=2)  # (nb, Lc, nh, n)
@@ -152,4 +155,4 @@ def ssd_chunk_ref(
     y = torch.einsum("zlmh,zmhp->zlhp", scores * decay, xf)
     decay_to_end = torch.exp(cum[:, -1:, :] - cum)  # (nb, Lc, nh)
     state = torch.einsum("zlhn,zlh,zlhp->zhnp", bh, decay_to_end, xf)
-    return y, state
+    return (y, state, cum) if return_cum else (y, state)

@@ -2,9 +2,10 @@
 
 Twin of ``repro/models/mamba.py`` for one device:
   h_t = exp(dt_t * A) * h_{t-1} + dt_t * B_t x_t^T ;  y_t = C_t h_t + D x_t
-computed chunkwise. The intra-chunk term and the chunk-final states go
-through ``ops.ssd_chunk`` (the CUDA kernel on the card) on (b * n_chunks)
-tiles with B and C kept group-shaped; the inter-chunk recurrence over the
+computed chunkwise. The intra-chunk term, the chunk-final states and the
+chunks' prefix sums of the log decay go through ``ops.ssd_chunk`` (the CUDA
+kernel on the card) on (b * n_chunks) tiles with B and C kept
+group-shaped; the inter-chunk recurrence over the
 chunks and its contribution stay plain PyTorch, as the TPU kernel's own
 docstring splits them, with a loop over the chunks where JAX runs
 ``associative_scan``.
@@ -80,13 +81,13 @@ def _ssd_chunked(x, a_log, b_mat, c_mat, chunk: int, mode: str = "auto"):
         a_log = F.pad(a_log, (0, 0, 0, s - s_in))
     nc = s // chunk
     ar = a_log.float().reshape(bsz * nc, chunk, nh)
-    y_intra, states = ops.ssd_chunk(
+    y_intra, states, cum = ops.ssd_chunk(
         x.reshape(bsz * nc, chunk, nh, hp).contiguous(), ar.contiguous(),
         b_mat.reshape(bsz * nc, chunk, g, n), c_mat.reshape(bsz * nc, chunk, g, n),
-        mode=mode,
+        return_cum=True, mode=mode,
     )
     states = states.reshape(bsz, nc, nh, n, hp)
-    cum = torch.cumsum(ar, dim=1).reshape(bsz, nc, chunk, nh)
+    cum = cum.reshape(bsz, nc, chunk, nh)  # the kernel's prefix sums of a_log
 
     # inter-chunk recurrence: the state entering chunk z is the running
     # state after chunk z - 1

@@ -8,7 +8,9 @@ transfer accounting, against the JAX package.
 * the contiguity selection on the reduced qwen3-32b, with the weights of
   the JAX ``Model.init`` carried across, picks the same token ids as the
   JAX function up to near-ties of the bf16 scores (see ``TIE_TOL``);
-* the twins' entry points run with ``--device cpu``.
+* the twins' entry points run with ``--device cpu``;
+* every edit that the kernel probes make to a kernel source still finds its
+  text in the current source, as often as the edit says.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ from repro_torch.core import fabric, transfer
 from repro_torch.core.pool import KVBlockLayout
 from repro_torch.experiments import exp09_dense_transfer as exp09
 from repro_torch.experiments import exp10_sparse as exp10
+from repro_torch.experiments import paged_probe, ssd_probe
+from repro_torch.kernels import build
 
 torch.set_num_threads(1)  # tiny shapes; keep off the other test workers' cores
 
@@ -206,3 +210,22 @@ def test_cold_id_sets_read_whole_contexts_anywhere_in_the_pool():
         per_piece = ids.reshape(3, 2, 2, exp10.N_TOKENS)
         assert all(len(set(p.tolist())) == exp10.N_TOKENS for p in per_piece.reshape(-1, 16))
     assert len({tuple(ids.tolist()) for ids in sets}) == exp10.ID_SETS
+
+
+PROBE_EDITS = [("paged_attention", f"paged_probe.{k}", v) for k, v in paged_probe.ABLATIONS.items()]
+PROBE_EDITS += [("ssd_chunk", f"ssd_probe.{k}", v) for k, v in ssd_probe.VARIANTS.items()]
+PROBE_EDITS += [("ssd_chunk", "ssd_probe.timeline", ssd_probe.TIMELINE)]
+
+
+@pytest.mark.parametrize("source,name,edits", PROBE_EDITS, ids=[p[1] for p in PROBE_EDITS])
+def test_probe_edits_apply_to_the_current_source(source, name, edits):
+    patched = build.patched_source(source, edits)
+    assert patched != (build.CSRC / f"{source}.cu").read_text()
+    assert all(new in patched for _, new, _ in edits)
+
+
+def test_patched_source_refuses_a_stale_edit():
+    with pytest.raises(RuntimeError, match="no longer holds"):
+        build.patched_source("ssd_chunk", [("no such text in the source", "", 1)])
+    with pytest.raises(RuntimeError, match="no longer holds"):
+        build.patched_source("ssd_chunk", [("__expf(", "expf(", 1)])

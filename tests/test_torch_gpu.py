@@ -458,18 +458,21 @@ def _ssd_inputs(rng, case, dtype, device):
     return x, a.to(device), b, c
 
 
-@pytest.mark.parametrize("case", SSD_CASES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_kernel_matches_plain(cuda, case, dtype):
+def _assert_ssd_matches_plain(cuda, case, dtype, tol):
     x, a, b, c = _ssd_inputs(np.random.default_rng(sum(case)), case, dtype, cuda)
     y, st = ssd.ssd_chunk(x, a, b, c)
     yr, sr = ref.ssd_chunk_ref(x, a, b, c)
     torch.cuda.synchronize()
-    tol = SSD_TOL[dtype]
     # relative to the output's scale: full-width chunks sum 256 x 128 terms
     scale_y, scale_s = yr.abs().max().item(), sr.abs().max().item()
     torch.testing.assert_close(y / scale_y, yr / scale_y, atol=tol, rtol=tol)
     torch.testing.assert_close(st / scale_s, sr / scale_s, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("case", SSD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain(cuda, case, dtype):
+    _assert_ssd_matches_plain(cuda, case, dtype, SSD_TOL[dtype])
 
 
 def test_ssd_kernel_reads_expanded_and_sliced_b_c(cuda):
@@ -486,6 +489,92 @@ def test_ssd_kernel_reads_expanded_and_sliced_b_c(cuda):
     torch.cuda.synchronize()
     assert torch.equal(y1, y2) and torch.equal(s1, s2)
     assert torch.equal(y1, y3) and torch.equal(s1, s3)
+
+
+# The tile-edge cases at float32 level for both B/C dtypes: the kernel and the
+# plain version read the same bf16 values and both compute in float32, so a
+# lower-precision product (a dropped split pass, single-pass TF32: 3.5e-4 to
+# 5.6e-4 of the scale) fails here, where SSD_TOL's bf16 5e-2 would pass it.
+SSD_EDGE_TOL = 2e-4
+SSD_TC_CASES = [
+    # (nb, Lc, nh, hp, n, groups): the tensor-core kernel's tiles and clusters
+    (16, 256, 80, 64, 128, 1),  # Mamba-2 2.7B at 4096 tokens
+    (2, 100, 8, 64, 128, 1),  # Lc no multiple of the 64-row tile: one CTA a chunk
+    (2, 200, 8, 64, 128, 1),  # four row tiles, the last of 8 rows: clusters of two
+    (1, 256, 12, 64, 128, 1), (1, 256, 12, 64, 128, 2), (1, 256, 12, 64, 128, 4),
+    (1, 256, 80, 64, 128, 2), (1, 256, 80, 64, 128, 4),
+    (2, 150, 6, 20, 24, 3),  # odd tile count, hp and n no multiple of the mma tiles
+    (1, 64, 4, 6, 10, 2),  # rows not 16-byte aligned: staged element by element
+]
+
+
+@pytest.mark.parametrize("case", SSD_TC_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_matches_plain_at_tile_edges(cuda, case, dtype):
+    _assert_ssd_matches_plain(cuda, case, dtype, SSD_EDGE_TOL)
+
+
+def test_ssd_kernel_returns_the_prefix_sums(cuda):
+    """cum against torch.cumsum of the same a; y and st bit for bit as
+    without return_cum."""
+    x, a, b, c = _ssd_inputs(np.random.default_rng(21), (4, 256, 80, 64, 128, 1),
+                             torch.bfloat16, cuda)
+    y, st, cum = ssd.ssd_chunk(x, a, b, c, return_cum=True)
+    y0, st0 = ssd.ssd_chunk(x, a, b, c)
+    want = torch.cumsum(a, dim=1)
+    torch.cuda.synchronize()
+    assert cum.shape == a.shape and cum.dtype == torch.float32
+    torch.testing.assert_close(cum, want, rtol=1e-6, atol=1e-6 * want.abs().max().item())
+    assert torch.equal(y, y0) and torch.equal(st, st0)
+    for lc in (40, 100):
+        xs, as_, bs, cs = _ssd_inputs(np.random.default_rng(lc), (3, lc, 8, 16, 16, 2),
+                                      torch.float32, cuda)
+        cum = ssd.ssd_chunk(xs, as_, bs, cs, return_cum=True)[2]
+        want = torch.cumsum(as_, dim=1)
+        torch.testing.assert_close(cum, want, rtol=1e-6, atol=1e-6 * want.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_repeats_bit_for_bit(cuda, dtype):
+    x, a, b, c = _ssd_inputs(np.random.default_rng(22), (4, 256, 80, 64, 128, 1), dtype, cuda)
+    first = ssd.ssd_chunk(x, a, b, c, return_cum=True)
+    ssd.ssd_chunk(x[:1].contiguous(), a[:1].contiguous(), b[:1], c[:1])
+    second = ssd.ssd_chunk(x, a, b, c, return_cum=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(first, second))
+
+
+def test_ssd_kernel_replays_in_a_cuda_graph(cuda):
+    """One warm-up call, one call captured in a CUDA graph, new inputs written
+    in place, a replay: equal to an eager call on the new inputs bit for bit."""
+    rng = np.random.default_rng(23)
+    case = (4, 256, 80, 64, 128, 1)
+    x, a, b, c = _ssd_inputs(rng, case, torch.bfloat16, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ssd.ssd_chunk(x, a, b, c, return_cum=True)  # warm-up: builds the kernel
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = ssd.ssd_chunk(x, a, b, c, return_cum=True)
+    x2, a2, b2, c2 = _ssd_inputs(rng, case, torch.bfloat16, cuda)
+    for dst, src in ((x, x2), (a, a2), (b, b2), (c, c2)):
+        dst.copy_(src)
+    graph.replay()
+    torch.cuda.synchronize()
+    eager = ssd.ssd_chunk(x2, a2, b2, c2, return_cum=True)
+    torch.cuda.synchronize()
+    assert all(torch.equal(p, q) for p, q in zip(out, eager))
+    yr, sr = ref.ssd_chunk_ref(x2, a2, b2, c2)
+    assert (out[0] - yr).abs().max() <= 1e-4 * yr.abs().max()
+    assert (out[1] - sr).abs().max() <= 1e-4 * sr.abs().max()
+
+
+def test_ssd_kernel_occupancy(cuda):
+    """Two CTAs an SM for bf16 B/C (the served model), one for float32."""
+    assert ssd.ctas_per_sm(torch.bfloat16) >= 2
+    assert ssd.ctas_per_sm(torch.float32) >= 1
 
 
 @pytest.mark.parametrize("lc,n,hp", [(512, 16, 16), (32, 256, 16), (32, 16, 128)])
