@@ -22,9 +22,11 @@ Phases, each a hard check (any failure exits non-zero):
    d_state 128, prompts of 1024 and 4096 tokens. The sparse gather: the
    16-token reads of phase 6, 8,192 pieces of 256 B from the Llama-3.1-8B
    pool and 16,384 of 160 B from a qwen3-32b pool of 512 blocks, with ids
-   -1, -N, N and 2**31 - 1 added). Gather, scatter and the sparse gather
-   (its NaN fill and negative-id wrap included) must be bit-exact; flash
-   attention within bf16 2e-2 (tests/test_kernels.py), its wgmma route at
+   -1, -N, N and 2**31 - 1 added, then exp10's top-k read of 4,096 rows of
+   1,280 B; the Llama read is also timed replayed from one captured CUDA
+   graph, beside the empty kernel on its grid). Gather, scatter and the
+   sparse gather (its NaN fill and negative-id wrap included) must be
+   bit-exact; flash attention within bf16 2e-2 (tests/test_kernels.py), its wgmma route at
    the main path's shape and at the ragged, GQA and non-causal shapes of
    FLASH_SHAPES, and its CUDA-core route on the main path's inputs;
    paged attention within two bf16 steps at its largest output (also at
@@ -363,12 +365,19 @@ def sparse_row(cfg, qwen_cfg, g) -> dict:
     helpers: 16 tokens per (layer, kv head) of a 1024-token context in a
     full-width Llama-3.1-8B pool of 512 blocks, and of an 8192-token context
     in a qwen3-32b pool of 512 blocks, each read one launch of
-    (-1, 1, head_dim) pieces, timed over exp10's 32 reads cold in L2; the
-    row reports Llama's."""
+    (-1, 1, head_dim) pieces, timed over exp10's 32 reads cold in L2; then
+    exp10's top-k read, 4,096 rows of (8, 80) from one full-width qwen3-32b
+    layer's K and V, timed on one id set with its source in L2 as
+    exp10.topk_gather times it. The row reports Llama's read, with the
+    other two reads' times, the Llama read replayed from one captured CUDA
+    graph of its 32 reads (per read) and the launch floor: the kernel's C
+    entry with an empty body on the same grid (sparse_probe's ``empty``)."""
     import torch
 
     from repro_torch.core.pool import KVBlockLayout
     from repro_torch.experiments import exp10_sparse as exp10
+    from repro_torch.experiments import sparse_probe
+    from repro_torch.experiments.common import graph_ms
     from repro_torch.kernels import kv_transfer as kv
     from repro_torch.kernels import ref
 
@@ -403,8 +412,26 @@ def sparse_row(cfg, qwen_cfg, g) -> dict:
         print(f"  sparse_kv_gather, {c.name}: {n_sel} pieces of {lay.head_dim * 2} B: "
               f"{r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, index_select "
               f"{r['library_ms']:.4f}, bound {r['bound_ms']:.5f} by bytes: {moved / 1e6:.2f} MB)")
+        if c is cfg:
+            r["graph_ms"] = graph_ms(lambda i: kv.sparse_kv_gather(view, i), id_sets)
+            r["floor_ms"] = sparse_probe.floor_ms(view, id_sets)
         del pool, view, id_sets, out, want
-    return rows[cfg.name]
+    tkv, tids = sparse_probe.topk_read(qwen_cfg, g)
+    out = kv.sparse_kv_gather(tkv, tids)
+    torch.cuda.synchronize()
+    check(torch.equal(out, tkv[tids.long()]),
+          f"sparse_kv_gather bit-exact on the top-k read: {tids.numel()} rows of "
+          f"{tuple(tkv.shape[1:])} from {qwen_cfg.name}'s K and V of one layer")
+    row, qwen = rows[cfg.name], rows[qwen_cfg.name]
+    row["ms_qwen3_32b"] = qwen["ms"]
+    row["ms_topk"] = device_ms(lambda: kv.sparse_kv_gather(tkv, tids))
+    print(f"  sparse_kv_gather, three reads: {cfg.name} {row['ms'] * 1e3:.3f} us (one CUDA "
+          f"graph of its 32 reads: {row['graph_ms'] * 1e3:.3f} us a read; empty kernel on its "
+          f"grid {row['floor_ms'] * 1e3:.3f}; bound {row['bound_ms'] * 1e3:.3f}), {qwen_cfg.name} "
+          f"{qwen['ms'] * 1e3:.3f} (bound {qwen['bound_ms'] * 1e3:.3f}), top-k "
+          f"{row['ms_topk'] * 1e3:.3f} (its source and output stay in L2, so no HBM byte "
+          f"bound holds)")
+    return row
 
 
 def flash_row(cfg, randn) -> dict:

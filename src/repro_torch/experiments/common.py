@@ -48,6 +48,24 @@ def cycled_ms(fn, inputs, iters: int = 20) -> float:
     return device_ms(lambda: fn(next(it)), iters)
 
 
+def graph_ms(fn, inputs, replays: int = 20) -> float:
+    """Device time of one call of ``fn(x)`` replayed from ONE captured CUDA
+    graph of the calls over every x in ``inputs``: ``device_ms`` of the
+    replay divided by len(inputs). Each x is run once on a side stream
+    first, so ``fn`` is built and its plans cached before the capture."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for x in inputs:
+            fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for x in inputs:
+            fn(x)
+    return device_ms(graph.replay, replays) / len(inputs)
+
+
 def byte_bound_us(n_bytes: int) -> float:
     """The least time the card takes to move ``n_bytes`` through HBM."""
     return n_bytes / HBM_BYTES_PER_S * 1e6

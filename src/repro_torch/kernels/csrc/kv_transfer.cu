@@ -72,77 +72,144 @@ int launch(int dir, void* k, void* v, void* blocks, const void* slot_ids,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Sparse gather: out[i] = kv[ids[i]] for n_sel rows of row_vec units of V
-// (uint4 when a row is a multiple of 16 bytes and both bases are 16-byte
-// aligned, else the element itself, 2 or 4 bytes). The contract is the JAX
-// oracle's jnp.take, not the Pallas kernel's (which clamps): an id in
-// [-N, 0) wraps to id + N; any other id out of [0, N) writes the dtype's
+// Sparse gather: out[i] = kv[ids[i]] for n_sel rows ("pieces") of w units
+// of V (uint4 when a row is a multiple of 16 bytes and both bases are
+// 16-byte aligned, else the element itself, 2 or 4 bytes). The contract is
+// the JAX oracle's jnp.take, not the Pallas kernel's (which clamps): an id
+// in [-N, 0) wraps to id + N; any other id out of [0, N) writes the dtype's
 // quiet NaN, `nan` replicated over V. The ids are checked here, on the
 // card, so the wrapper never syncs to look at them.
 //
 // Bound on an H100: bytes, n_sel rows read and written once; at exp10's
-// shapes (8,192 pieces of 256 B, 16,384 of 160 B) that is 1.3-1.6 us, below
-// a launch's own latency. The design: ONE launch for all n_sel rows, the
-// paper's "thousands of tiny pieces, one kernel" (§6.1, Exp #10). Rows are
-// far smaller than a thread block, so threads walk the flat (row, unit)
-// space in a grid-stride loop: neighbouring threads copy neighbouring units
-// of one row, and a warp spans two or more rows when they are short.
-template <typename V>
-__global__ void sparse_gather_kernel(const V* __restrict__ kv, V* __restrict__ out,
-                                     const int32_t* __restrict__ ids,
-                                     int n_rows, long long row_vec,
-                                     long long total, V nan) {
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       t < total; t += stride) {
-    const long long i = t / row_vec;
-    const long long j = t - i * row_vec;
-    int id = __ldg(ids + i);
-    if (id < -n_rows || id >= n_rows) {
-      out[t] = nan;
-    } else {
-      if (id < 0) id += n_rows;
-      out[t] = __ldg(kv + (long long)id * row_vec + j);
+// shapes (8,192 pieces of 256 B, 16,384 of 160 B) that is 1.25-1.57 us,
+// below a launch's own latency. What is left to a kernel is latency: the
+// launch, then two dependent round trips (the id, then the piece) and the
+// stores draining. On an H100 (sparse_probe) an empty kernel takes 1.8-1.9
+// us on 132 CTAs and about 0.5 ns more per further CTA; the round trips
+// and the stores take about 1.9 us of Llama's read in every design tried.
+// So the design keeps one round trip of each for every piece, in ONE launch
+// of at most one resident wave, with few CTAs, each with work for every
+// lane:
+//  - the grid gives every lane one unit, ceil(units / kSparseThreads)
+//    CTAs, capped at the wave the card holds (the wrapper reads SMs x
+//    resident CTAs once per device and width) and at one CTA a piece;
+//    CTA c takes the contiguous pieces [c*q + min(c, r), +q + (c<r)) of
+//    q, r = divmod(n_sel, grid), divided on the host, balanced to within
+//    one piece. A grid of one full wave, most of its lanes idle, read
+//    slower: its extra CTAs cost more launch than they save;
+//  - neighbouring lanes copy neighbouring units of the CTA's contiguous
+//    output; a lane loads its unit's id itself, one request per warp for
+//    the two or three pieces its 32 units touch. Staging the ids once per
+//    CTA in shared memory behind a barrier, or once per warp handed out by
+//    shuffle, read slower (sparse_probe's `staged`, `warp_ids`);
+//  - a lane with more than one unit (a read larger than a wave) issues up
+//    to kSparseUnits loads (ld.global.nc, unrolled into registers) before
+//    any store;
+//  - offsets are 32-bit units (the wrapper refuses views past 2^31 units);
+//    only the final address is 64-bit. The row width is a template case
+//    (kW) for the widths the paths use, so the unit -> (piece, column)
+//    split is a multiply, not a division: 0.10-0.13 us faster than the
+//    generic case at each of phase 6's three reads on an H100
+//    (sparse_probe's `generic_width`); kW == 0 takes any width.
+// Nothing is allocated and the grid depends on shapes and the device only,
+// so a call can be captured in a CUDA graph and replayed with new ids in
+// place.
+constexpr int kSparseThreads = 128;
+constexpr int kSparseUnits = 2;  // units a lane holds in flight
+
+template <typename V, int kW>
+__global__ void __launch_bounds__(kSparseThreads)
+    sparse_gather_kernel(const V* __restrict__ kv, V* __restrict__ out,
+                         const int32_t* __restrict__ ids, int q, int r, int n_rows,
+                         int row_units, V nan) {
+  const unsigned w = kW > 0 ? kW : row_units;
+  const int tid = threadIdx.x;
+  const int c = blockIdx.x;
+  const int first = c * q + min(c, r);
+  const unsigned units = static_cast<unsigned>(q + (c < r ? 1 : 0)) * w;
+  const int32_t* cids = ids + first;
+  V* o = out + static_cast<size_t>(first) * w;
+  for (unsigned u0 = 0; u0 < units; u0 += kSparseThreads * kSparseUnits) {
+    V v[kSparseUnits];
+#pragma unroll
+    for (int k = 0; k < kSparseUnits; ++k) {
+      const unsigned u = u0 + k * kSparseThreads + tid;
+      v[k] = nan;
+      if (u < units) {
+        const unsigned p = u / w;
+        int row = __ldg(cids + p);
+        if (row < 0) row += n_rows;
+        if (static_cast<unsigned>(row) < static_cast<unsigned>(n_rows))
+          v[k] = __ldg(kv + (static_cast<unsigned>(row) * w + (u - p * w)));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < kSparseUnits; ++k) {
+      const unsigned u = u0 + k * kSparseThreads + tid;
+      if (u < units) o[u] = v[k];
     }
   }
 }
 
-template <typename V>
-int launch_sparse(const void* kv, void* out, const void* ids, int n_sel,
-                  int n_rows, long long row_vec, V nan, void* stream) {
-  const long long total = (long long)n_sel * row_vec;
-  if (total == 0) return 0;
-  long long grid = (total + kThreads - 1) / kThreads;
-  if (grid > 132 * 32) grid = 132 * 32;
-  sparse_gather_kernel<V><<<(int)grid, kThreads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const V*>(kv), static_cast<V*>(out),
-      static_cast<const int32_t*>(ids), n_rows, row_vec, total, nan);
-  return static_cast<int>(cudaGetLastError());
+// Calls f(kernel, nan) with the instantiation that takes (unit_bytes,
+// row_units) and the dtype's NaN as its unit type V: the widths of the
+// paths (Llama-3.1-8B's 256-B pieces, qwen3-32b's 160-B pieces and its
+// (8, 80) bf16 top-k rows) have their own case, any other width kW == 0.
+template <typename F>
+int with_sparse_kernel(int unit_bytes, int row_units, unsigned int nan_bits, F f) {
+  switch (unit_bytes) {
+    case 16: {
+      const uint4 nan = make_uint4(nan_bits, nan_bits, nan_bits, nan_bits);
+      switch (row_units) {
+        case 16:
+          return f(sparse_gather_kernel<uint4, 16>, nan);
+        case 10:
+          return f(sparse_gather_kernel<uint4, 10>, nan);
+        case 80:
+          return f(sparse_gather_kernel<uint4, 80>, nan);
+        default:
+          return f(sparse_gather_kernel<uint4, 0>, nan);
+      }
+    }
+    case 4:
+      return f(sparse_gather_kernel<uint32_t, 0>, static_cast<uint32_t>(nan_bits));
+    case 2:
+      return f(sparse_gather_kernel<uint16_t, 0>, static_cast<uint16_t>(nan_bits));
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// unit_bytes: 16 (row_vec uint4 per row), 4 or 2 (row_vec elements);
-// nan_bits: the dtype's quiet NaN, replicated to fill a 4-byte word.
+// unit_bytes: 16 (row_units uint4 per row), 4 or 2 (row_units elements);
+// nan_bits: the dtype's quiet NaN, replicated to fill a 4-byte word; grid:
+// the wrapper's, at most SMs x sparse_kv_gather_ctas_per_sm and n_sel.
 extern "C" int sparse_kv_gather(const void* kv, void* out, const void* ids,
-                                int n_sel, int n_rows, long long row_vec,
-                                int unit_bytes, unsigned int nan_bits,
+                                int n_sel, int n_rows, int row_units,
+                                int unit_bytes, unsigned int nan_bits, int grid,
                                 void* stream) {
-  switch (unit_bytes) {
-    case 16:
-      return launch_sparse<uint4>(kv, out, ids, n_sel, n_rows, row_vec,
-                                  make_uint4(nan_bits, nan_bits, nan_bits, nan_bits),
-                                  stream);
-    case 4:
-      return launch_sparse<uint32_t>(kv, out, ids, n_sel, n_rows, row_vec,
-                                     nan_bits, stream);
-    case 2:
-      return launch_sparse<uint16_t>(kv, out, ids, n_sel, n_rows, row_vec,
-                                     static_cast<uint16_t>(nan_bits), stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (n_sel <= 0) return 0;
+  if (row_units <= 0 || grid <= 0 || grid > n_sel)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return with_sparse_kernel(unit_bytes, row_units, nan_bits, [&](auto kernel, auto nan) {
+    using V = decltype(nan);
+    kernel<<<grid, kSparseThreads, 0, s>>>(
+        static_cast<const V*>(kv), static_cast<V*>(out), static_cast<const int32_t*>(ids),
+        n_sel / grid, n_sel % grid, n_rows, row_units, nan);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// Resident CTAs per SM of the instantiation that takes (unit_bytes,
+// row_units), from cudaOccupancyMaxActiveBlocksPerMultiprocessor. Returns a
+// cudaError_t.
+extern "C" int sparse_kv_gather_ctas_per_sm(int unit_bytes, int row_units, int* out) {
+  return with_sparse_kernel(unit_bytes, row_units, 0u, [&](auto kernel, auto) {
+    return static_cast<int>(
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, kernel, kSparseThreads, 0));
+  });
 }
 
 extern "C" int kv_gather_write(const void* k, const void* v, void* blocks,

@@ -18,7 +18,10 @@ output is allocated with ``torch.zeros``, as the JAX oracle path does
 
 ``sparse_kv_gather`` follows the JAX oracle (``jnp.take``), as
 ``ref.sparse_kv_gather_ref`` does: ids in [-N, 0) wrap, any other id out of
-range gives a NaN row. The Pallas kernel clamps such ids instead.
+range gives a NaN row. The Pallas kernel clamps such ids instead. Its
+kernel runs in at most one resident wave, one unit a lane where the read
+fits: ``sparse_plan`` is the Python mirror of how it splits the pieces over
+CTAs and lanes.
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -26,6 +29,8 @@ Each wrapper counts its launches in ``<wrapper>.launches``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 
 import torch
@@ -37,11 +42,15 @@ _ARGS = [_P, _P, _P, _P, _I, _I, _I, _LL, _P]
 SIGNATURES = {
     "kv_gather_write": (_ARGS, ctypes.c_int),
     "kv_scatter_read": (_ARGS, ctypes.c_int),
-    "sparse_kv_gather": ([_P, _P, _P, _I, _I, _LL, _I, ctypes.c_uint, _P], ctypes.c_int),
+    "sparse_kv_gather": ([_P, _P, _P, _I, _I, _I, _I, ctypes.c_uint, _I, _P], ctypes.c_int),
+    "sparse_kv_gather_ctas_per_sm": ([_I, _I, ctypes.POINTER(_I)], ctypes.c_int),
 }
 # each float dtype's quiet NaN, replicated to fill a 4-byte word
 NAN_BITS = {torch.float32: 0x7FC00000, torch.bfloat16: 0x7FC07FC0, torch.float16: 0x7E007E00}
 INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
+# the sparse kernel's constants (csrc/kv_transfer.cu): threads per CTA and
+# units a lane holds in flight
+SPARSE_THREADS, SPARSE_LANE_UNITS = 128, 2
 
 
 def check_slots(slot_ids, n_slots: int) -> list[int]:
@@ -143,29 +152,80 @@ def kv_scatter_read(
 kv_scatter_read.launches = 0
 
 
+@dataclasses.dataclass(frozen=True)
+class SparsePlan:
+    grid: int  # CTAs: at most one resident wave and one per piece
+    ranges: tuple[tuple[int, int], ...]  # each CTA's pieces [lo, hi)
+    units_per_lane: int  # the most units a lane loads before it stores
+
+
+def sparse_grid(wave: int, n_sel: int, row_units: int) -> int:
+    """The kernel's grid: one CTA per SPARSE_THREADS units, so every lane
+    copies one unit, but no more CTAs than the card holds at once
+    (``wave``) or than pieces."""
+    return max(1, min(wave, n_sel, -(-n_sel * row_units // SPARSE_THREADS)))
+
+
+def sparse_plan(n_sms: int, ctas_per_sm: int, n_sel: int, row_units: int) -> SparsePlan:
+    """How the kernel splits n_sel pieces of ``row_units`` units: CTA c takes
+    pieces [c*q + min(c, r), (c+1)*q + min(c+1, r)) of q, r = divmod(n_sel,
+    grid). A CTA's lanes take its units in turn, SPARSE_THREADS apart, each
+    loading up to SPARSE_LANE_UNITS before it stores them."""
+    grid = sparse_grid(n_sms * ctas_per_sm, n_sel, row_units)
+    q, r = divmod(n_sel, grid)
+    ranges = tuple((c * q + min(c, r), (c + 1) * q + min(c + 1, r)) for c in range(grid))
+    most = (q + (r > 0)) * row_units
+    return SparsePlan(grid, ranges, min(SPARSE_LANE_UNITS, -(-most // SPARSE_THREADS)))
+
+
+@functools.lru_cache(maxsize=None)
+def sparse_wave(device: torch.device, unit: int, row_units: int) -> int:
+    """SMs x resident CTAs per SM of the kernel for (unit, row_units), from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``; read once."""
+    lib = build.load("kv_transfer", SIGNATURES)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.sparse_kv_gather_ctas_per_sm(unit, row_units, ctypes.byref(per_sm))
+    if rc or per_sm.value < 1:
+        raise RuntimeError(f"sparse_kv_gather_ctas_per_sm({unit}, {row_units}) failed: "
+                           f"cudaError_t {rc}, got {per_sm.value}")
+    return torch.cuda.get_device_properties(device).multi_processor_count * per_sm.value
+
+
+def sparse_args(kv: torch.Tensor, ids: torch.Tensor, out: torch.Tensor) -> list | None:
+    """The C entry's arguments but the stream: the route (16-B units, or
+    elements where a row or a base is not 16-byte aligned), the row in
+    units and the grid; None when there is nothing to copy. Raises past the
+    kernel's 32-bit offsets and for a tensor off the card."""
+    row_bytes = math.prod(kv.shape[1:]) * kv.element_size()
+    aligned = kv.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
+    unit = 16 if row_bytes % 16 == 0 and aligned else kv.element_size()
+    row_units, n_sel = row_bytes // unit, ids.numel()
+    if max(kv.shape[0], n_sel) * row_units > INT32_MAX:  # the kernel's offsets are 32-bit
+        raise ValueError(f"{max(kv.shape[0], n_sel)} rows of {row_units} units pass the "
+                         f"kernel's 32-bit offsets ({INT32_MAX} units)")
+    _check_cuda(kv)
+    if out.numel() == 0:
+        return None
+    grid = sparse_grid(sparse_wave(kv.device, unit, row_units), n_sel, row_units)
+    return [kv.data_ptr(), out.data_ptr(), ids.data_ptr(), n_sel, kv.shape[0], row_units,
+            unit, NAN_BITS[kv.dtype], grid]
+
+
 def sparse_kv_gather(
     kv: torch.Tensor,  # (N, hkv, hd) token-major, contiguous, on the card
     token_ids,  # (n_sel,) ints: a list or a tensor
 ) -> torch.Tensor:
     """-> (n_sel, hkv, hd): row ``token_ids[i]`` of ``kv``, NaN where the id
     is out of range (see the module's note). One launch; none for no ids."""
-    _check_cuda(kv)
     if kv.dtype not in NAN_BITS:
         raise ValueError(f"sparse_kv_gather takes {tuple(NAN_BITS)}, got {kv.dtype}")
-    if kv.shape[0] > INT32_MAX:
-        raise ValueError(f"{kv.shape[0]} rows do not fit the kernel's int32 ids")
     ids = _device_ids(token_ids, kv.device)
-    n_sel = ids.numel()
-    out = torch.empty((n_sel, *kv.shape[1:]), dtype=kv.dtype, device=kv.device)
-    if n_sel == 0:
+    out = torch.empty((ids.numel(), *kv.shape[1:]), dtype=kv.dtype, device=kv.device)
+    args = sparse_args(kv, ids, out)
+    if args is None:
         return out
-    row_bytes = math.prod(kv.shape[1:]) * kv.element_size()
-    aligned = kv.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0
-    unit = 16 if row_bytes % 16 == 0 and aligned else kv.element_size()
-    _launch("sparse_kv_gather", [
-        kv.data_ptr(), out.data_ptr(), ids.data_ptr(), n_sel, kv.shape[0],
-        row_bytes // unit, unit, NAN_BITS[kv.dtype],
-    ], kv.device)
+    _launch("sparse_kv_gather", args, kv.device)
     sparse_kv_gather.launches += 1
     return out
 

@@ -40,7 +40,7 @@ from repro_torch.core import fabric, transfer
 from repro_torch.core.pool import KVBlockLayout
 from repro_torch.experiments import exp09_dense_transfer as exp09
 from repro_torch.experiments import exp10_sparse as exp10
-from repro_torch.experiments import paged_probe, ssd_probe
+from repro_torch.experiments import paged_probe, sparse_probe, ssd_probe
 from repro_torch.kernels import build
 
 torch.set_num_threads(1)  # tiny shapes; keep off the other test workers' cores
@@ -215,6 +215,8 @@ def test_cold_id_sets_read_whole_contexts_anywhere_in_the_pool():
 PROBE_EDITS = [("paged_attention", f"paged_probe.{k}", v) for k, v in paged_probe.ABLATIONS.items()]
 PROBE_EDITS += [("ssd_chunk", f"ssd_probe.{k}", v) for k, v in ssd_probe.VARIANTS.items()]
 PROBE_EDITS += [("ssd_chunk", "ssd_probe.timeline", ssd_probe.TIMELINE)]
+PROBE_EDITS += [("kv_transfer", f"sparse_probe.{k}", v) for k, v in sparse_probe.VARIANTS.items()]
+PROBE_EDITS += [("kv_transfer", "sparse_probe.timeline", sparse_probe.TIMELINE)]
 
 
 @pytest.mark.parametrize("source,name,edits", PROBE_EDITS, ids=[p[1] for p in PROBE_EDITS])

@@ -205,6 +205,9 @@ SPARSE_CASES = [
     (256, 8, 80, 4096),  # exp10's top-k rows of one layer's K and V
     (50, 3, 5, 20),  # 30 / 60 B: element by element
     (33, 1, 1, 7),  # one element a row
+    # the one-wave kernel's edges: one piece, a warp's worth and either side
+    (300, 1, 128, 1), (300, 1, 128, 31), (300, 1, 128, 32), (300, 1, 128, 33),
+    (1024, 8, 80, 20000),  # 1,280-B rows past a wave: 9-10 pieces a CTA, 3-4 passes a lane
 ]
 
 
@@ -256,6 +259,99 @@ def test_sparse_kernel_edges(cuda):
         kv.sparse_kv_gather(src.to(torch.int32), [0])
     kv.sparse_kv_gather(src, [1])
     assert kv.sparse_kv_gather.launches == before + 1
+
+
+def _sparse_check(src, ids):
+    """The kernel against the plain version on ``ids``, NaN rows by their bits."""
+    out = kv.sparse_kv_gather(src, ids)
+    want = ref.sparse_kv_gather_ref(src, ids)
+    torch.cuda.synchronize()
+    bits = torch.int32 if src.dtype == torch.float32 else torch.int16
+    assert torch.equal(out.view(bits), want.view(bits))
+    return out
+
+
+@pytest.mark.parametrize("extra", [0, 1])
+def test_sparse_kernel_at_a_whole_wave_and_one_past(cuda, extra):
+    """256-B pieces that fill the card's whole wave of CTAs at one unit a lane
+    (8 pieces a CTA), then one piece more: the grid stays at the wave, the
+    first CTA takes 9 pieces and 16 of its lanes a second unit."""
+    rng = np.random.default_rng(30 + extra)
+    src = _randn(rng, (4096, 1, 128), torch.bfloat16, cuda)
+    wave = kv.sparse_wave(cuda, 16, 16)
+    n_sel = wave * kv.SPARSE_THREADS // 16 + extra
+    assert kv.sparse_grid(wave, n_sel, 16) == wave
+    _sparse_check(src, torch.from_numpy(_sparse_ids(rng, 4096, n_sel)).to(cuda))
+
+
+def test_sparse_kernel_takes_int64_ids_past_int32(cuda):
+    """int64 ids beyond int32's range give NaN rows (the wrapper clamps them
+    to int32's ends, which stay out of range), from the host or the card."""
+    rng = np.random.default_rng(31)
+    n = 4096
+    src = _randn(rng, (n, 1, 128), torch.bfloat16, cuda)
+    ids = torch.from_numpy(rng.integers(-n, n, size=64))
+    far = torch.tensor([2**40, -(2**40), 2**31, -(2**31) - 1, 2**63 - 1, n - 1, -n])
+    ids = torch.cat([ids, far])
+    for given in (ids, ids.to(cuda)):
+        out = _sparse_check(src, given)
+        assert torch.isnan(out).all(dim=(1, 2)).nonzero().flatten().tolist() == \
+            list(range(64, 69))
+
+
+def test_sparse_kernel_repeats_bit_for_bit(cuda):
+    """A read, another read of another width, the first again: equal bit for bit."""
+    rng = np.random.default_rng(32)
+    a = _randn(rng, (4096, 1, 128), torch.bfloat16, cuda)
+    b = _randn(rng, (8192, 1, 80), torch.bfloat16, cuda)
+    ids_a = torch.from_numpy(_sparse_ids(rng, 4096, 8192)).to(cuda)
+    ids_b = torch.from_numpy(_sparse_ids(rng, 8192, 16384)).to(cuda)
+    first = kv.sparse_kv_gather(a, ids_a)
+    kv.sparse_kv_gather(b, ids_b)
+    third = kv.sparse_kv_gather(a, ids_a)
+    torch.cuda.synchronize()
+    assert torch.equal(first.view(torch.int16), third.view(torch.int16))
+
+
+def test_sparse_kernel_replays_in_a_cuda_graph(cuda):
+    """One warm-up call, one call captured in a CUDA graph, new ids copied
+    into the captured id buffer, a replay: equal to the plain version on the
+    new ids bit for bit, out-of-range ids included."""
+    rng = np.random.default_rng(33)
+    n = 4096
+    src = _randn(rng, (n, 1, 128), torch.bfloat16, cuda)
+    ids = torch.from_numpy(_sparse_ids(rng, n, 8192)).to(cuda).int()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        kv.sparse_kv_gather(src, ids)  # warm-up: builds the kernel, reads the wave
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = kv.sparse_kv_gather(src, ids)
+    new = torch.from_numpy(_sparse_ids(np.random.default_rng(34), n, 8192)).int()
+    ids.copy_(new)
+    graph.replay()
+    torch.cuda.synchronize()
+    want = ref.sparse_kv_gather_ref(src, new)
+    assert torch.equal(out.view(torch.int16), want.view(torch.int16))
+
+
+def test_sparse_kernel_is_one_device_kernel_per_call(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(35)
+    src = _randn(rng, (4096, 1, 128), torch.bfloat16, cuda)
+    ids = torch.from_numpy(_sparse_ids(rng, 4096, 8192)).to(cuda).int()
+    kv.sparse_kv_gather(src, ids)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        kv.sparse_kv_gather(src, ids)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [(e.count, "sparse" in e.key) for e in kernels] == [(1, True)], \
+        [(e.key, e.count) for e in kernels]
 
 
 PAGED_CASES = [
