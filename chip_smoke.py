@@ -43,12 +43,20 @@ Phases, each a hard check (any failure exits non-zero):
    the same thing, that call (``scaled_dot_product_attention`` for the
    attention kernels, ``index_select`` for the sparse gather; timed only, the
    port never calls them); flash's row also gives the CUDA-core route's time
-   on the same inputs and the wgmma route's TFLOP/s.
-3. small: a reduced Llama-3.1-8B in float32 served cold and warm on the card
-   (kernels) and on the CPU (plain versions) with the same weights, and a
-   reduced Mamba-2 2.7B in float32 prefilled and decoded on both; the
-   per-step logits must agree within 1e-4; the Llama prefill's flash calls
-   (head_dim 16, float32) take the cuda_cores route.
+   on the same inputs and the wgmma route's TFLOP/s. The MoE and hybrid
+   paths' shapes get rows of their own under ``shapes``, checked under the
+   same limits and timed the same way: flash and paged attention at
+   Arctic's GQA group of 7 (56 / 8 heads; 1024 tokens, decode context 1040)
+   and Jamba's group of 8 at 64 / 8 heads (1000 tokens, context 1016), d
+   128, and ssd_chunk at Jamba's 256 heads (1024 tokens). exp10's top-k
+   read is also timed over 96 seeded sources in turn (63 MB, above L2)
+   beside its byte bound.
+3. small: reduced Llama-3.1-8B and Arctic-480B in float32 served cold and
+   warm on the card (kernels) and on the CPU (plain versions) with the same
+   weights, and reduced Mamba-2 2.7B and Jamba-1.5-Large in float32
+   prefilled and decoded on both; the per-step logits must agree within
+   1e-4; the attention prefills' flash calls (head_dim 16, float32) take
+   the cuda_cores route.
 4. main path: full-width Llama-3.1-8B (random weights from a seed, bf16)
    served through ``RealEngine`` (kernels for tensors on the card): two cold
    prompts, two that hit a 512-token shared prefix, two full repeats. Checks
@@ -80,6 +88,28 @@ Phases, each a hard check (any failure exits non-zero):
    written and read back, and the one-launch check. Checks one launch per
    read, bit-exact pieces, finite scores; prints the rows (the fabric rows
    are MODELED by the paper's CXL/RDMA constants, not measured).
+7. Arctic-480B path (phase 4's engine freed first): full width (d 7168,
+   56 / 8 heads, 128 experts top-2, d_ff 4864, dense residual 4864, bf16,
+   random weights from a seed), depth cut to 2 layers (about 55 GB),
+   served through ``RealEngine`` with a pool of 512 blocks: two cold
+   1024-token requests, a partial hit on a 768-token shared prefix and a
+   full repeat, 16 new tokens each. Checks hit counts, the restored cache
+   bit for bit, the launches (flash 2 per cold request, all wgmma; paged 2
+   per decode step; gather 1 per cold request; scatter 1 per hit), and the
+   per-step logits against the same requests through the plain versions on
+   the card (printed: that noise floor); prints the dropped (token, k)
+   pairs per MoE layer of each cold prefill, TTFT cold / partial / full,
+   decode tokens/s, peak memory, and a profiled cold request and decode
+   window.
+8. Jamba-1.5-Large path: full width (d 8192, 64 / 8 heads, d_ff 24576, 256
+   SSD heads of 64, d_state 128, bf16), cut to one period of 8 layers and
+   8 of its 16 experts, top-2 kept (about 52 GB), through ``Model``: a
+   1000-token prefill and 16 greedy decode steps. Checks finite logits,
+   ssd_chunk 7 and flash 1 per prefill and paged 1 per decode step, the
+   final SSM states against the plain path's, and continuity at a capacity
+   factor of 8.0 beside its noise floor, as phase 5 does; prints the
+   dropped pairs, the prefill's median of 5 with its spread, decode
+   tokens/s, peak memory and profiled windows.
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
@@ -89,6 +119,7 @@ before doing anything.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import subprocess
@@ -144,6 +175,35 @@ FLASH_SASS = ("HGMMA", "UTMALDG")
 # the ssd_chunk library's SASS must hold tensor-core instructions (either)
 SSD_SASS = ("HMMA", "HGMMA")
 LLAMA_KERNELS = ("kv_gather_write", "kv_scatter_read", "flash_attention", "paged_attention")
+# phase 2 at the MoE and hybrid paths' attention shapes, bf16, d 128:
+# label -> (prompt tokens, q heads, kv heads, max_len, decode context)
+MOE_ATTN_SHAPES = {"arctic": (1024, 56, 8, 2048, 1040), "jamba": (1000, 64, 8, 1024, 1016)}
+# paged rows at those shapes are timed cycling over this many layers' caches,
+# so that each call finds its cache cold in L2, as a decode step that reads
+# gigabytes of expert weights between two attention layers does
+PAGED_CYCLE = 32
+# exp10's top-k read, also timed cycling over this many seeded sources of
+# 655 KB (63 MB together, above the 50 MB L2), so that its byte bound holds
+TOPK_SOURCES = 96
+# phase 7: Arctic-480B at full width, depth cut to 2 layers (about 55 GB of
+# bf16 weights); requests of 1024 tokens, a 768-token shared prefix
+ARCTIC_LAYERS, ARCTIC_SHARED = 2, 768
+# phase 7's kernel path against its plain path, per-step logits (bf16, logit
+# std about 1.7) at the steps whose scored token was routed alike on both
+# paths in every MoE layer (a step where it was not is reported as a routing
+# flip). The prompt tokens the two paths route otherwise (4-8 of 1024 in
+# layer 0 and 54-69 in layer 1 in the first readings, most through capacity
+# slots that another token's flip took or freed) get other layer-1 K/V,
+# which every later step reads: the readings were 0.18-0.67. Logits of an
+# unrelated context differ by about 10 at the max.
+ARCTIC_LOGIT_TOL = 1.0
+# phase 8: Jamba-1.5-Large at full width, one period of 8 layers, 8 of its
+# 16 experts (top-2 kept; about 52 GB: one period with all 16 is about 88 GB)
+JAMBA_EXPERTS, JAMBA_PROMPT, JAMBA_STEPS = 8, 1000, 16
+# continuity through MoE layers at the capacity factor JAX's own test takes
+# (tests/test_models.py:104-108): at the default factor a prefill may drop the
+# last token's expert pair, which a one-token decode (capacity 4) never drops
+CONTINUITY_CAPACITY = 8.0
 MAMBA_PROMPTS, MAMBA_STEPS = (1000, 4095), 16
 PREFILL_REPEATS = 5  # timed prefills of each prompt, after one warm-up
 # the final SSM state of the kernel path against the plain path's, relative to
@@ -245,7 +305,7 @@ def paged_row(cfg, randn) -> dict:
     flops = 4 * hq * DECODE_CTX * hd
     qs = q.unsqueeze(3)  # (L, 1, hq, 1, hd)
     ks, vs = kc[:, :, :DECODE_CTX].transpose(2, 3), vc[:, :, :DECODE_CTX].transpose(2, 3)
-    return dict(
+    row = dict(
         name="paged_attention", route="cuda",
         source="src/repro_torch/kernels/csrc/paged_attention.cu",
         replaces="src/repro/kernels/paged_attention.py:128", max_abs_err=max(errs),
@@ -258,6 +318,59 @@ def paged_row(cfg, randn) -> dict:
         library_ms=cycled_ms(lambda i: F.scaled_dot_product_attention(
             qs[i], ks[i], vs[i], enable_gqa=True), range(L)),
     )
+    del kc, vc, q, qs, ks, vs
+    row["shapes"] = {label: paged_shape(label, hq_, hkv_, max_len, ctx_len, randn)
+                     for label, (_, hq_, hkv_, max_len, ctx_len) in MOE_ATTN_SHAPES.items()}
+    return row
+
+
+def paged_shape(label: str, hq: int, hkv: int, max_len: int, ctx_len: int, randn) -> dict:
+    """paged_attention at the Arctic or Jamba decode (bf16, d 128, groups 7
+    and 8, the group-8 instantiation): one token over a dense (1, max_len,
+    8, 128) cache as blocks of 16 through the identity table, checked and
+    timed over PAGED_CYCLE such caches in turn."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    dev, hd, bt, n = torch.device("cuda"), 128, 16, PAGED_CYCLE
+    n_blk = max_len // bt
+    kc, vc = randn(n, 1, max_len, hkv, hd), randn(n, 1, max_len, hkv, hd)
+    q = randn(n, 1, hq, hd)
+    table = pa.make_block_table([list(range(n_blk))], n_blk, dev)
+    ctx = torch.tensor([ctx_len], dtype=torch.int32, device=dev)
+
+    def kernel(i):
+        return pa.paged_attention(q[i], pa.dense_blocks(kc[i], bt), pa.dense_blocks(vc[i], bt),
+                                  table, ctx)
+
+    def plain(i):
+        return ref.paged_attention_ref(q[i], pa.dense_blocks(kc[i], bt),
+                                       pa.dense_blocks(vc[i], bt), table, ctx)
+
+    err, tol = bf16_check(torch.stack([kernel(i) for i in range(n)]),
+                          torch.stack([plain(i) for i in range(n)]))
+    check(err <= tol, f"paged_attention at {label}'s decode (q heads {hq} / kv {hkv}, group "
+          f"{hq // hkv}, ctx {ctx_len}): max |err| {err:.3g} <= {tol:.3g} ({PAGED_ULPS} bf16 "
+          f"steps at the largest output)")
+    moved = (2 * ctx_len * hkv * hd + 2 * hq * hd) * q.element_size()
+    flops = 4 * hq * ctx_len * hd
+    qs = q.unsqueeze(3)
+    ks, vs = kc[:, :, :ctx_len].transpose(2, 3), vc[:, :, :ctx_len].transpose(2, 3)
+    splits, per_sm = pa.plan(dev, q.dtype, hd, hq // hkv, 1, hkv, n_blk)
+    r = dict(max_abs_err=err, splits=splits, ctas_per_sm=per_sm,
+             ms=cycled_ms(kernel, range(n)), plain_ms=cycled_ms(plain, range(n)),
+             bound_ms=max(moved / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
+             bound_by="bytes" if moved / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
+             else "operations",
+             library_ms=cycled_ms(lambda i: F.scaled_dot_product_attention(
+                 qs[i], ks[i], vs[i], enable_gqa=True), range(n)))
+    print(f"  paged_attention, {label} (group {hq // hkv}, ctx {ctx_len}, {splits} splits, "
+          f"{per_sm} CTAs per SM): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA "
+          f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+    return r
 
 
 def kernels_per_call(run, calls: int, name: str) -> float:
@@ -305,18 +418,19 @@ def ssd_inputs(cfg, seq: int, g):
     return x, a, bc[..., :n].reshape(nb, lc, 1, n), bc[..., n:].reshape(nb, lc, 1, n)
 
 
-def ssd_row(cfg, g) -> dict:
+def ssd_row(cfg, jamba_cfg, g) -> dict:
     """ssd_chunk at the full-width Mamba-2 2.7B shapes, prompts of 1024 and
-    4096 tokens, called as the model calls it (with the prefix sums); the row
-    reports the 1024-token call, with the 4096-token time beside it."""
+    4096 tokens, and at Jamba-1.5-Large's (256 heads) for 1024 tokens,
+    called as the model calls it (with the prefix sums); the row reports
+    Mamba-2's 1024-token call, with the other two beside it."""
     import torch
 
     from repro_torch.kernels import ref
     from repro_torch.kernels import ssd_chunk as ssd
 
     rows = {}
-    for seq in (1024, 4096):
-        x, a, b, c = ssd_inputs(cfg, seq, g)
+    for key, c_, seq in ((1024, cfg, 1024), (4096, cfg, 4096), ("jamba", jamba_cfg, 1024)):
+        x, a, b, c = ssd_inputs(c_, seq, g)
         y, st, cum = ssd.ssd_chunk(x, a, b, c, return_cum=True)
         yr, sr = ref.ssd_chunk_ref(x, a, b, c)
         err = max((y - yr).abs().max().item(), (st - sr).abs().max().item())
@@ -337,7 +451,7 @@ def ssd_row(cfg, g) -> dict:
         flops_tf32 = nb * nh * (2 * pairs * hp + 2 * lc * n * hp)  # P.x, B^T.(w x)
         t_bytes = moved / HBM_BYTES_PER_S
         t_ops = flops_g / BF16_FLOP_PER_S + flops_tf32 / TF32_FLOP_PER_S
-        rows[seq] = dict(
+        rows[key] = dict(
             name="ssd_chunk", route="cuda", source="src/repro_torch/kernels/csrc/ssd_chunk.cu",
             replaces="src/repro/kernels/ssd_chunk.py:72", max_abs_err=err,
             ms=device_ms(lambda: ssd.ssd_chunk(x, a, b, c, return_cum=True)),
@@ -345,11 +459,12 @@ def ssd_row(cfg, g) -> dict:
             bound_ms=max(t_bytes, t_ops) * 1e3,
             bound_by="operations" if t_ops > t_bytes else "bytes", library_ms=None,
         )
-        r = rows[seq]
+        r = rows[key]
         # The float32 CUDA-core figure is a computed lower bound, not a timing:
         # it stays on this line, out of the kernels JSON row.
         f32_ops_ms = (flops_g + flops_tf32) / F32_FLOP_PER_S * 1e3
-        print(f"  ssd_chunk, {seq} tokens: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+        print(f"  ssd_chunk, {c_.name}, {seq} tokens, {nh} heads: {r['ms']:.4f} ms (plain "
+              f"{r['plain_ms']:.4f}, bound "
               f"{r['bound_ms']:.4f} by {r['bound_by']}: {moved / 1e6:.1f} MB, "
               f"{(flops_g + flops_tf32) / 1e9:.2f} GFLOP on the tensor cores "
               f"{t_ops * 1e3:.4f} ms; computed for f32 CUDA cores {f32_ops_ms:.4f} ms)")
@@ -357,6 +472,9 @@ def ssd_row(cfg, g) -> dict:
     row = rows[1024]
     row["ms_4096"], row["plain_ms_4096"] = rows[4096]["ms"], rows[4096]["plain_ms"]
     row["max_abs_err_4096"] = rows[4096]["max_abs_err"]
+    jamba = rows["jamba"]
+    row["shapes"] = {"jamba": {k: jamba[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
     return row
 
 
@@ -425,12 +543,29 @@ def sparse_row(cfg, qwen_cfg, g) -> dict:
     row, qwen = rows[cfg.name], rows[qwen_cfg.name]
     row["ms_qwen3_32b"] = qwen["ms"]
     row["ms_topk"] = device_ms(lambda: kv.sparse_kv_gather(tkv, tids))
+    # the same read over TOPK_SOURCES seeded sources in turn, each cold in L2,
+    # so that the HBM byte bound holds: each distinct source row the ids
+    # select read once, the ids read once, each output row written once
+    sources = [sparse_probe.topk_read(qwen_cfg, g) for _ in range(TOPK_SOURCES)]
+    for src, ids in sources[:2]:
+        check(torch.equal(kv.sparse_kv_gather(src, ids), src[ids.long()]),
+              f"sparse_kv_gather bit-exact on a top-k read of source {tuple(src.shape)}")
+    row["ms_topk_cold"] = cycled_ms(lambda p: kv.sparse_kv_gather(*p), sources)
+    row_bytes = tkv[0].numel() * tkv.element_size()
+    distinct = sum(torch.unique(ids).numel() for _, ids in sources) / TOPK_SOURCES
+    moved = distinct * row_bytes + tids.numel() * (tids.element_size() + row_bytes)
+    row["bound_ms_topk"] = moved / HBM_BYTES_PER_S * 1e3
     print(f"  sparse_kv_gather, three reads: {cfg.name} {row['ms'] * 1e3:.3f} us (one CUDA "
           f"graph of its 32 reads: {row['graph_ms'] * 1e3:.3f} us a read; empty kernel on its "
           f"grid {row['floor_ms'] * 1e3:.3f}; bound {row['bound_ms'] * 1e3:.3f}), {qwen_cfg.name} "
           f"{qwen['ms'] * 1e3:.3f} (bound {qwen['bound_ms'] * 1e3:.3f}), top-k "
-          f"{row['ms_topk'] * 1e3:.3f} (its source and output stay in L2, so no HBM byte "
-          f"bound holds)")
+          f"{row['ms_topk_cold'] * 1e3:.3f} over {TOPK_SOURCES} sources cold in L2 (bound "
+          f"{row['bound_ms_topk'] * 1e3:.3f}: {distinct:.1f} distinct source rows of "
+          f"{row_bytes} B, "
+          f"{tids.numel()} ids and output rows, {moved / 1e6:.2f} MB; counting each of the "
+          f"{tids.numel()} selections as a row read, {2 * tids.numel() * row_bytes / 1e6:.2f} MB, "
+          f"{2 * tids.numel() * row_bytes / HBM_BYTES_PER_S * 1e6:.3f} us), top-k with its "
+          f"source and output in L2 {row['ms_topk'] * 1e3:.3f} (no HBM bound holds there)")
     return row
 
 
@@ -500,7 +635,47 @@ def flash_row(cfg, randn) -> dict:
               f"flash_attention (wgmma) within {FLASH_TOL} at b {b}, sq {sq}, skv {skv}, heads "
               f"{nq}/{nkv}, d {d}, {'causal' if causal else 'non-causal'} (max |err| {e:.3g})")
     row["max_abs_err_shapes"] = max(errs)
+    row["shapes"] = {label: flash_shape(label, sq, hq_, hkv_, randn)
+                     for label, (sq, hq_, hkv_, _, _) in MOE_ATTN_SHAPES.items()}
     return row
+
+
+def flash_shape(label: str, sq: int, hq: int, hkv: int, randn) -> dict:
+    """flash_attention at one layer of the Arctic or Jamba prefill (bf16, d
+    128, groups 7 and 8: the wgmma route) against the plain version, timed
+    beside it, SDPA and its bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    hd = 128
+    q, k, v = randn(1, sq, hq, hd), randn(1, sq, hkv, hd), randn(1, sq, hkv, hd)
+    before = fa.flash_attention.launches_by_route["wgmma"]
+    out = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    err = (out.float() - want.float()).abs().max().item()
+    check(fa.flash_attention.launches_by_route["wgmma"] == before + 1
+          and torch.allclose(out.float(), want.float(), atol=FLASH_TOL, rtol=FLASH_TOL),
+          f"flash_attention (wgmma) within {FLASH_TOL} at {label}'s q {tuple(q.shape)}, "
+          f"group {hq // hkv} (max |err| {err:.3g})")
+    flops = 4 * hq * hd * (sq * (sq + 1) // 2)
+    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    r = dict(q=list(q.shape), max_abs_err=err,
+             ms=device_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
+             plain_ms=device_ms(lambda: ref.flash_attention_ref(q, k, v, causal=True)),
+             bound_ms=max(flops / BF16_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3,
+             bound_by="operations" if flops / BF16_FLOP_PER_S > moved / HBM_BYTES_PER_S
+             else "bytes",
+             library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                 qt, kt, vt, is_causal=True, enable_gqa=True)))
+    r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+    print(f"  flash_attention, {label} (q {tuple(q.shape)}, group {hq // hkv}): wgmma "
+          f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s), plain {r['plain_ms']:.4f}, SDPA "
+          f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}")
+    return r
 
 
 def phase_kernels(cfg, mamba_cfg) -> list[dict]:
@@ -559,7 +734,7 @@ def phase_kernels(cfg, mamba_cfg) -> list[dict]:
     del k, v, blocks, want, kr, vr, kw, vw, zeros
     rows.append(flash_row(cfg, randn))
     rows.append(paged_row(cfg, randn))
-    rows.append(ssd_row(mamba_cfg, g))
+    rows.append(ssd_row(mamba_cfg, get_config("jamba-1.5-large-398b"), g))
     rows.append(sparse_row(cfg, get_config("qwen3-32b"), g))
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
@@ -658,15 +833,25 @@ def ssd_build_proof(build) -> None:
 
 
 def phase_small() -> None:
+    small_engine("llama3.1-8b")
+    small_engine("arctic-480b")
+    small_model("mamba2-2.7b")
+    small_model("jamba-1.5-large-398b")
+
+
+def small_engine(arch: str) -> None:
+    """A reduced attention stack in float32 served cold and warm through
+    ``RealEngine`` on the card (kernels) and on the CPU (plain versions) with
+    the same weights: per-step logits within SMALL_TOL, equal tokens; its
+    prefill's flash calls (head_dim 16, float32) take the cuda_cores route."""
     import torch
 
     from repro_torch.configs.registry import reduced_config
-    from repro_torch.models.model import Model, init_params
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import init_params
     from repro_torch.serving.real_runner import RealEngine
 
-    from repro_torch.kernels import ops
-
-    cfg = dataclasses.replace(reduced_config("llama3.1-8b"), dtype="float32")
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     ops.reset_launch_counts()
     engines = {
@@ -681,31 +866,41 @@ def phase_small() -> None:
         got[name] = [eng.generate(prompt.tolist(), max_new=8) for _ in range(2)]
     routes = ops.flash_routes()
     check(routes["cuda_cores"] == cfg.n_layers and routes["wgmma"] == 0,
-          f"reduced fp32 Llama (head_dim {cfg.head_dim}) prefill took the cuda_cores route: "
+          f"reduced fp32 {arch} (head_dim {cfg.head_dim}) prefill took the cuda_cores route: "
           f"{routes}")
     for i, label in enumerate(("cold", "warm")):
         (tg, ig), (tc, ic) = got["cuda"][i], got["cpu"][i]
         diff = (ig["logits"].cpu() - ic["logits"]).abs().max().item()
         check(ig["hit_tokens"] == ic["hit_tokens"] == 48 * i
               and diff <= SMALL_TOL and tg == tc,
-              f"reduced fp32 {label}: card vs CPU logits max |diff| {diff:.3g} "
+              f"reduced fp32 {arch} {label}: card vs CPU logits max |diff| {diff:.3g} "
               f"<= {SMALL_TOL}, hits {ig['hit_tokens']}")
 
-    # reduced Mamba-2: prefill (three chunks, the last padded) and decode
-    mcfg = dataclasses.replace(reduced_config("mamba2-2.7b"), dtype="float32")
-    mparams = init_params(mcfg, torch.Generator().manual_seed(0), "cpu")
-    on_card = _to(mparams, "cuda")
-    model = Model(mcfg)
-    tokens = torch.randint(0, mcfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(4))
-    lg_cpu, cache_cpu = model.prefill_fn(mparams, tokens)
-    lg_gpu, cache_gpu = model.prefill_fn(on_card, tokens.cuda())
+
+def small_model(arch: str) -> None:
+    """A reduced Mamba-2 or Jamba stack in float32 through ``Model`` on the
+    card and on the CPU with the same weights: a prefill of two rows of 70
+    tokens (three chunks, the last padded) and 8 decode steps, logits within
+    SMALL_TOL."""
+    import torch
+
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.model import Model, init_params
+
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _to(params, "cuda")
+    model = Model(cfg)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(4))
+    lg_cpu, cache_cpu = model.prefill_fn(params, tokens, max_len=80)
+    lg_gpu, cache_gpu = model.prefill_fn(on_card, tokens.cuda(), max_len=80)
     diffs = [(lg_gpu.cpu() - lg_cpu).abs().max().item()]
     for step in range(8):
         tok, pos = tokens[:, step], torch.full((2,), 70 + step)
-        lc = model.decode_fn(mparams, cache_cpu, tok, pos)
+        lc = model.decode_fn(params, cache_cpu, tok, pos)
         diffs.append((model.decode_fn(on_card, cache_gpu, tok.cuda(), pos.cuda()).cpu()
                       - lc).abs().max().item())
-    check(max(diffs) <= SMALL_TOL, f"reduced fp32 mamba2: card vs CPU prefill and 8 decode "
+    check(max(diffs) <= SMALL_TOL, f"reduced fp32 {arch}: card vs CPU prefill and 8 decode "
           f"steps, logits max |diff| {max(diffs):.3g} <= {SMALL_TOL}")
 
 
@@ -991,25 +1186,384 @@ def phase_mamba(cfg) -> dict:
         "noise_floor_rel": {"bfloat16": floor_bf16, "float32": floor},
     }
     print("  mamba path: " + json.dumps(summary))
-    profile_mamba(model, params, prompts, runs[0]["tokens"])
+    profile_model(model, params, prompts, runs[0]["tokens"])
     return launches
 
 
-def continuity(cfg, params, full) -> tuple[float, float]:
+def phase_arctic(cfg) -> dict:
+    """Arctic-480B at full width, depth cut to ARCTIC_LAYERS, served through
+    ``RealEngine`` with the pool: two cold 1024-token requests, one that hits
+    a 768-token shared prefix (the tail stepped through decode) and a full
+    repeat, 16 new tokens each; then the same requests through the plain
+    versions on the card."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.moe import capacity
+    from repro_torch.serving.real_runner import RealEngine
+
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    eng = RealEngine.create(cfg, max_len=MAX_LEN, pool_blocks=POOL_BLOCKS, seed=0)
+    torch.cuda.synchronize()
+    experts = eng.params["stack"]["pos_0"]["moe"]
+    expert_bytes = sum(experts[w].numel() * experts[w].element_size()
+                       for w in ("wi_gate", "wi_up", "wo"))
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    print(f"  cut: {L} of 35 layers; widths, heads, 128 experts top-2, the dense residual "
+          f"and the vocabulary as published. {n_params / 1e9:.2f} B parameters up in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated); the experts' "
+          f"{expert_bytes / 1e9:.2f} GB are all read by every decode step (both dispatch paths "
+          f"multiply all 128 experts), at least {expert_bytes / HBM_BYTES_PER_S * 1e3:.2f} ms a "
+          "step at the HBM rate")
+    rng = np.random.default_rng(7)
+    fresh = lambda n: rng.integers(0, cfg.vocab_size, size=n).tolist()  # noqa: E731
+    shared = fresh(ARCTIC_SHARED)
+    p0, p1, p2 = shared + fresh(PROMPT - ARCTIC_SHARED), fresh(PROMPT), \
+        shared + fresh(PROMPT - ARCTIC_SHARED)
+    prompts, want_hits = [p0, p1, p2, p0], [0, 0, ARCTIC_SHARED, PROMPT]
+
+    torch.cuda.reset_peak_memory_stats()
+    klog = recording(eng.model)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results, ends = [], []
+    for p in prompts:
+        results.append(eng.generate(p, max_new=MAX_NEW))
+        ends.append(len(klog))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = ops.launch_counts(), ops.flash_routes()
+    peak = torch.cuda.max_memory_allocated()
+    del eng.model.prefill_fn, eng.model.decode_fn  # recording off
+    kcalls = [klog[a:b] for a, b in zip([0, *ends], ends)]  # each request's model calls
+    del klog
+
+    for i, ((toks, info), want) in enumerate(zip(results, want_hits)):
+        lg = info["logits"]
+        print(f"  req {i}: hit {info['hit_tokens']}/{PROMPT}, ttft "
+              f"{info['ttft_s'] * 1e3:.2f} ms, total {info['total_s'] * 1e3:.1f} ms, "
+              f"tokens {toks[:6]}...")
+        check(info["hit_tokens"] == want, f"req {i} hit_tokens {info['hit_tokens']} == {want}")
+        check(len(toks) == MAX_NEW and lg.shape == (MAX_NEW, cfg.padded_vocab)
+              and bool(torch.isfinite(lg).all()), f"req {i}: {MAX_NEW} finite logit rows")
+    steps = sum(
+        (len(p) - min(info["hit_tokens"], len(p) - 1) if info["hit_tokens"] else 0)
+        + len(toks) - 1
+        for p, (toks, info) in zip(prompts, results)
+    )
+    cold, hit = want_hits.count(0), len(want_hits) - want_hits.count(0)
+    check(launches["flash_attention"] == routes["wgmma"] == cold * L
+          and routes["cuda_cores"] == 0,
+          f"flash_attention {L} per cold request ({cold} cold), all wgmma: "
+          f"{launches['flash_attention']}, {routes}")
+    check(launches["paged_attention"] == L * steps,
+          f"paged_attention launched {launches['paged_attention']} times = {L} layers x "
+          f"{steps} decode steps")
+    check(launches["kv_gather_write"] == cold and launches["kv_scatter_read"] == hit
+          and launches["ssd_chunk"] == launches["sparse_kv_gather"] == 0,
+          f"kv_gather_write once per cold request, kv_scatter_read once per hit: {launches}")
+
+    cold_k, cold_v = results[0][1]["kv"]
+    blocks = eng.index.match_prefix(p0)
+    rk, rv = eng.fetch([b for _, b, _ in blocks])
+    torch.cuda.synchronize()
+    check(len(blocks) * 16 == PROMPT
+          and torch.equal(rk[:, :, :PROMPT], cold_k[:, :, :PROMPT])
+          and torch.equal(rv[:, :, :PROMPT], cold_v[:, :, :PROMPT])
+          and not rk[:, :, PROMPT:].any() and not rv[:, :, PROMPT:].any(),
+          f"pool round trip of {len(blocks)} blocks is bit-exact, unmapped slots zero")
+    del rk, rv, cold_k, cold_v
+
+    # the same requests through the plain versions on the card, same weights:
+    # the kernels' rounding is all that differs (the noise floor of the path)
+    plain = RealEngine.create(cfg, max_len=MAX_LEN, pool_blocks=POOL_BLOCKS, params=eng.params,
+                              kernel_mode="ref")
+    plog = recording(plain.model)
+    plain_results, ends = [], []
+    for p in prompts:
+        plain_results.append(plain.generate(p, max_new=MAX_NEW))
+        ends.append(len(plog))
+    del plain
+    pcalls = [plog[a:b] for a, b in zip([0, *ends], ends)]
+    del plog
+    floor = routed_compare(results, plain_results, kcalls, pcalls)
+    del plain_results, pcalls
+
+    # dropped (token, k) pairs per MoE layer in each cold prefill (its first call)
+    drops = [[int(a["dropped"]) for a in kcalls[i][0]] for i in (0, 1)]
+    margins = [min(float(a["margin"]) for a in kcalls[i][0]) for i in (0, 1)]
+    del kcalls
+    print(f"  cold prefills of {PROMPT} tokens: capacity {capacity(PROMPT, cfg)} slots per "
+          f"expert ({PROMPT * cfg.moe.top_k} (token, k) pairs over {cfg.moe.n_experts} experts); "
+          f"dropped pairs per MoE layer {drops}; smallest top-k router margin {margins}")
+
+    decode_s = sum(info["total_s"] - info["ttft_s"] for _, info in results)
+    decode_tok = sum(len(t) - 1 for t, _ in results)
+    summary = {
+        "wall_s": wall,
+        "ttft_ms": {"cold": [results[i][1]["ttft_s"] * 1e3 for i in (0, 1)],
+                    "partial": results[2][1]["ttft_s"] * 1e3,
+                    "full": results[3][1]["ttft_s"] * 1e3},
+        "decode_tok_per_s": decode_tok / decode_s,
+        "peak_mem_gib": peak / 2**30,
+        "expert_gb_per_step": expert_bytes / 1e9,
+        "dropped_pairs": drops,
+        "kernel_vs_plain": floor,
+        "launches": launches,
+        "flash_routes": routes,
+    }
+    print("  arctic path: " + json.dumps(summary))
+    phase_profile(eng, results[0], fresh(PROMPT), results[1][1]["ttft_s"])
+    return launches
+
+
+def recording(model) -> list:
+    """Shadow ``model``'s prefill and decode (on the instance) so that each
+    call also appends its MoE layers' aux dicts, one list per call, to the
+    returned log; ``del model.prefill_fn, model.decode_fn`` ends it."""
+    log = []
+    prefill, decode = model.prefill_fn, model.decode_fn
+
+    def rec_prefill(params, tokens, max_len=None):
+        log.append([])
+        return prefill(params, tokens, max_len, aux=log[-1])
+
+    def rec_decode(params, cache, tokens, pos):
+        log.append([])
+        return decode(params, cache, tokens, pos, aux=log[-1])
+
+    model.prefill_fn, model.decode_fn = rec_prefill, rec_decode
+    return log
+
+
+def routed_compare(results, plain_results, kcalls, pcalls) -> list:
+    """Per-step logits of the kernel path against the plain path's, request
+    by request, over the steps whose input tokens agree. A step is held to
+    ARCTIC_LOGIT_TOL where the token it scores was routed alike on both paths in
+    every MoE layer (the same experts, the same ones kept). Where it was
+    not, a routing flip (a router margin below the two paths' probability
+    difference, or a capacity slot taken by another token's flip) is
+    reported, not compared. Also reports, per cold prefill, the prompt
+    tokens whose experts differ between the paths. ``kcalls`` and ``pcalls``
+    hold each request's model calls (``recording``), the last of them the
+    calls that scored its logit rows; -> per-request stats."""
+    import torch
+
+    out = []
+    for i, ((tk, ik), (tp, ip), kc, pc) in enumerate(
+            zip(results, plain_results, kcalls, pcalls)):
+        check(ik["hit_tokens"] == ip["hit_tokens"] and len(kc) == len(pc),
+              f"req {i}: the plain path hits {ip['hit_tokens']} tokens and makes "
+              f"{len(pc)} model calls, as the kernel path")
+        if not ik["hit_tokens"]:
+            flipped = [(_expert_sets(a) != _expert_sets(b)).any(-1).sum().item()
+                       for a, b in zip(kc[0], pc[0])]
+            print(f"  req {i}: prompt tokens routed to other experts by the plain path, per "
+                  f"MoE layer: {flipped} of {PROMPT}")
+        n, _ = compare_steps((tk, ik), (tp, ip))
+        compared, flips, worst = 0, [], 0.0
+        for r, (ka, pa) in enumerate(zip(kc[-len(tk):][:n], pc[-len(tp):][:n])):
+            differ = [(layer, a, b) for layer, (a, b) in enumerate(zip(ka, pa))
+                      if not (torch.equal(_expert_sets(a)[-1], _expert_sets(b)[-1])
+                              and torch.equal(_kept_sets(a)[-1], _kept_sets(b)[-1]))]
+            if differ:
+                for layer, a, b in differ:
+                    ranked = a["probs"][-1].sort(descending=True).values
+                    k = a["top_e"].shape[1]
+                    print(f"  req {i} step {r}: routing flip in MoE layer {layer}: kernel path "
+                          f"experts {a['top_e'][-1].tolist()} kept {a['kept'][-1].tolist()}, "
+                          f"plain {b['top_e'][-1].tolist()} kept {b['kept'][-1].tolist()}; "
+                          f"top-k gap {(ranked[k - 1] - ranked[k]).item():.3g}, probability "
+                          f"difference {(a['probs'][-1] - b['probs'][-1]).abs().max().item():.3g}")
+                flips.append(r)
+                continue
+            compared += 1
+            worst = max(worst, (ik["logits"][r] - ip["logits"][r]).abs().max().item())
+        check(worst <= ARCTIC_LOGIT_TOL, f"req {i}: kernel vs plain path, max |dlogit| "
+              f"{worst:.4g} <= {ARCTIC_LOGIT_TOL} over {compared} of {n} steps routed alike "
+              f"(logit std {ip['logits'].std().item():.3g}); routing flips at steps {flips}")
+        out.append({"max_dlogit": worst, "steps_compared": compared, "flip_steps": flips})
+    return out
+
+
+def _expert_sets(aux: dict):
+    """Each token's chosen experts in ascending order: the set it routes to."""
+    return aux["top_e"].sort(dim=-1).values
+
+
+def _kept_sets(aux: dict):
+    """Each token's kept flags in the order of ``_expert_sets``."""
+    return aux["kept"].gather(-1, aux["top_e"].sort(dim=-1).indices)
+
+
+def phase_jamba(cfg) -> dict:
+    """Jamba-1.5-Large at full width, one period, JAMBA_EXPERTS experts,
+    through ``Model``: a prefill of 1000 tokens, then 16 greedy decode steps."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer as stack_lib
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.models.moe import capacity
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = Model(cfg)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    print(f"  cut: {cfg.n_layers} of 72 layers (one period: Mamba-2 at positions 0-6, attention "
+          f"at 7, MoE at the odd positions), {cfg.moe.n_experts} of 16 experts, top-"
+          f"{cfg.moe.top_k} kept (one period with all 16 is about 88 GB); widths, heads and the "
+          f"SSD as published. {sum(t.numel() for t in _leaves(params)) / 1e9:.2f} B parameters "
+          f"up in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    kinds = model.kinds
+    n_ssm = sum(k.mixer == "ssm" for k in kinds) * stack_lib.n_periods(cfg)
+    n_attn = sum(k.mixer == "attn" for k in kinds) * stack_lib.n_periods(cfg)
+    rng = np.random.default_rng(9)
+    full = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, JAMBA_PROMPT + 1))).to(dev)
+    tokens = full[:, :-1]
+    max_len = -(-(JAMBA_PROMPT + JAMBA_STEPS) // 16) * 16
+
+    def ssm_states(cache) -> dict:
+        """layer index -> its final SSM state (layer = period x P + position)."""
+        caches = stack_lib.position_caches(cache, kinds)
+        return {i * len(kinds) + j: caches[j]["state"][i].clone()
+                for j, k in enumerate(kinds) if k.mixer == "ssm"
+                for i in range(stack_lib.n_periods(cfg))}
+
+    moe_layers = sorted(i * len(kinds) + j for j, k in enumerate(kinds) if k.ffn == "moe"
+                        for i in range(stack_lib.n_periods(cfg)))
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    aux = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill_fn(params, tokens, max_len=max_len, aux=aux)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    states = ssm_states(cache)
+    steps, out = [logits[:, 0]], [int(logits[0, 0].argmax())]
+    t0 = time.perf_counter()
+    for i in range(JAMBA_STEPS):
+        pos = torch.tensor([JAMBA_PROMPT + i], device=dev)
+        lg = model.decode_fn(params, cache, torch.tensor([out[-1]], device=dev), pos)
+        steps.append(lg)
+        out.append(int(lg[0].argmax()))
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    lg = torch.cat(steps)
+    del cache
+
+    check(lg.shape == (JAMBA_STEPS + 1, cfg.padded_vocab) and bool(torch.isfinite(lg).all()),
+          f"prompt {JAMBA_PROMPT}: {JAMBA_STEPS + 1} finite logit rows, tokens {out[:6]}...")
+    check(launches["ssd_chunk"] == n_ssm and launches["flash_attention"] == n_attn
+          and launches["paged_attention"] == n_attn * JAMBA_STEPS
+          and launches["kv_gather_write"] == launches["kv_scatter_read"] == 0
+          and launches["sparse_kv_gather"] == 0,
+          f"ssd_chunk {n_ssm} and flash_attention {n_attn} per prefill, paged_attention "
+          f"{n_attn} per decode step: {launches}")
+    drops = [int(a["dropped"]) for a in aux]
+    print(f"  prefill of {JAMBA_PROMPT} tokens: capacity {capacity(JAMBA_PROMPT, cfg)} slots per "
+          f"expert; dropped (token, k) pairs per MoE layer {drops} of "
+          f"{JAMBA_PROMPT * cfg.moe.top_k}; smallest top-k router margin "
+          f"{min(float(a['margin']) for a in aux):.3g}")
+
+    times = []
+    model.prefill_fn(params, tokens, max_len=max_len)
+    for _ in range(PREFILL_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill_fn(params, tokens, max_len=max_len)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    times.sort()
+    print(f"  prefill median {times[len(times) // 2]:.1f} ms of {len(times)} (spread "
+          f"{times[0]:.1f}-{times[-1]:.1f}; the counted run's {prefill_s * 1e3:.1f}), "
+          f"{JAMBA_STEPS} decode steps {decode_s * 1e3:.1f} ms")
+
+    # the final SSM states of the kernel path against the plain path's. A
+    # token routed to other experts by the plain path (a router margin below
+    # the paths' rounding difference) feeds every later layer another input,
+    # so the states are held up to the first MoE layer where one was, and
+    # the later ones reported
+    paux = []
+    _, pcache = Model(cfg, kernel_mode="ref").prefill_fn(params, tokens, max_len=max_len,
+                                                         aux=paux)
+    want = ssm_states(pcache)
+    del pcache
+    flipped = {layer: ((_expert_sets(a) != _expert_sets(b)).any(-1)
+                       | (_kept_sets(a) != _kept_sets(b)).any(-1)).sum().item()
+               for layer, a, b in zip(moe_layers, aux, paux)}
+    first = min([layer for layer, n in flipped.items() if n] + [cfg.n_layers])
+    rels = {layer: _rel(states[layer], want[layer]) for layer in states}
+    held = {layer: r for layer, r in rels.items() if layer <= first}
+    print(f"  kernel vs plain prefill: tokens routed otherwise per MoE layer {flipped}; final "
+          f"SSM state differences per layer {({k: f'{v:.3g}' for k, v in rels.items()})}")
+    check(rels[0] <= STATE_TOL_L0 and max(held.values()) <= STATE_TOL,
+          f"final SSM states, kernel vs plain path: layer 0 {rels[0]:.3g} <= {STATE_TOL_L0}, "
+          f"layers {sorted(held)} (up to the first MoE layer a token was routed otherwise on "
+          f"the plain path) {max(held.values()):.3g} <= {STATE_TOL} of the largest entry")
+    del states, want, aux, paux
+
+    cfg_c = dataclasses.replace(
+        cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=CONTINUITY_CAPACITY))
+    routes = []
+    cont, floor = continuity(cfg_c, params, full, max_len=max_len, routes=routes)
+    stepped, whole, plain = ([(_expert_sets(a)[-1].tolist(), _kept_sets(a)[-1].tolist())
+                              for a in r] for r in routes)
+    print(f"  continuity: the last token's experts per MoE layer: decoded {stepped}, in the "
+          f"prefill {whole}, in the plain prefill {plain}")
+    lim = CONTINUITY_BF16_FLOORS * floor
+    check(cont <= lim, f"bf16 continuity at capacity factor {CONTINUITY_CAPACITY}: prefill "
+          f"{JAMBA_PROMPT - 1} + decode 1 vs prefill {JAMBA_PROMPT}: {cont:.3g} of the largest "
+          f"logit <= {lim:.3g} = {CONTINUITY_BF16_FLOORS} x the noise floor (the same prefill "
+          f"with the plain kernels' versions) {floor:.3g}")
+
+    summary = {
+        "prefill_ms": times[PREFILL_REPEATS // 2],
+        "prefill_ms_spread": [times[0], times[-1]],
+        "decode_tok_per_s": JAMBA_STEPS / decode_s,
+        "peak_mem_gib": peak / 2**30,
+        "dropped_pairs": drops,
+        "launches": launches,
+        "continuity_rel": cont,
+        "noise_floor_rel": floor,
+    }
+    print("  jamba path: " + json.dumps(summary))
+    profile_model(model, params, [tokens], out, max_len=max_len)
+    return launches
+
+
+def continuity(cfg, params, full, max_len: int | None = None,
+               routes: list | None = None) -> tuple[float, float]:
     """Prefill all but the last token, decode the last at its position, and
     compare with the last logits of a prefill of all of them; the noise
-    floor is that prefill with the plain ssd_chunk against the kernel."""
+    floor is that prefill with the plain kernels' versions against the
+    kernels. An attention cache holds ``max_len`` tokens. ``routes``, if
+    given, receives the MoE aux lists of the decode step, the prefill and
+    the plain prefill."""
     import torch
 
     from repro_torch.models.model import Model
 
     model, plain = Model(cfg), Model(cfg, kernel_mode="ref")
     s = full.shape[1] - 1
-    _, cache = model.prefill_fn(params, full[:, :-1])
-    stepped = model.decode_fn(params, cache, full[:, -1], torch.tensor([s], device=full.device))
+    aux = [[], [], []] if routes is not None else [None] * 3
+    _, cache = model.prefill_fn(params, full[:, :-1], max_len=max_len)
+    stepped = model.decode_fn(params, cache, full[:, -1], torch.tensor([s], device=full.device),
+                              aux=aux[0])
     del cache
-    whole, _ = model.prefill_fn(params, full)
-    whole_plain, _ = plain.prefill_fn(params, full)
+    whole, _ = model.prefill_fn(params, full, max_len=max_len, aux=aux[1])
+    whole_plain, _ = plain.prefill_fn(params, full, max_len=max_len, aux=aux[2])
+    if routes is not None:
+        routes.extend(aux)
     return _rel(stepped, whole[:, 0]), _rel(whole_plain[:, 0], whole[:, 0])
 
 
@@ -1022,8 +1576,9 @@ def _leaves(tree: dict):
         yield from (_leaves(v) if isinstance(v, dict) else [v])
 
 
-def profile_mamba(model, params, prompts, toks) -> None:
-    """Where each prefill's (1000 and 4095 tokens) and a decode step's time go."""
+def profile_model(model, params, prompts, toks, max_len: int | None = None) -> None:
+    """Where each prefill's and a decode step's time go (Mamba-2: prompts of
+    1000 and 4095 tokens; Jamba: 1000, its caches of ``max_len`` tokens)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1032,7 +1587,7 @@ def profile_mamba(model, params, prompts, toks) -> None:
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            caches.append(model.prefill_fn(params, prompt)[1])
+            caches.append(model.prefill_fn(params, prompt, max_len=max_len)[1])
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
         report_profile(f"prefill {prompt.shape[1]}", prof.key_averages(), 1, wall_ms, top=6)
@@ -1136,8 +1691,26 @@ def main() -> None:
     mamba_launches = phase_mamba(mamba_cfg)
     print("[6] sparse reads: exp10 and exp09 twins, full width", flush=True)
     sparse_launches = phase_sparse(llama_pool)
+    # phase 4's engine (16 GB of weights and its pool) goes before the ~55 GB
+    # of phase 7 and the ~52 GB of phase 8, each freed before the next
     del llama_pool
-    paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 4's engine freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    arctic_cfg = dataclasses.replace(get_config("arctic-480b"), n_layers=ARCTIC_LAYERS)
+    print(f"[7] Arctic-480B path: full width, {ARCTIC_LAYERS} layers, through the pool",
+          flush=True)
+    arctic_launches = phase_arctic(arctic_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    jamba = get_config("jamba-1.5-large-398b")
+    jamba_cfg = dataclasses.replace(jamba, n_layers=8, moe=dataclasses.replace(
+        jamba.moe, n_experts=JAMBA_EXPERTS))
+    print(f"[8] Jamba-1.5-Large path: full width, one period, {JAMBA_EXPERTS} experts",
+          flush=True)
+    jamba_launches = phase_jamba(jamba_cfg)
+    paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
+             "arctic": arctic_launches, "jamba": jamba_launches}
     own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse"}
     for r in rows:
         r["launches"] = paths[own.get(r["name"], "llama")][r["name"]]

@@ -4,8 +4,9 @@
 
 The port's twin of the prefill + decode half of ``examples/quickstart.py``,
 for any stack ``Model`` runs: Mamba-2 (prefill through the ``ssd_chunk``
-kernel, then the recurrent decode step) or a period-1 attention stack
-(flash attention, then paged decode attention). Full width by default,
+kernel, then the recurrent decode step), an attention stack with MLP or
+MoE FFNs (flash attention, then paged decode attention), or Jamba's hybrid
+period of both (``--arch jamba-1.5-large-398b``). Full width by default,
 with random weights from seed 0; ``--reduced`` runs the small test config,
 and ``--device cpu`` runs the plain PyTorch versions on the CPU.
 """

@@ -5,7 +5,8 @@
 Twin of ``repro.launch.serve``: prompts that share their first half ->
 prefix-index lookup -> pool fetch (kv_scatter_read) or prefill (flash
 attention) + pool writeback (kv_gather_write) -> greedy decode. Two prompts
-are repeated at the end. Full width by default, with random weights from
+are repeated at the end. Any period-1 attention stack, MoE ones included
+(``--arch arctic-480b``). Full width by default, with random weights from
 seed 0; ``--reduced`` serves the small test config, and ``--device cpu``
 runs the plain PyTorch versions on the CPU.
 """

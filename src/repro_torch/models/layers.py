@@ -54,6 +54,25 @@ def apply_rope(x: torch.Tensor, rope: tuple[torch.Tensor, torch.Tensor]) -> torc
     return out.to(x.dtype)
 
 
+def mlp_param_shapes(cfg: ModelConfig, d_ff: int, lead: tuple[int, ...],
+                     dtype: torch.dtype) -> dict:
+    """One SwiGLU/GeGLU MLP of width ``d_ff`` as (shape, init, dtype) leaves
+    (``repro/models/layers.py:59-72``), each shape prefixed by ``lead``."""
+    d = cfg.d_model
+    p = {
+        "wi_gate": ((*lead, d, d_ff), "normal", dtype),
+        "wi_up": ((*lead, d, d_ff), "normal", dtype),
+        "wo": ((*lead, d_ff, d), "normal", dtype),
+    }
+    if cfg.mlp_bias:
+        p |= {
+            "bi_gate": ((*lead, d_ff), "zeros", dtype),
+            "bi_up": ((*lead, d_ff), "zeros", dtype),
+            "bo": ((*lead, d), "zeros", dtype),
+        }
+    return p
+
+
 def mlp_apply(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     g = x @ p["wi_gate"]
     u = x @ p["wi_up"]

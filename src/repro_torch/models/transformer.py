@@ -1,15 +1,21 @@
-"""Decoder stack over layer periods, for period-1 stacks on one device.
+"""Decoder stack over layer periods, on one device.
 
-Twin of ``repro/models/transformer.py`` restricted to what the port runs:
-``period_length`` and ``layer_kinds`` whole, ``forward_full`` (prefill,
-optionally collecting the decode cache) and ``decode_step_stack`` (one
-token through every layer), each dispatching on the mixer: "attn" (flash
-attention in prefill, paged attention in decode) or "ssm" (Mamba-2, no
-FFN). Parameters keep the JAX tree, ``params["stack"]["pos_<i>"][...]`` with
-a leading period dimension; where JAX scans over that dimension the port
-loops. The attention cache is a pair of (L, b, max_len, hkv, hd) tensors,
-the SSM cache a dict of ``state`` (L, b, nh, n, hp) and ``conv``
-(L, b, d_conv - 1, conv_dim); both are updated in place.
+Twin of ``repro/models/transformer.py``: ``period_length`` and
+``layer_kinds`` whole, ``forward_full`` (prefill, optionally collecting the
+decode cache) and ``decode_step_stack`` (one token through every layer),
+each looping over periods x positions where JAX scans over the periods.
+A position's mixer is "attn" (flash attention in prefill, paged attention
+in decode) or "ssm" (Mamba-2); its FFN is "mlp", "moe" (``models/moe.py``)
+or "none". Parameters keep the JAX tree, ``params["stack"]["pos_<i>"][...]``
+with a leading period dimension.
+
+The decode cache of a period-1 stack is the (k, v) pair of
+(L, b, max_len, hkv, hd) tensors (attention) or the dict of ``state``
+(L, b, nh, n, hp) and ``conv`` (L, b, d_conv - 1, conv_dim) (Mamba-2). A
+hybrid period (Jamba) has JAX's per-position tree (``cache_specs``):
+``{"pos_<i>": {"k", "v"}}`` at attention positions and ``{"state",
+"conv"}`` at SSM positions, each with a leading n_periods dimension. Both
+are updated in place.
 """
 
 from __future__ import annotations
@@ -24,6 +30,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.paged_attention import dense_blocks, make_block_table
 from repro_torch.models import attention as attn_lib
 from repro_torch.models import mamba as mamba_lib
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.layers import mlp_apply, norm_apply, rope_tables
 
 # tokens per block when decode attention reads the dense cache as blocks
@@ -73,10 +80,36 @@ def layer_params(stacked: dict, i: int) -> dict:
     }
 
 
-def _ffn(lp: dict, kind: LayerKind, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def n_periods(cfg: ModelConfig) -> int:
+    p = period_length(cfg)
+    if cfg.n_layers % p:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not whole periods of {p}")
+    return cfg.n_layers // p
+
+
+def position_caches(cache, kinds: list[LayerKind]) -> list[dict]:
+    """Each position's decode cache as a dict of tensors with a leading
+    period dimension: ``{"k", "v"}`` or ``{"state", "conv"}``. A period-1
+    stack's (k, v) pair or SSM dict is seen so; a hybrid's tree is read
+    position by position."""
+    if len(kinds) > 1:
+        return [cache[f"pos_{j}"] for j in range(len(kinds))]
+    if kinds[0].mixer == "attn":
+        return [{"k": cache[0], "v": cache[1]}]
+    return [cache]
+
+
+def _ffn(lp: dict, kind: LayerKind, h: torch.Tensor, cfg: ModelConfig,
+         moe_dispatch: str, aux: list | None) -> torch.Tensor:
     if kind.ffn == "none":
         return h
-    return h + mlp_apply(lp["mlp"], norm_apply(lp["ln2"], h, cfg), cfg)
+    hn = norm_apply(lp["ln2"], h, cfg)
+    if kind.ffn == "moe":
+        out, stats = moe_lib.moe_apply(lp["moe"], hn, cfg, moe_dispatch)
+        if aux is not None:
+            aux.append(stats)
+        return h + out
+    return h + mlp_apply(lp["mlp"], hn, cfg)
 
 
 def forward_full(
@@ -86,35 +119,41 @@ def forward_full(
     cfg: ModelConfig,
     kernel_mode: str,
     cache=None,
+    moe_dispatch: str = "einsum",
+    aux: list | None = None,
 ) -> torch.Tensor:
     """Run the full stack; returns the hidden states. ``cache``, if given,
     receives each layer's decode state (JAX's ``collect_cache``): k and v in
-    positions [0, s) of the attention pair, or the final SSM state and the
-    conv window of the SSM dict."""
-    kind = layer_kinds(cfg)[0]  # period 1: ``Model`` refuses the rest
+    positions [0, s) at attention layers, the final SSM state and the conv
+    window at SSM layers. ``aux``, if given, receives each MoE layer's aux
+    dict (``moe.moe_apply``) in layer order."""
+    kinds = layer_kinds(cfg)
+    caches = position_caches(cache, kinds) if cache is not None else None
     s = x.shape[1]
-    stack = params["stack"]["pos_0"]
-    rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta) if kind.mixer == "attn" else None
+    rope = None
+    if any(kind.mixer == "attn" for kind in kinds):
+        rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
     h = x
-    for i in range(cfg.n_layers):
-        lp = layer_params(stack, i)
-        hn = norm_apply(lp["ln1"], h, cfg)
-        if kind.mixer == "attn":
-            q, k, v = attn_lib.qkv_proj(lp["attn"], hn, cfg, rope)
-            o = ops.flash_attention(q, k, v, causal=True, mode=kernel_mode)
-            h = h + attn_lib.out_proj(lp["attn"], o)
-            if cache is not None:
-                cache[0][i, :, :s] = k
-                cache[1][i, :, :s] = v
-        elif cache is not None:
-            out, state, conv = mamba_lib.mamba_apply(lp["ssm"], hn, cfg, kernel_mode,
-                                                     return_state=True)
-            h = h + out
-            cache["state"][i] = state
-            cache["conv"][i] = conv
-        else:
-            h = h + mamba_lib.mamba_apply(lp["ssm"], hn, cfg, kernel_mode)
-        h = _ffn(lp, kind, h, cfg)
+    for i in range(n_periods(cfg)):
+        for j, kind in enumerate(kinds):
+            lp = layer_params(params["stack"][f"pos_{j}"], i)
+            hn = norm_apply(lp["ln1"], h, cfg)
+            if kind.mixer == "attn":
+                q, k, v = attn_lib.qkv_proj(lp["attn"], hn, cfg, rope)
+                o = ops.flash_attention(q, k, v, causal=True, mode=kernel_mode)
+                h = h + attn_lib.out_proj(lp["attn"], o)
+                if caches is not None:
+                    caches[j]["k"][i, :, :s] = k
+                    caches[j]["v"][i, :, :s] = v
+            elif caches is not None:
+                out, state, conv = mamba_lib.mamba_apply(lp["ssm"], hn, cfg, kernel_mode,
+                                                         return_state=True)
+                h = h + out
+                caches[j]["state"][i] = state
+                caches[j]["conv"][i] = conv
+            else:
+                h = h + mamba_lib.mamba_apply(lp["ssm"], hn, cfg, kernel_mode)
+            h = _ffn(lp, kind, h, cfg, moe_dispatch, aux)
     return h
 
 
@@ -126,43 +165,47 @@ def decode_step_stack(
     cfg: ModelConfig,
     kernel_mode: str = "auto",
     block_table: torch.Tensor | None = None,
+    moe_dispatch: str = "einsum",
+    aux: list | None = None,
 ) -> torch.Tensor:
     """One decode token through the stack; returns the hidden state.
+    ``aux`` as in ``forward_full``.
 
     Attention reads each layer's dense cache (b, max_len, hkv, hd) as
     ``max_len / DECODE_BLOCK_TOKENS`` blocks through ``block_table``, the
     identity table ``identity_block_table`` gives, with context ``pos + 1``.
     """
-    kind = layer_kinds(cfg)[0]  # period 1: ``Model`` refuses the rest
-    stack = params["stack"]["pos_0"]
-    h = x
-    if kind.mixer == "attn":
+    kinds = layer_kinds(cfg)
+    caches = position_caches(cache, kinds)
+    if any(kind.mixer == "attn" for kind in kinds):
         if block_table is None:
             raise ValueError("attention decode needs the cache's block table")
         cache_len = (pos + 1).to(torch.int32)  # once, not per layer
         rope = rope_tables(pos[:, None], cfg.head_dim, cfg.rope_theta)
-        k_cache, v_cache = cache
-    for i in range(cfg.n_layers):
-        lp = layer_params(stack, i)
-        hn = norm_apply(lp["ln1"], h, cfg)
-        if kind.mixer == "attn":
-            q, k_new, v_new = attn_lib.qkv_proj(lp["attn"], hn, cfg, rope)
-            attn_lib.update_kv_cache(k_cache[i], v_cache[i], k_new, v_new, pos)
-            o = ops.paged_attention(
-                q[:, 0],
-                dense_blocks(k_cache[i], DECODE_BLOCK_TOKENS),
-                dense_blocks(v_cache[i], DECODE_BLOCK_TOKENS),
-                block_table, cache_len, mode=kernel_mode,
-            )
-            h = h + attn_lib.out_proj(lp["attn"], o[:, None])
-        else:
-            out, state, conv = mamba_lib.mamba_decode(
-                lp["ssm"], hn, cache["state"][i], cache["conv"][i], cfg
-            )
-            cache["state"][i] = state
-            cache["conv"][i] = conv
-            h = h + out
-        h = _ffn(lp, kind, h, cfg)
+    h = x
+    for i in range(n_periods(cfg)):
+        for j, kind in enumerate(kinds):
+            lp = layer_params(params["stack"][f"pos_{j}"], i)
+            c = caches[j]
+            hn = norm_apply(lp["ln1"], h, cfg)
+            if kind.mixer == "attn":
+                q, k_new, v_new = attn_lib.qkv_proj(lp["attn"], hn, cfg, rope)
+                attn_lib.update_kv_cache(c["k"][i], c["v"][i], k_new, v_new, pos)
+                o = ops.paged_attention(
+                    q[:, 0],
+                    dense_blocks(c["k"][i], DECODE_BLOCK_TOKENS),
+                    dense_blocks(c["v"][i], DECODE_BLOCK_TOKENS),
+                    block_table, cache_len, mode=kernel_mode,
+                )
+                h = h + attn_lib.out_proj(lp["attn"], o[:, None])
+            else:
+                out, state, conv = mamba_lib.mamba_decode(
+                    lp["ssm"], hn, c["state"][i], c["conv"][i], cfg
+                )
+                c["state"][i] = state
+                c["conv"][i] = conv
+                h = h + out
+            h = _ffn(lp, kind, h, cfg, moe_dispatch, aux)
     return h
 
 

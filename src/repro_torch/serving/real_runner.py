@@ -13,9 +13,12 @@ Twin of ``repro/serving/real_runner.py``. For each prompt:
   then : greedy decode.
 
 ``create`` takes an arch name or a ``ModelConfig``, so the same code runs a
-reduced config in the tests and full width on the card. The kernels run
-for tensors on the card and their plain versions on the CPU
-(``kernels/ops.py`` mode "auto"). Unlike the JAX
+reduced config in the tests and full width on the card. It serves any
+period-1 attention stack, MoE FFNs included (arctic, llama4-maverick), as
+the JAX engine does; a hybrid or SSM stack is refused. The kernels run for
+tensors on the card and their plain versions on the CPU (``kernels/ops.py``
+mode "auto"; ``kernel_mode="ref"`` runs the plain versions on the card).
+Unlike the JAX
 engine, ``max_len`` must be a multiple of the block size, and ``info``
 also carries the per-step logits and the final decode cache, which the
 parity checks read.
@@ -49,6 +52,7 @@ class RealEngine:
     params: dict
     max_len: int
     device: torch.device
+    kernel_mode: str = "auto"
 
     @classmethod
     def create(
@@ -59,8 +63,11 @@ class RealEngine:
         seed: int = 0,
         device: str | torch.device | None = None,
         params: dict | None = None,
+        kernel_mode: str = "auto",
+        moe_dispatch: str = "einsum",
     ) -> "RealEngine":
-        """``params`` (e.g. converted from JAX) replaces the seeded init."""
+        """``params`` (e.g. converted from JAX) replaces the seeded init;
+        ``moe_dispatch`` is ``RuntimeConfig.moe_dispatch`` (``models/moe.py``)."""
         cfg = get_config(arch) if isinstance(arch, str) else arch
         kinds = layer_kinds(cfg)
         if len(kinds) != 1 or kinds[0].mixer != "attn":
@@ -69,12 +76,12 @@ class RealEngine:
             raise ValueError(
                 f"{cfg.name}: RealEngine serves period-1 attention stacks only "
                 f"(layer kinds {[(k.mixer, k.ffn) for k in kinds]}); run an SSM "
-                "stack through models.model.Model"
+                "or hybrid stack through models.model.Model"
             )
         dev = resolve_device(device)
         if max_len % BLOCK_TOKENS:
             raise ValueError(f"max_len {max_len} is not a multiple of {BLOCK_TOKENS}")
-        model = Model(cfg)
+        model = Model(cfg, kernel_mode, moe_dispatch)
         if params is None:
             gen = torch.Generator(device=dev).manual_seed(seed)
             params = init_params(cfg, gen, dev)
@@ -83,7 +90,7 @@ class RealEngine:
         )
         return cls(
             cfg=cfg, model=model, pool=pool, index=PrefixIndex(pool), params=params,
-            max_len=max_len, device=dev,
+            max_len=max_len, device=dev, kernel_mode=kernel_mode,
         )
 
     # ------------------------------------------------------------------
@@ -138,7 +145,8 @@ class RealEngine:
         """Pool blocks -> a fresh decode cache holding them in slots 0..n-1."""
         blocks = self.pool.data[torch.tensor(block_ids, device=self.device)]
         n_slots = self.max_len // self.pool.layout.block_tokens
-        k, v = ops.kv_scatter_read(blocks, list(range(len(block_ids))), n_slots)
+        k, v = ops.kv_scatter_read(blocks, list(range(len(block_ids))), n_slots,
+                                   mode=self.kernel_mode)
         dtype = torch_dtype(self.cfg.dtype)
         return k.to(dtype)[:, None], v.to(dtype)[:, None]
 
@@ -149,7 +157,7 @@ class RealEngine:
         if not n_blocks:
             return
         k, v = cache[0][:, 0], cache[1][:, 0]  # (L, max_len, hkv, hd)
-        blocks = ops.kv_gather_write(k, v, list(range(n_blocks)), bt)
+        blocks = ops.kv_gather_write(k, v, list(range(n_blocks)), bt, mode=self.kernel_mode)
         block_ids = self.pool.allocate(n_blocks)
         self.pool.data[torch.tensor(block_ids, device=self.device)] = blocks.to(
             self.pool.data.dtype

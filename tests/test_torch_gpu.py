@@ -745,3 +745,73 @@ def test_reduced_llama_decode_card_matches_cpu(cuda):
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# the MoE and hybrid paths' shapes: Arctic's GQA group of 7 (56 / 8 heads)
+# and Jamba's group of 8 at 64 / 8 heads, d 128, bf16; Jamba's 256 SSD heads
+# ---------------------------------------------------------------------------
+
+MOE_FLASH_CASES = [
+    # (b, sq, skv, hq, hkv, d, causal)
+    (1, 1024, 1024, 56, 8, 128, True),  # one layer of the Arctic prefill
+    (1, 1000, 1000, 64, 8, 128, True),  # Jamba's attention layer, 1000 tokens
+    (1, 100, 100, 14, 2, 128, True),  # group 7, ragged
+    (2, 200, 200, 7, 1, 128, False),
+]
+
+
+@pytest.mark.parametrize("case", MOE_FLASH_CASES)
+def test_flash_wgmma_route_at_groups_7_and_8(cuda, case):
+    b, sq, skv, hq, hkv, d, causal = case
+    rng = np.random.default_rng(sum(case[:6]) + 2)
+    q = _randn(rng, (b, sq, hq, d), torch.bfloat16, cuda)
+    k = _randn(rng, (b, skv, hkv, d), torch.bfloat16, cuda)
+    v = _randn(rng, (b, skv, hkv, d), torch.bfloat16, cuda)
+    before = dict(fa.flash_attention.launches_by_route)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_by_route["wgmma"] == before["wgmma"] + 1
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+@pytest.mark.parametrize("hq,mb", [(56, 128), (64, 64)])  # Arctic (max_len 2048), Jamba (1024)
+def test_paged_kernel_at_groups_7_and_8(cuda, hq, mb):
+    """bf16, d 128, 8 kv heads, blocks of 16: the decode contexts of the two
+    paths (1040 and 1016) beside the split plan's edges."""
+    hkv, d, bt = 8, 128, 16
+    rng = np.random.default_rng(hq + mb)
+    splits, _ = pa.plan(cuda, torch.bfloat16, d, hq // hkv, 4, hkv, mb)
+    ctxs = [1, bt + 1, min(splits * bt + 1, mb * bt), 1040 if mb == 128 else 1016]
+    q, pool, tbl, ctx = _paged_rows(rng, torch.bfloat16, cuda, ctxs, hq, hkv, d, bt, mb)
+    _paged_check(q, pool, tbl, ctx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_at_jamba_heads(cuda, dtype):
+    """Jamba-1.5-Large's SSD: 256 heads of 64, d_state 128, chunks of 256, one
+    group, a 1024-token prompt (4 chunks), at the float32-level limit."""
+    _assert_ssd_matches_plain(cuda, (4, 256, 256, 64, 128, 1), dtype, SSD_EDGE_TOL)
+
+
+@pytest.mark.parametrize("arch", ["arctic-480b", "llama4-maverick-400b-a17b",
+                                  "jamba-1.5-large-398b"])
+def test_reduced_moe_and_hybrid_card_matches_cpu(cuda, arch):
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.model import Model, init_params
+
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _tree_to(params, cuda)
+    model = Model(cfg)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (2, 40)))
+    lg_cpu, cache_cpu = model.prefill_fn(params, tokens, max_len=64)
+    lg_gpu, cache_gpu = model.prefill_fn(on_card, tokens.to(cuda), max_len=64)
+    torch.testing.assert_close(lg_gpu.cpu(), lg_cpu, atol=1e-4, rtol=1e-4)
+    for step in range(4):
+        tok, pos = torch.tensor([3 + step, 9]), torch.tensor([40 + step] * 2)
+        lc = model.decode_fn(params, cache_cpu, tok, pos)
+        lg = model.decode_fn(on_card, cache_gpu, tok.to(cuda), pos.to(cuda))
+        torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
