@@ -10,9 +10,11 @@ Phases, each a hard check (any failure exits non-zero):
    spills and the dynamic shared memory of flash_attention's wgmma kernels,
    and fail unless ``cuobjdump -sass`` of the flash library holds HGMMA
    (tensor cores) and UTMALDG (TMA) instructions; then each paged_attention
-   instantiation by name (dtype, head_dim, group) with its registers,
-   spills, shared memory and CTAs per SM, failing if the one Llama decode
-   runs (bf16, d 128, group 4) spills; then each ssd_chunk instantiation
+   instantiation by name (bf16 tensor-core kernel per head_dim; float32
+   CUDA-core kernel per head_dim and group) with its registers,
+   spills, shared memory and CTAs per SM, failing if the bf16 ones Llama
+   (d 128) and qwen3-32b (d 80) decode run spill or the paged library's SASS
+   holds no HMMA and LDSM instruction; then each ssd_chunk instantiation
    (B/C float32, bfloat16) the same way, failing if the bf16 one spills or
    the ssd_chunk library's SASS holds no tensor-core (HMMA) instruction.
 2. kernels: each kernel against its plain PyTorch version on the card, at
@@ -48,15 +50,17 @@ Phases, each a hard check (any failure exits non-zero):
    same limits and timed the same way: flash and paged attention at
    Arctic's GQA group of 7 (56 / 8 heads; 1024 tokens, decode context 1040)
    and Jamba's group of 8 at 64 / 8 heads (1000 tokens, context 1016), d
-   128, and ssd_chunk at Jamba's 256 heads (1024 tokens). exp10's top-k
+   128, and at qwen3-32b's group of 8 at 64 / 8 heads, d 80 (1024 tokens,
+   context 1040); ssd_chunk at Jamba's 256 heads (1024 tokens). exp10's top-k
    read is also timed over 96 seeded sources in turn (63 MB, above L2)
    beside its byte bound.
-3. small: reduced Llama-3.1-8B and Arctic-480B in float32 served cold and
+3. small: reduced Llama-3.1-8B and Arctic-480B and a narrow qwen3-32b
+   (head_dim 80, group 8, d_model 640, 2 layers) in float32 served cold and
    warm on the card (kernels) and on the CPU (plain versions) with the same
    weights, and reduced Mamba-2 2.7B and Jamba-1.5-Large in float32
    prefilled and decoded on both; the per-step logits must agree within
-   1e-4; the attention prefills' flash calls (head_dim 16, float32) take
-   the cuda_cores route.
+   1e-4; the attention prefills' flash calls (float32) take the cuda_cores
+   route.
 4. main path: full-width Llama-3.1-8B (random weights from a seed, bf16)
    served through ``RealEngine`` (kernels for tensors on the card): two cold
    prompts, two that hit a 512-token shared prefix, two full repeats. Checks
@@ -110,6 +114,19 @@ Phases, each a hard check (any failure exits non-zero):
    factor of 8.0 beside its noise floor, as phase 5 does; prints the
    dropped pairs, the prefill's median of 5 with its spread, decode
    tokens/s, peak memory and profiled windows.
+9. qwen3-32b path (phase 8's model freed first): full width (d 5120, 64 /
+   8 heads at head_dim 80, d_ff 25600, vocabulary 151936, bf16, random
+   weights from a seed), depth cut to 16 of 64 layers (about 17.6 GB),
+   served through ``RealEngine`` with a pool of 512 blocks: two cold
+   1024-token requests, a partial hit on a 768-token shared prefix and a
+   full repeat, 16 new tokens each. Checks hit counts, the restored cache
+   bit for bit, the launches (flash 16 per cold request, all wgmma at d 80;
+   paged 16 per decode step, one a layer; gather 1 per cold request; scatter
+   1 per hit), and the logits at every step against the same requests
+   through the plain versions on the card, their decode fed the kernel
+   path's tokens, within 0.5; prints TTFT cold / partial /
+   full, decode tokens/s, peak memory, and a profiled cold request and
+   decode window (16 paged kernels a step).
 
 Prints the kernel table as one JSON line, the card's name and power limit,
 and last ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
@@ -118,6 +135,7 @@ before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -169,15 +187,23 @@ FLASH_SHAPES = (
     (1, 37, 80, 4, 1, 128, True), (1, 37, 80, 8, 2, 64, True),
     (1, 64, 300, 8, 2, 64, False), (1, 64, 300, 8, 1, 128, False),
     (2, 1024, 1024, 4, 4, 128, False),
+    # d 80: five 32-byte TMA boxes a tile
+    (1, 129, 129, 16, 2, 80, True), (2, 200, 200, 16, 2, 80, False),
+    (1, 37, 80, 8, 1, 80, True),
 )
 # the flash library's SASS must hold tensor-core and TMA instructions
 FLASH_SASS = ("HGMMA", "UTMALDG")
 # the ssd_chunk library's SASS must hold tensor-core instructions (either)
 SSD_SASS = ("HMMA", "HGMMA")
+# the paged library's SASS must hold tensor-core (mma.sync) and ldmatrix
+# instructions: its bf16 kernel, which every served model runs
+PAGED_SASS = ("HMMA", "LDSM")
 LLAMA_KERNELS = ("kv_gather_write", "kv_scatter_read", "flash_attention", "paged_attention")
-# phase 2 at the MoE and hybrid paths' attention shapes, bf16, d 128:
-# label -> (prompt tokens, q heads, kv heads, max_len, decode context)
-MOE_ATTN_SHAPES = {"arctic": (1024, 56, 8, 2048, 1040), "jamba": (1000, 64, 8, 1024, 1016)}
+# phase 2 at the other attention paths' shapes, bf16: the MoE and hybrid
+# paths' (d 128, groups 7 and 8) and qwen3-32b's (d 80, group 8):
+# label -> (prompt tokens, q heads, kv heads, head_dim, max_len, decode context)
+ATTN_SHAPES = {"arctic": (1024, 56, 8, 128, 2048, 1040), "jamba": (1000, 64, 8, 128, 1024, 1016),
+               "qwen3_32b": (1024, 64, 8, 80, 2048, 1040)}
 # paged rows at those shapes are timed cycling over this many layers' caches,
 # so that each call finds its cache cold in L2, as a decode step that reads
 # gigabytes of expert weights between two attention layers does
@@ -204,6 +230,10 @@ JAMBA_EXPERTS, JAMBA_PROMPT, JAMBA_STEPS = 8, 1000, 16
 # (tests/test_models.py:104-108): at the default factor a prefill may drop the
 # last token's expert pair, which a one-token decode (capacity 4) never drops
 CONTINUITY_CAPACITY = 8.0
+# phase 9: qwen3-32b at full width (d 5120, 64 / 8 heads at head_dim 80,
+# d_ff 25600, vocabulary 151936), depth cut to 16 of 64 layers (about 17.6 GB
+# of bf16 weights); requests of 1024 tokens, a 768-token shared prefix
+QWEN3_LAYERS, QWEN3_SHARED = 16, 768
 MAMBA_PROMPTS, MAMBA_STEPS = (1000, 4095), 16
 PREFILL_REPEATS = 5  # timed prefills of each prompt, after one warm-up
 # the final SSM state of the kernel path against the plain path's, relative to
@@ -319,15 +349,16 @@ def paged_row(cfg, randn) -> dict:
             qs[i], ks[i], vs[i], enable_gqa=True), range(L)),
     )
     del kc, vc, q, qs, ks, vs
-    row["shapes"] = {label: paged_shape(label, hq_, hkv_, max_len, ctx_len, randn)
-                     for label, (_, hq_, hkv_, max_len, ctx_len) in MOE_ATTN_SHAPES.items()}
+    row["shapes"] = {label: paged_shape(label, hq_, hkv_, hd_, max_len, ctx_len, randn)
+                     for label, (_, hq_, hkv_, hd_, max_len, ctx_len) in ATTN_SHAPES.items()}
     return row
 
 
-def paged_shape(label: str, hq: int, hkv: int, max_len: int, ctx_len: int, randn) -> dict:
-    """paged_attention at the Arctic or Jamba decode (bf16, d 128, groups 7
-    and 8, the group-8 instantiation): one token over a dense (1, max_len,
-    8, 128) cache as blocks of 16 through the identity table, checked and
+def paged_shape(label: str, hq: int, hkv: int, hd: int, max_len: int, ctx_len: int,
+                randn) -> dict:
+    """paged_attention at the Arctic, Jamba or qwen3-32b decode (bf16; d 128
+    at groups 7 and 8, d 80 at group 8): one token over a dense (1, max_len,
+    8, hd) cache as blocks of 16 through the identity table, checked and
     timed over PAGED_CYCLE such caches in turn."""
     import torch
     import torch.nn.functional as F
@@ -335,7 +366,7 @@ def paged_shape(label: str, hq: int, hkv: int, max_len: int, ctx_len: int, randn
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
 
-    dev, hd, bt, n = torch.device("cuda"), 128, 16, PAGED_CYCLE
+    dev, bt, n = torch.device("cuda"), 16, PAGED_CYCLE
     n_blk = max_len // bt
     kc, vc = randn(n, 1, max_len, hkv, hd), randn(n, 1, max_len, hkv, hd)
     q = randn(n, 1, hq, hd)
@@ -353,24 +384,42 @@ def paged_shape(label: str, hq: int, hkv: int, max_len: int, ctx_len: int, randn
     err, tol = bf16_check(torch.stack([kernel(i) for i in range(n)]),
                           torch.stack([plain(i) for i in range(n)]))
     check(err <= tol, f"paged_attention at {label}'s decode (q heads {hq} / kv {hkv}, group "
-          f"{hq // hkv}, ctx {ctx_len}): max |err| {err:.3g} <= {tol:.3g} ({PAGED_ULPS} bf16 "
-          f"steps at the largest output)")
+          f"{hq // hkv}, d {hd}, ctx {ctx_len}): max |err| {err:.3g} <= {tol:.3g} ({PAGED_ULPS} "
+          f"bf16 steps at the largest output)")
     moved = (2 * ctx_len * hkv * hd + 2 * hq * hd) * q.element_size()
     flops = 4 * hq * ctx_len * hd
     qs = q.unsqueeze(3)
     ks, vs = kc[:, :, :ctx_len].transpose(2, 3), vc[:, :, :ctx_len].transpose(2, 3)
     splits, per_sm = pa.plan(dev, q.dtype, hd, hq // hkv, 1, hkv, n_blk)
-    r = dict(max_abs_err=err, splits=splits, ctas_per_sm=per_sm,
+    r = dict(max_abs_err=err, head_dim=hd, splits=splits, ctas_per_sm=per_sm,
              ms=cycled_ms(kernel, range(n)), plain_ms=cycled_ms(plain, range(n)),
              bound_ms=max(moved / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
              bound_by="bytes" if moved / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
              else "operations",
              library_ms=cycled_ms(lambda i: F.scaled_dot_product_attention(
                  qs[i], ks[i], vs[i], enable_gqa=True), range(n)))
-    print(f"  paged_attention, {label} (group {hq // hkv}, ctx {ctx_len}, {splits} splits, "
+    print(f"  paged_attention, {label} (group {hq // hkv}, d {hd}, ctx {ctx_len}, {splits} splits, "
           f"{per_sm} CTAs per SM): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA "
           f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
     return r
+
+
+@contextlib.contextmanager
+def profiled():
+    """A torch.profiler window over the CPU and the card, opened on an idle
+    card and left to settle (``profiler_probe.SETTLE_S``) before the
+    caller's first launch: a window whose first ops came as it opened
+    missed some of them (``repro_torch.experiments.profiler_probe``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.experiments.profiler_probe import SETTLE_S
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        time.sleep(SETTLE_S)
+        yield prof
 
 
 def kernels_per_call(run, calls: int, name: str) -> float:
@@ -378,11 +427,10 @@ def kernels_per_call(run, calls: int, name: str) -> float:
     makes ``calls`` calls); fails if a kernel without ``name`` in its name
     ran in the window."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     run()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         run()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages()
@@ -635,22 +683,21 @@ def flash_row(cfg, randn) -> dict:
               f"flash_attention (wgmma) within {FLASH_TOL} at b {b}, sq {sq}, skv {skv}, heads "
               f"{nq}/{nkv}, d {d}, {'causal' if causal else 'non-causal'} (max |err| {e:.3g})")
     row["max_abs_err_shapes"] = max(errs)
-    row["shapes"] = {label: flash_shape(label, sq, hq_, hkv_, randn)
-                     for label, (sq, hq_, hkv_, _, _) in MOE_ATTN_SHAPES.items()}
+    row["shapes"] = {label: flash_shape(label, sq, hq_, hkv_, hd_, randn)
+                     for label, (sq, hq_, hkv_, hd_, _, _) in ATTN_SHAPES.items()}
     return row
 
 
-def flash_shape(label: str, sq: int, hq: int, hkv: int, randn) -> dict:
-    """flash_attention at one layer of the Arctic or Jamba prefill (bf16, d
-    128, groups 7 and 8: the wgmma route) against the plain version, timed
-    beside it, SDPA and its bound."""
+def flash_shape(label: str, sq: int, hq: int, hkv: int, hd: int, randn) -> dict:
+    """flash_attention at one layer of the Arctic, Jamba or qwen3-32b prefill
+    (bf16; d 128 at groups 7 and 8, d 80 at group 8: the wgmma route)
+    against the plain version, timed beside it, SDPA and its bound."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
 
-    hd = 128
     q, k, v = randn(1, sq, hq, hd), randn(1, sq, hkv, hd), randn(1, sq, hkv, hd)
     before = fa.flash_attention.launches_by_route["wgmma"]
     out = fa.flash_attention(q, k, v, causal=True)
@@ -766,10 +813,14 @@ def flash_build_proof(build) -> None:
 
 
 def paged_build_proof(build) -> None:
-    """Each paged_attention instantiation as ptxas built it, by name (dtype,
-    head_dim, group): registers, spill stores and loads, static shared
-    memory, and its K/V ring (dynamic shared memory); the one that Llama
-    decode runs (bf16, d 128, group 4) must not spill."""
+    """Each paged_attention instantiation as ptxas built it, by name: the
+    bf16 tensor-core kernel per head_dim (a whole group of up to 8 heads a
+    CTA) and the float32 CUDA-core kernel per (head_dim, group rounded up
+    to a power of two):
+    registers, spill stores and loads, static shared memory, its K/V ring
+    (dynamic shared memory) and CTAs per SM. The bf16 kernels that Llama
+    (d 128) and qwen3-32b (d 80) decode run must not spill, and the library's
+    SASS must hold the tensor-core (HMMA) and ldmatrix (LDSM) instructions."""
     import re
 
     import torch
@@ -777,25 +828,33 @@ def paged_build_proof(build) -> None:
     from repro_torch.kernels import paged_attention as pa
 
     log = build.build_log("paged_attention")
+    dev = torch.device("cuda", torch.cuda.current_device())
     seen = {}
-    for fn, body in re.findall(r"Compiling entry function '(\S*paged_attention_kernel\S*)'"
+    for fn, body in re.findall(r"Compiling entry function '(\S*paged_\w*kernel\S*)'"
                                r"(.*?)Compile time", log, flags=re.S):
-        m = re.search(r"paged_attention_kernelI(f|13__nv_bfloat16)Li(\d+)ELi(\d+)E", fn)
-        dtype = torch.float32 if m.group(1) == "f" else torch.bfloat16
-        d, g = int(m.group(2)), int(m.group(3))
+        mma = re.search(r"paged_mma_kernelILi(\d+)E", fn)
+        if mma:
+            dtype, d, g = torch.bfloat16, int(mma.group(1)), 8
+        else:
+            m = re.search(r"paged_attention_kernelIfLi(\d+)ELi(\d+)E", fn)
+            dtype, d, g = torch.float32, int(m.group(1)), int(m.group(2))
         regs = int(re.search(r"Used (\d+) registers", body).group(1))
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         smem = re.search(r"(\d+) bytes smem", body)
-        dev = torch.device("cuda", torch.cuda.current_device())
         seen[(dtype, d, g)] = stores, loads = int(spill.group(1)), int(spill.group(2))
-        print(f"  paged kernel {str(dtype)[6:]}, d {d}, group {g}: {regs} registers, spill "
-              f"stores {stores} B / loads {loads} B, {smem.group(1) if smem else 0} B static "
-              f"+ {pa.ring_bytes(dev, dtype, d, g)} B ring shared memory, "
+        print(f"  paged kernel {str(dtype)[6:]}, d {d}, {g} heads a CTA: {regs} registers, "
+              f"spill stores {stores} B / loads {loads} B, {smem.group(1) if smem else 0} B "
+              f"static + {pa.ring_bytes(dev, dtype, d, g)} B ring shared memory, "
               f"{pa.ctas_per_sm(dev, dtype, d, g)} CTAs per SM")
-    check(len(seen) == 2 * len(pa.HEAD_DIMS) * 4, f"ptxas reported all {len(seen)} paged "
-          "instantiations (2 dtypes x 4 head_dims x groups 1, 2, 4, 8)")
-    check(seen[(torch.bfloat16, 128, 4)] == (0, 0),
-          "the paged instantiation Llama decode runs (bf16, d 128, group 4) does not spill")
+    want = len(pa.HEAD_DIMS) * (1 + 4)  # bf16: one per head_dim; float32: 1, 2, 4, 8 heads
+    check(len(seen) == want, f"ptxas reported all {len(seen)} of {want} paged "
+          "instantiations (bf16 x 5 head_dims; float32 x 5 head_dims x 1, 2, 4, 8 heads a CTA)")
+    check(seen[(torch.bfloat16, 128, 8)] == (0, 0) and seen[(torch.bfloat16, 80, 8)] == (0, 0),
+          "the bf16 paged kernels Llama (d 128) and qwen3-32b (d 80) decode run do not spill")
+    sass = build.sass("paged_attention")
+    counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in PAGED_SASS}
+    check(all(counts.values()), f"paged library SASS holds tensor-core and ldmatrix "
+          f"instructions: {counts}")
 
 
 def ssd_build_proof(build) -> None:
@@ -833,17 +892,23 @@ def ssd_build_proof(build) -> None:
 
 
 def phase_small() -> None:
+    from repro_torch.configs.registry import get_config
+
     small_engine("llama3.1-8b")
     small_engine("arctic-480b")
+    # qwen3-32b's head_dim 80 and group 8 (reduced_config would force d 16)
+    small_engine("qwen3-32b", dataclasses.replace(
+        get_config("qwen3-32b"), name="qwen3-32b-narrow", n_layers=2, d_model=640, n_heads=8,
+        n_kv_heads=1, d_ff=256, vocab_size=256))
     small_model("mamba2-2.7b")
     small_model("jamba-1.5-large-398b")
 
 
-def small_engine(arch: str) -> None:
-    """A reduced attention stack in float32 served cold and warm through
-    ``RealEngine`` on the card (kernels) and on the CPU (plain versions) with
-    the same weights: per-step logits within SMALL_TOL, equal tokens; its
-    prefill's flash calls (head_dim 16, float32) take the cuda_cores route."""
+def small_engine(arch: str, cfg=None) -> None:
+    """A reduced attention stack (or ``cfg``) in float32 served cold and warm
+    through ``RealEngine`` on the card (kernels) and on the CPU (plain
+    versions) with the same weights: per-step logits within SMALL_TOL, equal
+    tokens; its prefill's flash calls (float32) take the cuda_cores route."""
     import torch
 
     from repro_torch.configs.registry import reduced_config
@@ -851,7 +916,7 @@ def small_engine(arch: str) -> None:
     from repro_torch.models.model import init_params
     from repro_torch.serving.real_runner import RealEngine
 
-    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    cfg = dataclasses.replace(cfg or reduced_config(arch), dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     ops.reset_launch_counts()
     engines = {
@@ -866,14 +931,14 @@ def small_engine(arch: str) -> None:
         got[name] = [eng.generate(prompt.tolist(), max_new=8) for _ in range(2)]
     routes = ops.flash_routes()
     check(routes["cuda_cores"] == cfg.n_layers and routes["wgmma"] == 0,
-          f"reduced fp32 {arch} (head_dim {cfg.head_dim}) prefill took the cuda_cores route: "
+          f"{cfg.name} fp32 (head_dim {cfg.head_dim}) prefill took the cuda_cores route: "
           f"{routes}")
     for i, label in enumerate(("cold", "warm")):
         (tg, ig), (tc, ic) = got["cuda"][i], got["cpu"][i]
         diff = (ig["logits"].cpu() - ic["logits"]).abs().max().item()
         check(ig["hit_tokens"] == ic["hit_tokens"] == 48 * i
               and diff <= SMALL_TOL and tg == tc,
-              f"reduced fp32 {arch} {label}: card vs CPU logits max |diff| {diff:.3g} "
+              f"{cfg.name} fp32 {label}: card vs CPU logits max |diff| {diff:.3g} "
               f"<= {SMALL_TOL}, hits {ig['hit_tokens']}")
 
 
@@ -1038,10 +1103,9 @@ def phase_profile(eng, cold, prompt, ttft_s) -> None:
     request of a fresh prompt: prefill, pool writeback, first token) and where
     one decode step's time goes (a short profiled window)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         _, info = eng.generate(prompt, max_new=1)
         torch.cuda.synchronize()
@@ -1053,8 +1117,7 @@ def phase_profile(eng, cold, prompt, ttft_s) -> None:
     toks, info = cold
     cache = info["kv"]
     pos, steps = PROMPT + len(toks), 8
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             eng._decode(cache, toks[-1], pos + i)
@@ -1541,6 +1604,115 @@ def phase_jamba(cfg) -> dict:
     return launches
 
 
+def phase_qwen3(cfg) -> dict:
+    """qwen3-32b at full width, depth cut to QWEN3_LAYERS, served through
+    ``RealEngine`` with the pool: two cold 1024-token requests, one that hits
+    a QWEN3_SHARED-token shared prefix (the tail stepped through decode) and
+    a full repeat, MAX_NEW new tokens each; then the same requests through
+    the plain versions on the card, the logits held at every step."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.serving.real_runner import RealEngine
+
+    L = cfg.n_layers
+    t0 = time.perf_counter()
+    eng = RealEngine.create(cfg, max_len=MAX_LEN, pool_blocks=POOL_BLOCKS, seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(eng.params))
+    print(f"  cut: {L} of 64 layers; d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} "
+          f"heads at head_dim {cfg.head_dim}, d_ff {cfg.d_ff} and the vocabulary "
+          f"{cfg.vocab_size} as in the registry. {n_params / 1e9:.2f} B parameters "
+          f"({n_params * 2 / 1e9:.2f} GB bf16) up in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    rng = np.random.default_rng(9)
+    fresh = lambda n: rng.integers(0, cfg.vocab_size, size=n).tolist()  # noqa: E731
+    shared = fresh(QWEN3_SHARED)
+    p0, p1, p2 = shared + fresh(PROMPT - QWEN3_SHARED), fresh(PROMPT), \
+        shared + fresh(PROMPT - QWEN3_SHARED)
+    prompts, want_hits = [p0, p1, p2, p0], [0, 0, QWEN3_SHARED, PROMPT]
+
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    results = [eng.generate(p, max_new=MAX_NEW) for p in prompts]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, routes = ops.launch_counts(), ops.flash_routes()
+    peak = torch.cuda.max_memory_allocated()
+
+    for i, ((toks, info), want) in enumerate(zip(results, want_hits)):
+        lg = info["logits"]
+        print(f"  req {i}: hit {info['hit_tokens']}/{PROMPT}, ttft "
+              f"{info['ttft_s'] * 1e3:.2f} ms, total {info['total_s'] * 1e3:.1f} ms, "
+              f"tokens {toks[:6]}...")
+        check(info["hit_tokens"] == want, f"req {i} hit_tokens {info['hit_tokens']} == {want}")
+        check(len(toks) == MAX_NEW and lg.shape == (MAX_NEW, cfg.padded_vocab)
+              and bool(torch.isfinite(lg).all()), f"req {i}: {MAX_NEW} finite logit rows")
+    steps = sum(
+        (len(p) - min(info["hit_tokens"], len(p) - 1) if info["hit_tokens"] else 0)
+        + len(toks) - 1
+        for p, (toks, info) in zip(prompts, results)
+    )
+    cold, hit = want_hits.count(0), len(want_hits) - want_hits.count(0)
+    check(launches["flash_attention"] == routes["wgmma"] == cold * L
+          and routes["cuda_cores"] == 0,
+          f"flash_attention {L} per cold request ({cold} cold) at head_dim {cfg.head_dim}, "
+          f"all on the wgmma route: {launches['flash_attention']}, {routes}")
+    check(launches["paged_attention"] == L * steps,
+          f"paged_attention launched {launches['paged_attention']} times = {L} layers x "
+          f"{steps} decode steps (one launch per layer per step)")
+    check(launches["kv_gather_write"] == cold and launches["kv_scatter_read"] == hit
+          and launches["ssd_chunk"] == launches["sparse_kv_gather"] == 0,
+          f"kv_gather_write once per cold request, kv_scatter_read once per hit: {launches}")
+
+    cold_k, cold_v = results[0][1]["kv"]
+    blocks = eng.index.match_prefix(p0)
+    rk, rv = eng.fetch([b for _, b, _ in blocks])
+    torch.cuda.synchronize()
+    check(len(blocks) * 16 == PROMPT
+          and torch.equal(rk[:, :, :PROMPT], cold_k[:, :, :PROMPT])
+          and torch.equal(rv[:, :, :PROMPT], cold_v[:, :, :PROMPT])
+          and not rk[:, :, PROMPT:].any() and not rv[:, :, PROMPT:].any(),
+          f"pool round trip of {len(blocks)} blocks is bit-exact, unmapped slots zero")
+    del rk, rv, cold_k, cold_v
+
+    # the same requests through the plain versions on the card, same weights,
+    # the decode fed the kernel path's tokens: the kernels' rounding is all
+    # that differs, at every step (a greedy near-tie would otherwise end the
+    # comparison at its first flip)
+    plain = RealEngine.create(cfg, max_len=MAX_LEN, pool_blocks=POOL_BLOCKS, params=eng.params,
+                              kernel_mode="ref")
+    diffs = []
+    for i, (p, (toks, info)) in enumerate(zip(prompts, results)):
+        _, pinfo = plain.generate(p, max_new=len(toks), feed=toks)
+        n_hit = pinfo["hit_tokens"]
+        diff = (info["logits"] - pinfo["logits"]).abs().max().item()
+        diffs.append(diff)
+        check(diff <= LOGIT_TOL and n_hit == want_hits[i],
+              f"req {i} kernel vs plain path: max |dlogit| {diff:.4g} <= {LOGIT_TOL} over all "
+              f"{len(toks)} steps (logit std {info['logits'].std().item():.3g})")
+    del plain
+
+    decode_s = sum(info["total_s"] - info["ttft_s"] for _, info in results)
+    decode_tok = sum(len(t) - 1 for t, _ in results)
+    summary = {
+        "wall_s": wall,
+        "ttft_ms": {"cold": [results[i][1]["ttft_s"] * 1e3 for i in (0, 1)],
+                    "partial": results[2][1]["ttft_s"] * 1e3,
+                    "full": results[3][1]["ttft_s"] * 1e3},
+        "decode_tok_per_s": decode_tok / decode_s,
+        "peak_mem_gib": peak / 2**30,
+        "kernel_vs_plain_max_dlogit": diffs,
+        "launches": launches,
+        "flash_routes": routes,
+    }
+    print("  qwen3 path: " + json.dumps(summary))
+    phase_profile(eng, results[0], fresh(PROMPT), results[1][1]["ttft_s"])
+    return launches
+
+
 def continuity(cfg, params, full, max_len: int | None = None,
                routes: list | None = None) -> tuple[float, float]:
     """Prefill all but the last token, decode the last at its position, and
@@ -1580,12 +1752,11 @@ def profile_model(model, params, prompts, toks, max_len: int | None = None) -> N
     """Where each prefill's and a decode step's time go (Mamba-2: prompts of
     1000 and 4095 tokens; Jamba: 1000, its caches of ``max_len`` tokens)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     caches = []
     for prompt in prompts:
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiled() as prof:
             t0 = time.perf_counter()
             caches.append(model.prefill_fn(params, prompt, max_len=max_len)[1])
             torch.cuda.synchronize()
@@ -1594,7 +1765,7 @@ def profile_model(model, params, prompts, toks, max_len: int | None = None) -> N
     prompt, cache = prompts[0], caches[0]
     del caches[1:]
     steps, dev = 8, prompt.device
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profiled() as prof:
         t0 = time.perf_counter()
         for i in range(steps):
             model.decode_fn(params, cache, torch.tensor([toks[i]], device=dev),
@@ -1709,8 +1880,15 @@ def main() -> None:
     print(f"[8] Jamba-1.5-Large path: full width, one period, {JAMBA_EXPERTS} experts",
           flush=True)
     jamba_launches = phase_jamba(jamba_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 8's model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    qwen3_cfg = dataclasses.replace(get_config("qwen3-32b"), n_layers=QWEN3_LAYERS)
+    print(f"[9] qwen3-32b path: full width, {QWEN3_LAYERS} of 64 layers, through the pool",
+          flush=True)
+    qwen3_launches = phase_qwen3(qwen3_cfg)
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
-             "arctic": arctic_launches, "jamba": jamba_launches}
+             "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches}
     own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse"}
     for r in rows:
         r["launches"] = paths[own.get(r["name"], "llama")][r["name"]]

@@ -15,11 +15,14 @@ one ``nvcc`` per source, all at once. A failed build raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
@@ -88,6 +91,12 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The card's SMs, which size the kernels' grids."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def build_log(name: str) -> str:

@@ -21,13 +21,23 @@
 // Bound on an H100: bytes. Llama-3.1-8B at a context of 1040 tokens reads
 // 2 * 1040 * 8 * 128 * 2 bytes = 4.3 MB of K and V per layer, 1.3 us at
 // 3.35 TB/s. At a group of 4 that is about 8 FLOP per byte read, far below
-// the ~295 at which bf16 tensor cores would become the limit, so the
-// products run on the CUDA cores and no tensor core is needed.
+// the ~295 at which bf16 tensor cores would become the limit. What the
+// kernel waits on is latency (the context, the table entry, the K/V rows
+// in turn) and, at 2 CTAs per SM, the instructions its warps issue: scoring
+// a 16-key tile against 4 heads on the CUDA cores took about a thousand
+// (unpack, FMAs, butterfly shuffles), 2.0-2.6 us of a 9-10 us call.
+//
+// Two kernels, by dtype. bf16 (every served model): the tensor cores,
+// mma.sync m16n8k16 with the group's up to 8 query heads as the products'
+// N, a whole group a CTA (paged_mma_kernel, below: a tile is 2 d/16
+// products and a few shuffles). float32 (reduced test models): the CUDA
+// cores (paged_attention_kernel), a whole group a CTA too.
 //
 // Design: ONE launch. The grid is (S, hkv, b) and each (row, kv head) is
-// one thread-block cluster of S CTAs. The wrapper picks S from the SM
-// count, the resident CTAs per SM and the clusters that fit at once
-// (paged_attention.py: plan_splits; 16 at Llama's decode shape). On the
+// one thread-block cluster of S CTAs. The
+// wrapper picks S from the SM count, the resident CTAs per SM and the
+// clusters that fit at once (paged_attention.py: plan_splits; 16 at the
+// paths' decode shapes, b 1 and 8 kv heads). On the
 // card each CTA reads its row's context and takes an even share of its
 // pool blocks (split_ranges in paged_attention.py is the same formula):
 // nb = ceil(ctx / bt), S_r = min(S, nb) active splits, split s takes blocks
@@ -47,24 +57,28 @@
 // Every warp runs the CTA's rounds, so the loop is warp-uniform and its
 // shuffles need no collective fallback.
 //
-// The softmax is taken per tile, not per token: d / 8 (bf16) or d / 4 (f32)
-// lanes score a row, one 16-byte chunk each, against all G query heads
-// held in registers (q rounded to T, then f32); a butterfly of shuffles
-// sums the row's chunks while halving the heads a lane carries (5 shuffles
-// for G 4 at d 128, not 16); log2(e) is folded into the f32 score after the
-// rounded-q product. Then each head's tile max and sum take four shuffles
-// over the 16 rows, P is formed with exp2f, the accumulator is rescaled
-// once per tile and P.V adds the tile's rows into the g x d outputs, d / 32
-// columns per lane.
+// In the float32 kernel the softmax is taken per tile, not per token: d / 4
+// lanes score a row, one 16-byte chunk each (a row of d 80 is 20 chunks: 32
+// lanes take it, the ones past the last chunk adding zeros, so that the
+// butterfly pairs lanes of one row), against all G query heads held in
+// registers (q rounded to T, then f32); a butterfly of shuffles sums the
+// row's chunks while halving the heads a lane carries; log2(e) is folded
+// into the f32 score after the rounded-q product. Then each head's tile
+// max and sum take four shuffles over the 16 rows, P is formed with exp2f,
+// the accumulator is rescaled once per tile and P.V adds the tile's rows
+// into the g x d outputs, 1, 2 or 4 columns per lane (d 80: 4 columns on
+// 20 lanes).
 //
 // The merges are in the same launch, with no spin, no atomics and no
 // scratch in device memory. The CTA's warps leave their partials in their
 // own stages and the CTA merges them in warp order; with S_r == 1 that is
-// the output. Otherwise each CTA writes its partial (max, sum, g x d
-// accumulator, f32) to its shared memory, the cluster meets at a barrier,
-// CTA s merges outputs [s * per, (s + 1) * per) from the S_r partials in
-// split order, read through distributed shared memory, and a second
-// barrier keeps every partial alive until all are read. The result depends
+// the output. Otherwise each active split pushes its partial (max, sum, and
+// the f32 accumulator of outputs [s * per, (s + 1) * per)) into CTA s's
+// shared memory with remote stores, one cluster barrier makes every push
+// visible, and CTA s merges its outputs from its own shared memory in split
+// order. (Pulling the partials after a barrier, as the earlier design did,
+// waits for a round trip of remote loads and needs a second barrier to keep
+// them alive.) The result depends
 // on the context and S, never on the order in which CTAs run or on the
 // layout. A row of context 0 is written as zeros by its split 0, and its
 // cluster never meets.
@@ -101,45 +115,31 @@ template <> struct Traits<float> {
   __device__ static float to_f(float x) { return x; }
   __device__ static float from_f(float x) { return x; }
 };
-template <> struct Traits<__nv_bfloat16> {
-  static constexpr int kVec = 8;
-  __device__ static void unpack(const uint4& u, float* o) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      o[2 * i] = __low2float(h[i]);
-      o[2 * i + 1] = __high2float(h[i]);
-    }
-  }
-  __device__ static uint4 pack(const float* x) {  // rounds each to bf16
-    uint4 u;
-    __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i], x[2 * i + 1]);
-    return u;
-  }
+template <> struct Traits<__nv_bfloat16> {  // the tensor-core kernel's outputs
   __device__ static float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
   __device__ static __nv_bfloat16 from_f(float x) { return __float2bfloat16(x); }
 };
 
-// Compile-time shape of one instantiation: element type, head_dim D, group
-// G (query heads per kv head, rounded up to a power of two; the runtime
-// g <= G guards the rest).
+// Compile-time shape of one instantiation: element type, head_dim D, and G,
+// the group rounded up to a power of two (the runtime count <= G guards
+// the rest).
 template <typename T, int D, int G> struct Shape {
   static constexpr int kVec = Traits<T>::kVec;
-  static constexpr int kCpr = D / kVec;  // 16-byte chunks per row (>= 2)
-  // scoring: a lane takes one 16-byte chunk of a row, kLpr = kCpr lanes a
-  // row, 32 / kLpr rows per step; after the butterfly a lane holds kHeld
-  // heads' scores
-  static constexpr int kLpr = kCpr;
+  static constexpr int kCpr = D / kVec;  // 16-byte chunks per row (>= 4; 20 at d 80)
+  // scoring: a lane takes one 16-byte chunk of a row, kLpr lanes a row (kCpr
+  // rounded up to a power of two, so that the butterfly below pairs lanes
+  // of one row; lanes sub >= kCpr add zeros), 32 / kLpr rows per step;
+  // after the butterfly a lane holds kHeld heads' scores
+  static constexpr int kLpr = kCpr <= 2 ? 2 : kCpr <= 4 ? 4 : kCpr <= 8 ? 8 : kCpr <= 16 ? 16 : 32;
   static constexpr int kSteps = kTile / (32 / kLpr);
   static constexpr int kHeld = G / kLpr > 1 ? G / kLpr : 1;
   static constexpr int kStageBytes = 2 * kTile * D * (int)sizeof(T);  // K and V
   static constexpr int kFit = kRingBytes / (kWarps * kStageBytes);
   static constexpr int kWarpStages = kFit < 1 ? 1 : (kFit > 2 ? 2 : kFit);
   static constexpr int kSmem = kWarps * kWarpStages * kStageBytes;  // dynamic
-  static constexpr int kCols = D / 32 > 0 ? D / 32 : 1;  // P.V columns a lane owns
-  static constexpr int kOut = (G * D + kThreads - 1) / kThreads;  // merged outputs a thread owns
+  // P.V columns a lane owns: the least power of two that leaves at most 32
+  // owners (d 80: 4 columns on 20 lanes)
+  static constexpr int kCols = D <= 32 ? 1 : D <= 64 ? 2 : 4;
 };
 
 struct Args {
@@ -208,6 +208,119 @@ __device__ __forceinline__ void butterfly(float* v, int lane, int& head) {
   }
 }
 
+// 2^x as one MUFU.EX2 (exp2f adds a range check for results below 2^-126,
+// which no softmax weight here needs)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// barrier.cluster in two halves: every CTA of a cluster that merges arrives
+// as soon as it knows it will (right after its context is read) and waits
+// just before it first writes into another CTA's shared memory, by when all
+// have long started; the wait then costs nothing
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// The CTA's warps left their partials (max, sum per head; the g x d
+// accumulator, f32, at the start of each warp's ring space, warp_bytes
+// apart). Merge them in warp order, then, with more than one active split,
+// merge the cluster's splits and write the outputs: each split pushes its
+// partial of the outputs [s * per, (s + 1) * per) into CTA s's shared
+// memory (remote stores, no round trip), one cluster barrier makes them
+// visible, and CTA s merges them from its own shared memory in split order.
+template <typename T, int D, int G>
+__device__ __forceinline__ void merge_partials(const unsigned char* ring, int warp_bytes,
+                                               float (*s_wm)[G], float (*s_wl)[G], float* s_cm,
+                                               float* s_cl, T* out, int g, int S, int s_act,
+                                               int split, int tid) {
+  using Tr = Traits<T>;
+  constexpr int kOut = (G * D + kThreads - 1) / kThreads;  // merged outputs a thread owns
+  __shared__ float s_in[G * D + kMaxCluster];  // the splits' partials of this CTA's outputs
+  __shared__ float s_in_m[kMaxCluster][G], s_in_l[kMaxCluster][G];  // and their max, sum
+  float cm[kOut], cl[kOut], ca[kOut];  // this CTA's partial, per owned output
+#pragma unroll
+  for (int r = 0; r < kOut; ++r) {
+    const int idx = tid + r * kThreads;
+    cm[r] = kNegInf;
+    cl[r] = 0.f;
+    ca[r] = 0.f;
+    if (idx < g * D) {
+      const int gi = idx / D;
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) cm[r] = fmaxf(cm[r], s_wm[w][gi]);
+#pragma unroll
+      for (int w = 0; w < kWarps; ++w) {
+        const float f = ex2(s_wm[w][gi] - cm[r]);
+        cl[r] += s_wl[w][gi] * f;
+        ca[r] += reinterpret_cast<const float*>(ring + w * warp_bytes)[idx] * f;
+      }
+    }
+  }
+
+  if (s_act == 1) {
+#pragma unroll
+    for (int r = 0; r < kOut; ++r) {
+      const int idx = tid + r * kThreads;
+      if (idx < g * D) out[idx] = Tr::from_f(ca[r] / fmaxf(cl[r], 1e-30f));
+    }
+    return;
+  }
+
+#pragma unroll
+  for (int r = 0; r < kOut; ++r) {
+    const int idx = tid + r * kThreads;
+    if (idx < g * D && idx % D == 0) {
+      s_cm[idx / D] = cm[r];
+      s_cl[idx / D] = cl[r];
+    }
+  }
+  __syncthreads();
+  cg::cluster_group cluster = cg::this_cluster();
+  const int per = (g * D + S - 1) / S;
+  cluster_wait();
+  if (split < s_act) {  // an inactive split has nothing to send
+#pragma unroll
+    for (int r = 0; r < kOut; ++r) {
+      const int idx = tid + r * kThreads;
+      if (idx < g * D) {
+        const int owner = idx / per;
+        *cluster.map_shared_rank(&s_in[split * per + idx - owner * per], owner) = ca[r];
+      }
+    }
+    for (int t = tid; t < S * g; t += kThreads) {
+      const int owner = t / g, gi = t % g;
+      *cluster.map_shared_rank(&s_in_m[split][gi], owner) = s_cm[gi];
+      *cluster.map_shared_rank(&s_in_l[split][gi], owner) = s_cl[gi];
+    }
+  }
+  cluster.sync();  // the pushes are visible; nothing remote is read after it
+  const int lo = split * per, hi = min(lo + per, g * D);
+  for (int idx = lo + tid; idx < hi; idx += kThreads) {
+    const int gi = idx / D, k = idx - lo;
+    float mx = kNegInf;
+#pragma unroll
+    for (int u = 0; u < kMaxCluster; ++u) {
+      if (u < s_act) mx = fmaxf(mx, s_in_m[u][gi]);
+    }
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int u = 0; u < kMaxCluster; ++u) {
+      if (u < s_act) {
+        const float f = ex2(s_in_m[u][gi] - mx);
+        den += s_in_l[u][gi] * f;
+        num += s_in[u * per + k] * f;
+      }
+    }
+    out[idx] = Tr::from_f(num / fmaxf(den, 1e-30f));
+  }
+}
+
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads, G >= 8 ? 1 : 2) paged_attention_kernel(Args args) {
   using Sh = Shape<T, D, G>;
@@ -218,23 +331,25 @@ __global__ void __launch_bounds__(kThreads, G >= 8 ? 1 : 2) paged_attention_kern
   __shared__ float s_sc[kWarps][G][kTile];  // a tile's scores
   __shared__ float s_p[kWarps][G][kTile];   // and its P
   __shared__ float s_wm[kWarps][G], s_wl[kWarps][G];
-  __shared__ float s_cm[G], s_cl[G], s_ca[G * D];  // this CTA's partial, for the cluster
+  __shared__ float s_cm[G], s_cl[G];  // this CTA's max and sum per head, for the cluster
 
   const int split = blockIdx.x, hk = blockIdx.y, bi = blockIdx.z;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int hq = args.hq, hkv = args.hkv, bt = args.bt, g = hq / hkv, S = args.splits;
+  const long long head0 = (long long)hk * g;
   // this lane's 16-byte chunk `sub` of q for every head, loaded beside the
   // context; the lane scores row rr of each step
   const int rr = lane / kLpr, sub = lane % kLpr;
+  const bool scores = sub < kCpr;  // lanes past the row's chunks add zeros
   uint4 qp[G];
-  const T* qrow = static_cast<const T*>(args.q) + ((long long)bi * hq + (long long)hk * g) * D;
+  const T* qrow = static_cast<const T*>(args.q) + ((long long)bi * hq + head0) * D;
 #pragma unroll
   for (int gi = 0; gi < G; ++gi) {
-    qp[gi] = gi < g ? __ldg(reinterpret_cast<const uint4*>(qrow + gi * D) + sub)
-                    : make_uint4(0, 0, 0, 0);
+    qp[gi] = gi < g && scores ? __ldg(reinterpret_cast<const uint4*>(qrow + gi * D) + sub)
+                              : make_uint4(0, 0, 0, 0);
   }
   const int ctx = max(0, min(args.ctx_lens[bi], args.max_blocks * bt));
-  T* out = static_cast<T*>(args.o) + ((long long)bi * hq + (long long)hk * g) * D;
+  T* out = static_cast<T*>(args.o) + ((long long)bi * hq + head0) * D;
   if (ctx == 0) {  // zeros, as the Pallas kernel gives; written by split 0 alone
     if (split == 0) {
       for (int idx = tid; idx < g * D; idx += kThreads) out[idx] = Tr::from_f(0.f);
@@ -248,6 +363,7 @@ __global__ void __launch_bounds__(kThreads, G >= 8 ? 1 : 2) paged_attention_kern
   // leaves; otherwise every CTA of the cluster stays for the two cluster
   // barriers, the inactive ones (split >= S_r) with no tile
   if (s_act == 1 && split > 0) return;
+  if (s_act > 1) cluster_arrive();  // waited for before the first remote write
   const bool active = split < s_act;
   const int b_lo = active ? (int)((long long)split * nb / s_act) : 0;
   const int b_hi = active ? (int)((long long)(split + 1) * nb / s_act) : 1;
@@ -344,7 +460,8 @@ __global__ void __launch_bounds__(kThreads, G >= 8 ? 1 : 2) paged_attention_kern
     for (int step = 0; step < Sh::kSteps; ++step) {
       const int row = step * (32 / kLpr) + rr;
       float kf[kVec];
-      Tr::unpack(*reinterpret_cast<const uint4*>(sk + row * D + sub * kVec), kf);
+      Tr::unpack(scores ? *reinterpret_cast<const uint4*>(sk + row * D + sub * kVec)
+                        : make_uint4(0, 0, 0, 0), kf);
       float v[G];
 #pragma unroll
       for (int gi = 0; gi < G; ++gi) {
@@ -422,90 +539,308 @@ __global__ void __launch_bounds__(kThreads, G >= 8 ? 1 : 2) paged_attention_kern
     }
   }
   __syncthreads();
-  float cm[Sh::kOut], cl[Sh::kOut], ca[Sh::kOut];  // this CTA's partial, per owned output
+  merge_partials<T, D, G>(ring, kWS * Sh::kStageBytes, s_wm, s_wl, s_cm, s_cl, out, g, S,
+                          s_act, split, tid);
+}
+
+// bf16: the tensor cores. A warp takes its tiles of 16 keys as mma.sync
+// m16n8k16 products with the group's 8 query heads as N: S^T (16 keys x 8
+// heads) = K . Q^T over d / 16 k-steps, and O^T (d x 8 heads) += V^T . P^T
+// over d / 16 row tiles, K and V read from the stage by ldmatrix (V
+// transposed), Q^T held in registers as the B fragments. Each lane's
+// scores, softmax state and O^T entries belong to the same two heads (2 tq,
+// 2 tq + 1), so max, sum and the rescale stay in the lane and its 7
+// neighbours of equal tq (3 shuffles each); P is rounded to bf16 and
+// turned into P^T's B fragments by movmatrix. Per tile a warp issues 2 d/16
+// products, where the CUDA-core scoring of 4 heads took about a thousand
+// instructions, and a CTA takes a whole group of up to 8 heads.
+constexpr int kMmaHeads = 8;  // the products' N: a CTA holds a whole group
+
+template <int D>
+struct MmaShape {
+  static constexpr int kCpr = D / 8;  // 16-byte chunks per row
+  // staged rows of 32, 64, 128 or 256 bytes: chunk c of row j sits at chunk
+  // c ^ (j % kSwz), so that the 8 rows one ldmatrix reads fall in 8 bank
+  // groups; rows of 160 bytes (d 80) already spread, unswizzled
+  static constexpr int kSwz = (kCpr & (kCpr - 1)) == 0 ? (kCpr < 8 ? kCpr : 8) : 1;
+  static constexpr int kSteps = D / 16;  // k16 steps of S^T, m16 tiles of O^T
+  static constexpr int kStageBytes = 2 * kTile * D * 2;  // K and V
+  static constexpr int kFit = kRingBytes / (kWarps * kStageBytes);
+  static constexpr int kWarpStages = kFit < 1 ? 1 : (kFit > 2 ? 2 : kFit);
+  static constexpr int kSmem = kWarps * kWarpStages * kStageBytes;  // dynamic
+};
+
+template <int D>
+__device__ __forceinline__ int swz(int j, int c) {
+  return c ^ (j & (MmaShape<D>::kSwz - 1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a) : "memory");
+}
+// c (+)= a . b, m16n8k16, bf16 in, f32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ uint32_t transpose8x8(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+__device__ __forceinline__ uint32_t pack2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2) paged_mma_kernel(Args args) {
+  using Sh = MmaShape<D>;
+  using T = __nv_bfloat16;
+  using Tr = Traits<T>;
+  constexpr int G = kMmaHeads, kCpr = Sh::kCpr, kWS = Sh::kWarpStages;
+  extern __shared__ __align__(128) unsigned char ring[];  // per warp: kWS x (K tile, V tile)
+  __shared__ float s_wm[kWarps][G], s_wl[kWarps][G];
+  __shared__ float s_cm[G], s_cl[G];  // this CTA's max and sum per head, for the cluster
+
+  const int split = blockIdx.x, hk = blockIdx.y, bi = blockIdx.z;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int gq = lane >> 2, tq = lane & 3;  // a fragment's row group and column pair
+  const int hq = args.hq, hkv = args.hkv, bt = args.bt, g = hq / hkv, S = args.splits;
+  const long long head0 = (long long)hk * g;
+  // the row's context and q are read at once; q is converted only after
+  // the first K/V copies are issued
+  const int ctx_in = args.ctx_lens[bi];
+  // q for Q^T's B fragments: k-step ks, head gq, dims 16 ks + 2 tq (+1) and
+  // 8 further; heads past the group are zeros
+  const T* qrow = static_cast<const T*>(args.q) + ((long long)bi * hq + head0) * D;
+  __nv_bfloat162 qin[Sh::kSteps][2];
 #pragma unroll
-  for (int r = 0; r < Sh::kOut; ++r) {
-    const int idx = tid + r * kThreads;
-    cm[r] = kNegInf;
-    cl[r] = 0.f;
-    ca[r] = 0.f;
-    if (idx < g * D) {
-      const int gi = idx / D;
+  for (int ks = 0; ks < Sh::kSteps; ++ks) {
 #pragma unroll
-      for (int w = 0; w < kWarps; ++w) cm[r] = fmaxf(cm[r], s_wm[w][gi]);
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float f = exp2f(s_wm[w][gi] - cm[r]);
-        cl[r] += s_wl[w][gi] * f;
-        ca[r] += reinterpret_cast<const float*>(ring + w * kWS * Sh::kStageBytes)[idx] * f;
-      }
+    for (int h = 0; h < 2; ++h) {
+      qin[ks][h] = gq < g ? __ldg(reinterpret_cast<const __nv_bfloat162*>(
+                                qrow + gq * D + 16 * ks + 8 * h + 2 * tq))
+                          : __floats2bfloat162_rn(0.f, 0.f);
     }
   }
-
-  if (s_act == 1) {
-#pragma unroll
-    for (int r = 0; r < Sh::kOut; ++r) {
-      const int idx = tid + r * kThreads;
-      if (idx < g * D) out[idx] = Tr::from_f(ca[r] / fmaxf(cl[r], 1e-30f));
+  const int ctx = max(0, min(ctx_in, args.max_blocks * bt));
+  T* out = static_cast<T*>(args.o) + ((long long)bi * hq + head0) * D;
+  if (ctx == 0) {  // zeros, as the Pallas kernel gives; written by split 0 alone
+    if (split == 0) {
+      for (int idx = tid; idx < g * D; idx += kThreads) out[idx] = Tr::from_f(0.f);
     }
     return;
   }
+  // the split's blocks: paged_attention.py split_ranges
+  const int nb = (ctx + bt - 1) / bt;
+  const int s_act = min(S, nb);
+  if (s_act == 1 && split > 0) return;
+  if (s_act > 1) cluster_arrive();  // waited for before the first remote write
+  const bool active = split < s_act;
+  const int b_lo = active ? (int)((long long)split * nb / s_act) : 0;
+  const int b_hi = active ? (int)((long long)(split + 1) * nb / s_act) : 1;
+  const int tpb = (bt + kTile - 1) / kTile;  // tiles per pool block
+  const int last_rows = min(bt, ctx - (b_hi - 1) * bt);
+  const int n_tiles =
+      active ? (b_hi - 1 - b_lo) * tpb + (last_rows + kTile - 1) / kTile : 0;
 
-  // this split's partial in its own shared memory; after the cluster
-  // barrier CTA `split` merges outputs [split * per, (split + 1) * per) from
-  // the S_r partials in split order, read through distributed shared
-  // memory; the second barrier keeps every partial alive until all are read
+  const T* __restrict__ kbase = static_cast<const T*>(args.k);
+  const T* __restrict__ vbase = static_cast<const T*>(args.v);
+  const int* trow = args.table + (long long)bi * args.max_blocks;
+  const long long row_stride = (long long)hkv * D;
+  const long long head_off = (long long)hk * D;
+  unsigned char* my_ring = ring + warp * kWS * Sh::kStageBytes;
+
+  auto col_of = [&](int i) { return b_lo + i / tpb; };
+  auto row0_of = [&](int i) { return (i % tpb) * kTile; };
+  auto rows_of = [&](int i) {
+    return min(min(kTile, bt - row0_of(i)), ctx - (col_of(i) * bt + row0_of(i)));
+  };
+  // tile i's K and V rows into stage st, swizzled, rows past n as zeros
+  auto stage_tile = [&](int i, int st, int blk) {
+    const int n = rows_of(i);
+    T* sk = reinterpret_cast<T*>(my_ring + st * Sh::kStageBytes);
+    const long long base =
+        (long long)blk * args.block_stride + row0_of(i) * row_stride + head_off;
+#pragma unroll 4
+    for (int u = lane; u < 2 * kTile * kCpr; u += 32) {
+      const int half = u / (kTile * kCpr);  // 0: K, 1: V
+      const int r = u % (kTile * kCpr);
+      const int j = r / kCpr, c = r % kCpr;
+      const long long src = base + (j < n ? j : 0) * row_stride + c * 8;
+      cp_async16(sk + half * kTile * D + j * D + swz<D>(j, c) * 8,
+                 (half ? vbase : kbase) + src, j < n ? 16 : 0);
+    }
+  };
+  auto block_at = [&](int i) { return max(__ldg(trow + col_of(i)), 0); };
+
+  int blk[kWS];
 #pragma unroll
-  for (int r = 0; r < Sh::kOut; ++r) {
-    const int idx = tid + r * kThreads;
-    if (idx < g * D) {
-      s_ca[idx] = ca[r];
-      if (idx % D == 0) {
-        s_cm[idx / D] = cm[r];
-        s_cl[idx / D] = cl[r];
-      }
+  for (int k = 0; k < kWS; ++k) {
+    const int i = warp + k * kWarps;
+    blk[k] = i < n_tiles ? block_at(i) : 0;
+  }
+#pragma unroll
+  for (int k = 0; k < kWS; ++k) {
+    const int i = warp + k * kWarps;
+    if (i < n_tiles) stage_tile(i, k, blk[k]);
+    cp_async_commit();
+  }
+  // Q^T's B fragments: q * scale rounded to bf16 (the contract's rounding
+  // point)
+  uint32_t qb[Sh::kSteps][2];
+#pragma unroll
+  for (int ks = 0; ks < Sh::kSteps; ++ks) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      qb[ks][h] = pack2(__low2float(qin[ks][h]) * args.scale,
+                        __high2float(qin[ks][h]) * args.scale);
     }
   }
-  cg::cluster_group cluster = cg::this_cluster();
-  cluster.sync();
-  const int per = (g * D + S - 1) / S;
-  for (int idx = split * per + tid; idx < min((split + 1) * per, g * D); idx += kThreads) {
-    const int gi = idx / D;
-    float pm[kMaxCluster], pl[kMaxCluster], pa[kMaxCluster];
+
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};  // heads 2 tq, 2 tq + 1
+  float o[Sh::kSteps][4];  // O^T: rows 16 mt + gq (+ 8), heads 2 tq (+ 1)
 #pragma unroll
-    for (int u = 0; u < kMaxCluster; ++u) {
-      pm[u] = kNegInf;
-      pl[u] = 0.f;
-      pa[u] = 0.f;
-      if (u < s_act) {
-        pm[u] = *cluster.map_shared_rank(&s_cm[gi], u);
-        pl[u] = *cluster.map_shared_rank(&s_cl[gi], u);
-        pa[u] = *cluster.map_shared_rank(&s_ca[idx], u);
+  for (int mt = 0; mt < Sh::kSteps; ++mt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[mt][e] = 0.f;
+  }
+  // the ldmatrix row and chunk each lane addresses: K as A (keys x dims),
+  // V^T as A through the transposing load (rows of V are keys)
+  const int k_row = (lane & 7) + ((lane >> 3) & 1) * 8, k_half = lane >> 4;
+  const int v_row = (lane & 7) + (lane >> 4) * 8, v_half = (lane >> 3) & 1;
+
+  const int rounds = (n_tiles + kWarps - 1) / kWarps;
+  for (int k = 0; k < rounds; ++k) {
+    const int i = warp + k * kWarps;
+    const int st = k % kWS;
+    const int next = i + kWS * kWarps;
+    const int next_blk = next < n_tiles ? block_at(next) : 0;  // read ahead of the wait
+    cp_async_wait<kWS - 1>();
+    __syncwarp();
+    const T* sk = reinterpret_cast<const T*>(my_ring + st * Sh::kStageBytes);
+    const T* sv = sk + kTile * D;
+    const int n = i < n_tiles ? rows_of(i) : 0;
+
+    // a warp without a tile this round (n == 0, warp-uniform) skips the
+    // products: its stage holds no staged rows, and 0 x NaN is NaN
+    if (n > 0) {
+      // S^T = K . Q^T: c[0..1] keys gq, c[2..3] keys gq + 8; heads 2 tq, 2 tq + 1
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int ks = 0; ks < Sh::kSteps; ++ks) {
+        uint32_t a[4];
+        ldsm_x4(a, sk + k_row * D + swz<D>(k_row, 2 * ks + k_half) * 8);
+        mma_bf16(c, a, qb[ks][0], qb[ks][1]);
+      }
+      // the tile's softmax per head, over its 16 keys: the lane's two keys,
+      // then the lanes of equal tq
+      const bool in0 = gq < n, in1 = gq + 8 < n;
+      float alpha[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float x0 = in0 ? c[h] * kLog2e : kNegInf;
+        const float x1 = in1 ? c[2 + h] * kLog2e : kNegInf;
+        float mx = fmaxf(x0, x1);
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) {
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        }
+        const float m_new = fmaxf(m[h], mx);
+        c[h] = in0 ? ex2(x0 - m_new) : 0.f;
+        c[2 + h] = in1 ? ex2(x1 - m_new) : 0.f;
+        float sum = c[h] + c[2 + h];
+#pragma unroll
+        for (int off = 4; off < 32; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        alpha[h] = ex2(m[h] - m_new);
+        l[h] = l[h] * alpha[h] + sum;
+        m[h] = m_new;
+      }
+      // P^T's B fragments: P (keys x heads) packed as 8 x 8 bf16 tiles, transposed
+      const uint32_t p_lo = transpose8x8(pack2(c[0], c[1]));  // keys 0-7
+      const uint32_t p_hi = transpose8x8(pack2(c[2], c[3]));  // keys 8-15
+      // O^T += V^T . P^T, one rescale per tile
+#pragma unroll
+      for (int mt = 0; mt < Sh::kSteps; ++mt) {
+        o[mt][0] *= alpha[0];
+        o[mt][1] *= alpha[1];
+        o[mt][2] *= alpha[0];
+        o[mt][3] *= alpha[1];
+        uint32_t a[4];
+        ldsm_x4_t(a, sv + v_row * D + swz<D>(v_row, 2 * mt + v_half) * 8);
+        mma_bf16(o[mt], a, p_lo, p_hi);
       }
     }
-    float mx = kNegInf;
-#pragma unroll
-    for (int u = 0; u < kMaxCluster; ++u) mx = fmaxf(mx, pm[u]);
-    float den = 0.f, num = 0.f;
-#pragma unroll
-    for (int u = 0; u < kMaxCluster; ++u) {
-      const float f = exp2f(pm[u] - mx);
-      den += pl[u] * f;
-      num += pa[u] * f;
-    }
-    out[idx] = Tr::from_f(num / fmaxf(den, 1e-30f));
+    __syncwarp();  // the stage is read before it is written again
+    if (next < n_tiles) stage_tile(next, st, next_blk);
+    cp_async_commit();
   }
-  cluster.sync();
+  cp_async_wait<0>();
+  __syncwarp();
+
+  // the warp's partial: O^T into its first stage as (head, d), f32
+  float* wacc = reinterpret_cast<float*>(my_ring);
+#pragma unroll
+  for (int mt = 0; mt < Sh::kSteps; ++mt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      wacc[(2 * tq + (e & 1)) * D + 16 * mt + gq + 8 * (e >> 1)] = o[mt][e];
+    }
+  }
+  if (gq == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      s_wm[warp][2 * tq + h] = m[h];
+      s_wl[warp][2 * tq + h] = l[h];
+    }
+  }
+  __syncthreads();
+  merge_partials<T, D, G>(ring, kWS * Sh::kStageBytes, s_wm, s_wl, s_cm, s_cl, out, g, S,
+                          s_act, split, tid);
 }
+
+// The kernel that takes (T, D, G) and its dynamic shared memory: bf16 on the
+// tensor cores, float32 on the CUDA cores; a whole group a CTA in both.
+template <typename T, int D, int G>
+struct Kernel {
+  static constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  static void (*fn())(Args) {
+    if constexpr (kMma) {
+      return paged_mma_kernel<D>;
+    } else {
+      return paged_attention_kernel<T, D, G>;
+    }
+  }
+  static constexpr int smem() {
+    if constexpr (kMma) {
+      return MmaShape<D>::kSmem;
+    } else {
+      return Shape<T, D, G>::kSmem;
+    }
+  }
+  static constexpr int kSmem = smem();
+};
 
 template <typename T, int D, int G>
 cudaError_t prepare() {  // once: the dynamic shared-memory cap, clusters of up to 16
   static cudaError_t err = [] {
-    cudaError_t e = cudaFuncSetAttribute(paged_attention_kernel<T, D, G>,
+    cudaError_t e = cudaFuncSetAttribute(Kernel<T, D, G>::fn(),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Shape<T, D, G>::kSmem);
+                                         Kernel<T, D, G>::kSmem);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(paged_attention_kernel<T, D, G>,
+    return cudaFuncSetAttribute(Kernel<T, D, G>::fn(),
                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }();
   return err;
@@ -515,16 +850,16 @@ cudaError_t prepare() {  // once: the dynamic shared-memory cap, clusters of up 
 // shared memory; op 3: *out = clusters of args.splits CTAs resident at once
 template <typename T, int D, int G>
 int run(const Args& args, int op, int* out, cudaStream_t stream) {
-  using Sh = Shape<T, D, G>;
+  using K = Kernel<T, D, G>;
   cudaError_t err = prepare<T, D, G>();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (op == 2) {
-    *out = Sh::kSmem;
+    *out = K::kSmem;
     return 0;
   }
   if (op == 1) {
     return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        out, paged_attention_kernel<T, D, G>, kThreads, Sh::kSmem));
+        out, K::fn(), kThreads, K::kSmem));
   }
   cudaLaunchAttribute cluster;
   cluster.id = cudaLaunchAttributeClusterDimension;
@@ -534,26 +869,30 @@ int run(const Args& args, int op, int* out, cudaStream_t stream) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(args.splits, args.hkv, args.b);
   cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = Sh::kSmem;
+  cfg.dynamicSmemBytes = K::kSmem;
   cfg.stream = stream;
   cfg.attrs = &cluster;
   cfg.numAttrs = 1;
   if (op == 3) {
-    return static_cast<int>(cudaOccupancyMaxActiveClusters(
-        out, (void*)paged_attention_kernel<T, D, G>, &cfg));
+    return static_cast<int>(cudaOccupancyMaxActiveClusters(out, (void*)K::fn(), &cfg));
   }
-  err = cudaLaunchKernelEx(&cfg, paged_attention_kernel<T, D, G>, args);
+  err = cudaLaunchKernelEx(&cfg, K::fn(), args);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
+// g: the group. bf16 takes every group in one instantiation; float32 in
+// the least power of two that holds it
 template <typename T, int D>
 int run_g(const Args& args, int g, int op, int* out, cudaStream_t s) {
-  if (g <= 1) return run<T, D, 1>(args, op, out, s);
-  if (g <= 2) return run<T, D, 2>(args, op, out, s);
-  if (g <= 4) return run<T, D, 4>(args, op, out, s);
-  if (g <= 8) return run<T, D, 8>(args, op, out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return run<T, D, kMmaHeads>(args, op, out, s);
+  } else {
+    if (g <= 1) return run<T, D, 1>(args, op, out, s);
+    if (g <= 2) return run<T, D, 2>(args, op, out, s);
+    if (g <= 4) return run<T, D, 4>(args, op, out, s);
+    return run<T, D, 8>(args, op, out, s);
+  }
 }
 
 template <typename T>
@@ -562,6 +901,7 @@ int run_d(const Args& args, int d, int g, int op, int* out, cudaStream_t s) {
     case 16: return run_g<T, 16>(args, g, op, out, s);
     case 32: return run_g<T, 32>(args, g, op, out, s);
     case 64: return run_g<T, 64>(args, g, op, out, s);
+    case 80: return run_g<T, 80>(args, g, op, out, s);
     case 128: return run_g<T, 128>(args, g, op, out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -576,7 +916,7 @@ int dispatch(const Args& args, int dtype, int d, int g, int op, int* out, cudaSt
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {16, 32, 64, 128}; hq / hkv <= 8.
+// dtype: 0 = float32, 1 = bfloat16; d in {16, 32, 64, 80, 128}; hq / hkv <= 8.
 // block_stride in elements. splits: CTAs per (row, kv head), 1 to 16, one
 // thread-block cluster. Launches ONE kernel on `stream`, allocates nothing;
 // returns a cudaError_t.
@@ -585,7 +925,7 @@ extern "C" int paged_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* ctx, void* o, int dtype, int b, int hq,
                                    int hkv, int d, int bt, int max_blocks, int splits,
                                    float scale, void* stream) {
-  if ((d != 16 && d != 32 && d != 64 && d != 128) || hkv <= 0 || hq % hkv != 0 ||
+  if ((d != 16 && d != 32 && d != 64 && d != 80 && d != 128) || hkv <= 0 || hq % hkv != 0 ||
       hq / hkv > 8 || bt <= 0 || max_blocks <= 0 || splits <= 0 ||
       splits > kMaxCluster || hkv > 65535 || b > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);

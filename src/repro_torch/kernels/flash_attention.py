@@ -10,8 +10,9 @@ The source's header says what each design does about it.
 Two routes, picked from dtype and head_dim alone (``route``), never one
 as a fallback for the other:
 
-  * ``"wgmma"``: bfloat16 with head_dim 64 or 128, the tensor cores fed by
-    TMA. P is rounded to bf16 for P.V, so it is not bit-equal to the plain
+  * ``"wgmma"``: bfloat16 with head_dim 64, 80 or 128, the tensor cores fed
+    by TMA, on a persistent grid of at most one CTA per SM (``cta_items``).
+    P is rounded to bf16 for P.V, so it is not bit-equal to the plain
     version (within the bf16 tolerance of tests/test_kernels.py).
   * ``"cuda_cores"``: float32, and bfloat16 at the other multiples of 16 up
     to 128, on the f32 CUDA cores.
@@ -31,11 +32,17 @@ import torch
 from repro_torch.kernels import build
 
 ROUTES = ("wgmma", "cuda_cores")
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 80, 128)
 # the wgmma route's tiles (csrc/flash_attention.cu, namespace wgmma_route)
-BLOCK_Q = 128  # query rows per CTA
+BLOCK_Q = 128  # query rows per work item
 BOX_COLS = 64  # 128 B of bf16: the widest box row under the 128-byte swizzle
-BOX = (BOX_COLS, 1, BLOCK_Q, 1)  # (d, h, s, b) elements per TMA load
+BOX = (BOX_COLS, 1, BLOCK_Q, 1)  # (d, h, s, b) elements per TMA load, d 64 and 128
+# d 80: a 160-byte row exceeds the 128-byte swizzle span, so a tile is five
+# boxes of 16 columns (32 B) under the 32-byte swizzle
+NARROW_BOX_COLS = 16
+# the wgmma route's persistent grid: at most this many CTAs; None, one per SM
+# (experiments/flash_probe.py sets it to time other grids)
+GRID_CTAS: int | None = None
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _U64P, _U32P = ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint32)
@@ -46,7 +53,7 @@ SIGNATURES = {
     ),
     "flash_attention_wgmma_fwd": (
         [_P, _P, _P, _P, _U64P, _U64P, _U64P, _U64P, _U32P,
-         _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+         _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
         ctypes.c_int,
     ),
     "flash_attention_wgmma_smem": ([_I], ctypes.c_int),
@@ -56,8 +63,8 @@ _NO_ENCODER, _ENCODE_FAILED = 9999, 10000
 
 
 def route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel that takes these inputs: bf16 at d 64 or 128 goes to the
-    tensor cores, float32 and the other bf16 widths to the CUDA cores."""
+    """The kernel that takes these inputs: bf16 at d 64, 80 or 128 goes to
+    the tensor cores, float32 and the other bf16 widths to the CUDA cores."""
     if dtype not in _DTYPES:
         raise ValueError(f"flash_attention takes float32 or bfloat16, not {dtype}")
     if head_dim % 16 or not 16 <= head_dim <= 128:
@@ -68,22 +75,43 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
 
 
 def q_tile_order(n_q_tiles: int, heads_x_batch: int) -> list[int]:
-    """The q tile each block of the wgmma route takes, by launch order: block
+    """The q tile of each work item of the wgmma route, by item number: item
     x takes tile n_q_tiles - 1 - x // heads_x_batch, so every head's longest
-    causal tile starts first and the short ones fill the last wave (the
-    kernel computes the same from blockIdx.x)."""
+    causal tile comes first and the short ones last (the kernel's
+    decode_item computes the same)."""
     return [n_q_tiles - 1 - x // heads_x_batch for x in range(n_q_tiles * heads_x_batch)]
+
+
+def cta_items(n_items: int, ctas: int) -> list[list[int]]:
+    """The work items each CTA of the persistent grid takes, in order: round
+    r gives CTA c item r * ctas + c, reversed in odd rounds (a snake over the
+    longest-first numbering), until the items run out (the kernel's
+    item_index). The grid is min(n_items, ctas) CTAs."""
+    grid = min(n_items, ctas)
+    out = [[] for _ in range(grid)]
+    for c in range(grid):
+        r = 0
+        while (x := r * grid + (grid - 1 - c if r % 2 else c)) < n_items:
+            out[c].append(x)
+            r += 1
+    return out
+
+
+def box_cols(d: int) -> int:
+    """Columns of one TMA box at head_dim d: 64 (128 B) for d 64 and 128,
+    16 (32 B) for d 80."""
+    return BOX_COLS if d % BOX_COLS == 0 else NARROW_BOX_COLS
 
 
 def tensor_map_args(shape: tuple[int, ...], elem_bytes: int = 2):
     """(dims, byte strides, box) of the rank-4 TMA map over a contiguous
     (b, s, h, d) tensor as it lies: dims innermost first (d, h, s, b), the
     byte strides of h, s and b (d's is the element), and the box of one load:
-    64 columns of one head over BLOCK_Q rows."""
+    ``box_cols(d)`` columns of one head over BLOCK_Q rows."""
     b, s, h, d = shape
     dims = (d, h, s, b)
     strides = (d * elem_bytes, h * d * elem_bytes, s * h * d * elem_bytes)
-    return dims, strides, BOX
+    return dims, strides, (box_cols(d), 1, BLOCK_Q, 1)
 
 
 def _u64(vals):
@@ -131,7 +159,7 @@ def flash_attention(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 _u64(q_dims), _u64(q_strides), _u64(kv_dims), _u64(kv_strides),
                 (ctypes.c_uint32 * 4)(*box), b, sq, skv, hq, hkv, d, int(causal),
-                1.0 / math.sqrt(d), stream,
+                1.0 / math.sqrt(d), GRID_CTAS or build.sm_count(q.device), stream,
             )
         else:
             rc = lib.flash_attention_fwd(

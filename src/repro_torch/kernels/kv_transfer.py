@@ -189,7 +189,7 @@ def sparse_wave(device: torch.device, unit: int, row_units: int) -> int:
     if rc or per_sm.value < 1:
         raise RuntimeError(f"sparse_kv_gather_ctas_per_sm({unit}, {row_units}) failed: "
                            f"cudaError_t {rc}, got {per_sm.value}")
-    return torch.cuda.get_device_properties(device).multi_processor_count * per_sm.value
+    return build.sm_count(device) * per_sm.value
 
 
 def sparse_args(kv: torch.Tensor, ids: torch.Tensor, out: torch.Tensor) -> list | None:

@@ -30,7 +30,11 @@ captured into a CUDA graph after one warm-up call at its shapes (which
 builds the kernel and reads the plan) and replayed with new
 ``context_lens`` written in place.
 
-Takes float32 or bfloat16, head_dim 16, 32, 64 or 128, at most 8 query
+bfloat16 runs on the tensor cores (mma.sync, the group's up to 8 query
+heads as the products' N), float32 on the CUDA cores; a whole group a CTA
+in both.
+
+Takes float32 or bfloat16, head_dim 16, 32, 64, 80 or 128, at most 8 query
 heads per kv head; raises on anything else. Counts its launches in
 ``paged_attention.launches``, one per kernel launched.
 """
@@ -56,7 +60,7 @@ SIGNATURES = {
     "paged_attention_max_clusters": ([_I, _I, _I, _I, ctypes.POINTER(_I)], ctypes.c_int),
 }
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 80, 128)
 MAX_GROUP = 8
 MAX_SPLITS = 16  # the CTAs of one (row, kv head) form one thread-block cluster
 
@@ -87,11 +91,6 @@ def split_ranges(ctx: int, bt: int, splits: int) -> list[tuple[int, int]]:
     nb = -(-ctx // bt)
     active = min(splits, nb)
     return [(s * nb // active, (s + 1) * nb // active) for s in range(active)]
-
-
-@functools.lru_cache(maxsize=None)
-def sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)
@@ -130,7 +129,7 @@ def plan(device: torch.device, dtype: torch.dtype, d: int, g: int, b: int, hkv: 
          max_blocks: int) -> tuple[int, int]:
     """(splits, CTAs per SM) of a call on ``device``; read once per shape."""
     per_sm = ctas_per_sm(device, dtype, d, g)
-    splits = plan_splits(sm_count(device), per_sm, b, hkv, max_blocks,
+    splits = plan_splits(build.sm_count(device), per_sm, b, hkv, max_blocks,
                          lambda s: clusters_resident(device, dtype, d, g, s))
     return splits, per_sm
 

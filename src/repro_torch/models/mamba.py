@@ -124,7 +124,10 @@ def mamba_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, mode: str = "auto",
     bc = x @ p["wBC"]  # (b, s, 2gn)
     dt_raw = x @ p["wdt"]  # (b, s, nh)
     if return_state:
-        conv_tail = torch.cat([xi, bc], dim=-1)[:, s - (ssm.d_conv - 1):]
+        # the window _causal_conv sees: zeros before the first token, so a
+        # prompt shorter than d_conv - 1 still leaves d_conv - 1 rows
+        pre = F.pad(torch.cat([xi, bc], dim=-1), (0, 0, ssm.d_conv - 1, 0))
+        conv_tail = pre[:, s:]
 
     xi = F.silu(_causal_conv(xi, p["conv_x"], p["conv_bias_x"]))
     bc = F.silu(_causal_conv(bc, p["conv_BC"], p["conv_bias_BC"]))

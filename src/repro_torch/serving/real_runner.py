@@ -94,9 +94,13 @@ class RealEngine:
         )
 
     # ------------------------------------------------------------------
-    def generate(self, prompt: list[int], max_new: int = 16) -> tuple[list[int], dict]:
+    def generate(self, prompt: list[int], max_new: int = 16,
+                 feed: list[int] | None = None) -> tuple[list[int], dict]:
         """-> (tokens, info): info has hit_tokens, ttft_s, total_s, the
-        per-step logits (n_out, V) f32 and the final cache ``kv``."""
+        per-step logits (n_out, V) f32 and the final cache ``kv``. With
+        ``feed``, decode step i is fed feed[i] in place of the greedy token
+        before it, so the logits score that continuation (tokens still holds
+        each step's argmax)."""
         if not 0 < len(prompt) <= self.max_len:
             raise ValueError(f"prompt of {len(prompt)} tokens, max_len {self.max_len}")
         t_start = time.perf_counter()
@@ -116,7 +120,7 @@ class RealEngine:
         ttft = time.perf_counter() - t_start
         pos = len(prompt)
         while len(out) < max_new and pos + 1 < self.max_len:
-            logits = self._decode(cache, out[-1], pos)
+            logits = self._decode(cache, out[-1] if feed is None else feed[len(out) - 1], pos)
             steps.append(logits)
             out.append(int(logits.argmax()))
             pos += 1

@@ -25,7 +25,7 @@ def test_bf16_at_64_and_128_takes_the_tensor_cores(d):
 @pytest.mark.parametrize("dtype,d", [
     (torch.float32, 128), (torch.float32, 64), (torch.float32, 16),
     (torch.bfloat16, 16), (torch.bfloat16, 32), (torch.bfloat16, 48),
-    (torch.bfloat16, 80), (torch.bfloat16, 96), (torch.bfloat16, 112),
+    (torch.float32, 80), (torch.bfloat16, 96), (torch.bfloat16, 112),
 ])
 def test_float32_and_other_widths_take_the_cuda_cores(dtype, d):
     assert fa.route(dtype, d) == "cuda_cores"
@@ -45,7 +45,7 @@ def test_route_refuses_what_no_kernel_takes(dtype, d, match):
 @pytest.mark.parametrize("arch,want", [
     ("llama3.1-8b", "wgmma"),  # head_dim 128: the main path
     ("qwen1.5-0.5b", "wgmma"),  # head_dim 64
-    ("qwen3-32b", "cuda_cores"),  # head_dim 80
+    ("qwen3-32b", "wgmma"),  # head_dim 80: five 32-byte TMA boxes a tile
 ])
 def test_full_width_configs_route_by_their_head_dim(arch, want):
     assert fa.route(torch.bfloat16, get_config(arch).head_dim) == want

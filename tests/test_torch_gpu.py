@@ -815,3 +815,115 @@ def test_reduced_moe_and_hybrid_card_matches_cpu(cuda, arch):
         lc = model.decode_fn(params, cache_cpu, tok, pos)
         lg = model.decode_fn(on_card, cache_gpu, tok.to(cuda), pos.to(cuda))
         torch.testing.assert_close(lg.cpu(), lc, atol=1e-4, rtol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# qwen3-32b's shapes: head_dim 80 at groups 7 and 8 (paged; the bf16
+# tensor-core kernel takes a whole group a CTA) and flash's wgmma route at
+# head_dim 80 (five 32-byte TMA boxes a tile) and at 56 and 64 heads
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("hq", [56, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_at_head_dim_80_split_edges(cuda, dtype, hq):
+    """Contexts at the plan's edges at d 80, groups 7 and 8 over 8 kv heads:
+    1, bt - 1, bt, bt + 1, S * bt +- 1, the full table, a row of context 0."""
+    hkv, d, bt, mb = 8, 80, 16, 128
+    rng = np.random.default_rng(hq + 80)
+    splits, _ = pa.plan(cuda, dtype, d, hq // hkv, 7, hkv, mb)
+    full = mb * bt
+    ctxs = [0, 1, bt - 1, bt, bt + 1, min(splits * bt - 1, full), min(splits * bt + 1, full),
+            full, 1040]
+    q, pool, tbl, ctx = _paged_rows(rng, dtype, cuda, ctxs, hq, hkv, d, bt, mb)
+    out = _paged_check(q, pool, tbl, ctx)
+    assert not out[0].any()  # context 0 gives zeros
+
+
+def _qwen3_decode(cuda, rng, ctxs):
+    return _paged_rows(rng, torch.bfloat16, cuda, ctxs, 64, 8, 80, 16, 128)
+
+
+def test_paged_kernel_at_head_dim_80_repeats_bit_for_bit(cuda):
+    rng = np.random.default_rng(21)
+    a = _qwen3_decode(cuda, rng, [1040])
+    other = _qwen3_decode(cuda, rng, [0, 5, 700, 2048])
+    first = _paged_check(*a)
+    _paged_check(*other)
+    assert torch.equal(first, _paged_check(*a))
+
+
+def test_paged_kernel_at_head_dim_80_replays_in_a_cuda_graph(cuda):
+    rng = np.random.default_rng(22)
+    q, pool, tbl, ctx = _qwen3_decode(cuda, rng, [1040, 300])
+    k, v = pool[:, 0], pool[:, 1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention(q, k, v, tbl, ctx)  # warm-up: builds the kernel, reads the plan
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(q, k, v, tbl, ctx)
+    ctx.copy_(torch.tensor([17, 2048], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = ref.paged_attention_ref(q, k, v, tbl, ctx)
+    torch.testing.assert_close(out.float(), want.float(), atol=PAGED_TOL[q.dtype],
+                               rtol=PAGED_TOL[q.dtype])
+    assert torch.equal(out, pa.paged_attention(q, k, v, tbl, ctx))
+
+
+def test_paged_kernel_at_head_dim_80_is_one_device_kernel_per_call(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    q, pool, tbl, ctx = _qwen3_decode(cuda, np.random.default_rng(23), [1040])
+    pa.paged_attention(q, pool[:, 0], pool[:, 1], tbl, ctx)  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pa.paged_attention(q, pool[:, 0], pool[:, 1], tbl, ctx)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert [(e.count, "paged" in e.key) for e in kernels] == [(1, True)], \
+        [(e.key, e.count) for e in kernels]
+
+
+QWEN3_FLASH_CASES = [
+    # (b, sq, skv, hq, hkv, d, causal)
+    (1, 1024, 1024, 64, 8, 80, True),  # one layer of the qwen3-32b prefill
+    (1, 129, 129, 16, 2, 80, True),  # one row past a q tile
+    (1, 37, 80, 8, 1, 80, True),  # sq != skv, causal aligned at position 0
+    (2, 200, 200, 16, 2, 80, False),
+    (1, 64, 300, 7, 1, 80, False),  # keys past skv in the last tile
+    (1, 2048, 2048, 56, 8, 128, True),  # Arctic's heads over 16 K/V tiles
+    (2, 1024, 1024, 64, 8, 128, True),  # Jamba's heads, two rows: 1024 work items
+    (1, 300, 300, 64, 8, 64, True),
+]
+
+
+@pytest.mark.parametrize("case", QWEN3_FLASH_CASES)
+def test_flash_wgmma_route_at_head_dim_80_and_56_64_heads(cuda, case):
+    b, sq, skv, hq, hkv, d, causal = case
+    rng = np.random.default_rng(sum(case[:6]) + 3)
+    q = _randn(rng, (b, sq, hq, d), torch.bfloat16, cuda)
+    k = _randn(rng, (b, skv, hkv, d), torch.bfloat16, cuda)
+    v = _randn(rng, (b, skv, hkv, d), torch.bfloat16, cuda)
+    before = dict(fa.flash_attention.launches_by_route)
+    out = fa.flash_attention(q, k, v, causal=causal)
+    want = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_by_route == {
+        "wgmma": before["wgmma"] + 1, "cuda_cores": before["cuda_cores"]}
+    torch.testing.assert_close(out.float(), want.float(), atol=TOL[torch.bfloat16],
+                               rtol=TOL[torch.bfloat16])
+
+
+def test_flash_wgmma_route_repeats_bit_for_bit_at_head_dim_80(cuda):
+    """The persistent grid's items run in a fixed order per CTA and each
+    output is written once: two calls give the same bits."""
+    rng = np.random.default_rng(24)
+    q = _randn(rng, (1, 1024, 64, 80), torch.bfloat16, cuda)
+    k = _randn(rng, (1, 1024, 8, 80), torch.bfloat16, cuda)
+    first = fa.flash_attention(q, k, k)
+    assert torch.equal(first, fa.flash_attention(q, k, k))
