@@ -10,11 +10,12 @@ Phases, each a hard check (any failure exits non-zero):
    spills and the dynamic shared memory of flash_attention's wgmma kernels,
    and fail unless ``cuobjdump -sass`` of the flash library holds HGMMA
    (tensor cores) and UTMALDG (TMA) instructions; then each paged_attention
-   instantiation by name (bf16 tensor-core kernel per head_dim; float32
-   CUDA-core kernel per head_dim and group) with its registers,
-   spills, shared memory and CTAs per SM, failing if the bf16 ones Llama
-   (d 128) and qwen3-32b (d 80) decode run spill or the paged library's SASS
-   holds no HMMA and LDSM instruction; then each ssd_chunk instantiation
+   instantiation by name (the tensor-core kernel per head_dim for bf16 K/V
+   and for e4m3 K/V under a float32 or bf16 q; the float32 CUDA-core kernel
+   per head_dim and group) with its registers, spills, shared memory and
+   CTAs per SM, failing if a tensor-core one that Llama (d 128) or
+   qwen3-32b (d 80) decode runs, from a bf16 or an e4m3 cache, spills or
+   the paged library's SASS holds no HMMA and LDSM instruction; then each ssd_chunk instantiation
    (B/C float32, bfloat16) the same way, failing if the bf16 one spills or
    the ssd_chunk library's SASS holds no tensor-core (HMMA) instruction.
 2. kernels: each kernel against its plain PyTorch version on the card, at
@@ -50,17 +51,27 @@ Phases, each a hard check (any failure exits non-zero):
    same limits and timed the same way: flash and paged attention at
    Arctic's GQA group of 7 (56 / 8 heads; 1024 tokens, decode context 1040)
    and Jamba's group of 8 at 64 / 8 heads (1000 tokens, context 1016), d
-   128, and at qwen3-32b's group of 8 at 64 / 8 heads, d 80 (1024 tokens,
-   context 1040); ssd_chunk at Jamba's 256 heads (1024 tokens). exp10's top-k
-   read is also timed over 96 seeded sources in turn (63 MB, above L2)
-   beside its byte bound.
+   128, at qwen3-32b's group of 8 at 64 / 8 heads, d 80, at internvl2-26b's
+   group of 6 (48 / 8 heads, d 128) and at musicgen-large's group of 1 (32
+   / 32 heads, d 64) (1024 tokens, context 1040); ssd_chunk at Jamba's 256
+   heads (1024 tokens). The fp8 KV cache: paged attention's e4m3
+   instantiation (a bf16 q over e4m3 K/V) at Llama's group 4, d 128 and
+   qwen3-32b's group 8, d 80 (context 1040) within the same two bf16 steps,
+   its bound at one byte a K/V element and SDPA timed on the same cache
+   dequantized to bf16 (a reference on other inputs); gather and scatter on
+   an e4m3 qwen3-32b cache (64 layers), bit for bit. exp10's top-k read is
+   also timed over 96 seeded sources in turn (63 MB, above L2) beside its
+   byte bound.
 3. small: reduced Llama-3.1-8B and Arctic-480B and a narrow qwen3-32b
    (head_dim 80, group 8, d_model 640, 2 layers) in float32 served cold and
    warm on the card (kernels) and on the CPU (plain versions) with the same
-   weights, and reduced Mamba-2 2.7B and Jamba-1.5-Large in float32
-   prefilled and decoded on both; the per-step logits must agree within
-   1e-4; the attention prefills' flash calls (float32) take the cuda_cores
-   route.
+   weights, and reduced Mamba-2 2.7B, Jamba-1.5-Large, musicgen-large (70
+   seeded audio frame embeddings) and internvl2-26b (8 seeded patch
+   embeddings before 70 tokens) in float32 prefilled and decoded on both;
+   the per-step logits must agree within 1e-4; the attention prefills' flash
+   calls (float32) take the cuda_cores route. Then reduced Llama-3.1-8B
+   with an fp8 KV cache, the same: the prefill's e4m3 caches bit for bit,
+   the logits within FP8_SMALL_TOL.
 4. main path: full-width Llama-3.1-8B (random weights from a seed, bf16)
    served through ``RealEngine`` (kernels for tensors on the card): two cold
    prompts, two that hit a 512-token shared prefix, two full repeats. Checks
@@ -127,10 +138,30 @@ Phases, each a hard check (any failure exits non-zero):
    path's tokens, within 0.5; prints TTFT cold / partial /
    full, decode tokens/s, peak memory, and a profiled cold request and
    decode window (16 paged kernels a step).
+10. qwen3-32b with an fp8 KV cache (phase 9's model freed first): the same
+   config and cut, through ``Model`` with ``RuntimeConfig(use_fp8_kv=True)``:
+   a 1024-token prefill and 16 greedy decode steps (``model_path``). Checks
+   the caches are float8_e4m3fn, flash 16 per prefill (wgmma), paged 16 per
+   step, all of the e4m3 instantiation, and the kernel path's logits against
+   the plain path's at every step, each step on a copy of the kernel path's
+   cache (FP8_LOGIT_TOL); prints the logits' gap against the same model
+   with a bf16 cache fed the same tokens (relative to their largest), the
+   cache's bytes against bf16's, TTFT, decode tokens/s, peak memory and a
+   profiled decode window.
+11. internvl2-26b (phase 10's model freed first): full width (d 6144, 48 /
+   8 heads at d 128, d_ff 16384, vocabulary 92553, bf16), all 48 layers
+   (19.9 B parameters), through ``Model``: 256 seeded patch embeddings and
+   768 text tokens, then 16 decode steps from token embeddings at
+   positions 1024 on. The checks of phase 10 (a bf16 cache), the logits
+   within DEEP_LOGIT_TOL; prints TTFT, decode tokens/s and peak memory.
+12. musicgen-large: full width (d 2048, 32 / 32 heads at d 64, d_ff 8192,
+   gelu, vocabulary 2048), all 48 layers (3.2 B parameters): 1024 seeded
+   audio frame embeddings, then 16 decode steps, as phase 11.
 
-Prints the kernel table as one JSON line, the card's name and power limit,
-and last ``{"ok": true, "device": {...}}``. Without a GPU it exits non-zero
-before doing anything.
+Prints the kernel table as one JSON line (the e4m3 paged instantiation as
+a row of its own, ``paged_attention_e4m3``; each row's launches by path),
+the card's name and power limit, and last ``{"ok": true, "device":
+{...}}``. Without a GPU it exits non-zero before doing anything.
 """
 
 from __future__ import annotations
@@ -167,6 +198,12 @@ TF32_FLOP_PER_S = 495e12  # dense tensor-core TF32
 # float32 terms at most
 CUM_TOL = 1e-6
 SMALL_TOL = 1e-4  # float32 reduced model, card vs CPU
+# float32 reduced model decoding from an fp8 cache, card vs CPU: both decode
+# attentions round P to bf16 (JAX's contract for an fp8 cache), the kernel a
+# tile's unnormalised P and the plain version the normalised one, so the
+# logits differ by such roundings: 3e-4 to 5e-4 in the first readings
+# (tests/test_torch_gpu.py), where a bf16 cache's stay under 1e-6
+FP8_SMALL_TOL = 2e-3
 # warm vs cold logits at full width, bf16 (logit std about 1.3): the two
 # paths round the bf16 residual stream at different points (a 1024-row
 # prefill GEMM + flash kernel vs one-token decode over the restored cache)
@@ -203,7 +240,14 @@ LLAMA_KERNELS = ("kv_gather_write", "kv_scatter_read", "flash_attention", "paged
 # paths' (d 128, groups 7 and 8) and qwen3-32b's (d 80, group 8):
 # label -> (prompt tokens, q heads, kv heads, head_dim, max_len, decode context)
 ATTN_SHAPES = {"arctic": (1024, 56, 8, 128, 2048, 1040), "jamba": (1000, 64, 8, 128, 1024, 1016),
-               "qwen3_32b": (1024, 64, 8, 80, 2048, 1040)}
+               "qwen3_32b": (1024, 64, 8, 80, 2048, 1040),
+               # phases 11-12: internvl2-26b's group of 6 at d 128, musicgen-large's
+               # group of 1 (32 / 32 heads) at d 64
+               "internvl2_26b": (1024, 48, 8, 128, 2048, 1040),
+               "musicgen_large": (1024, 32, 32, 64, 2048, 1040)}
+# phase 2's paged rows from an e4m3 cache under a bf16 q: Llama's group 4 at d
+# 128 and qwen3-32b's group 8 at d 80 (phase 10's decode)
+FP8_SHAPES = {"llama_fp8": (32, 8, 128, 2048, 1040), "qwen3_32b_fp8": (64, 8, 80, 2048, 1040)}
 # paged rows at those shapes are timed cycling over this many layers' caches,
 # so that each call finds its cache cold in L2, as a decode step that reads
 # gigabytes of expert weights between two attention layers does
@@ -234,6 +278,20 @@ CONTINUITY_CAPACITY = 8.0
 # d_ff 25600, vocabulary 151936), depth cut to 16 of 64 layers (about 17.6 GB
 # of bf16 weights); requests of 1024 tokens, a 768-token shared prefix
 QWEN3_LAYERS, QWEN3_SHARED = 16, 768
+# phases 10-12 through Model: a PROMPT-position prefill, then this many greedy
+# decode steps, each checked against the plain path on a copy of its cache
+MODEL_STEPS = 16
+# phase 10, qwen3-32b with an fp8 cache: the kernel path's logits against the
+# plain path's on the same fp8 cache at every step (bf16, 16 layers); no
+# looser than LOGIT_TOL
+# (readings 0.20-0.27 at logit std 1.43, the bf16 cache's phase 9 0.23-0.24)
+FP8_LOGIT_TOL = LOGIT_TOL
+# phases 11-12, 48-layer bf16 stacks through Model: the same comparison
+# through three times phase 9's depth, where the paths' bf16 roundings (flash
+# rounds P to bf16, the plain version does not) compound: the first readings
+# were 0.39-0.56 for internvl2-26b (logit std 1.57) and 0.15-0.22 for
+# musicgen-large (0.90); logits of an unrelated context differ by about 10
+DEEP_LOGIT_TOL = 1.0
 MAMBA_PROMPTS, MAMBA_STEPS = (1000, 4095), 16
 PREFILL_REPEATS = 5  # timed prefills of each prompt, after one warm-up
 # the final SSM state of the kernel path against the plain path's, relative to
@@ -355,20 +413,28 @@ def paged_row(cfg, randn) -> dict:
 
 
 def paged_shape(label: str, hq: int, hkv: int, hd: int, max_len: int, ctx_len: int,
-                randn) -> dict:
-    """paged_attention at the Arctic, Jamba or qwen3-32b decode (bf16; d 128
-    at groups 7 and 8, d 80 at group 8): one token over a dense (1, max_len,
-    8, hd) cache as blocks of 16 through the identity table, checked and
-    timed over PAGED_CYCLE such caches in turn."""
+                randn, fp8: bool = False) -> dict:
+    """paged_attention at the Arctic, Jamba, qwen3-32b, internvl2-26b or
+    musicgen-large decode (bf16; d 128 at groups 7, 8 and 6, d 80 at group
+    8, d 64 at group 1), or, with ``fp8``, from an e4m3 cache under a bf16 q
+    (Llama's group 4 at d 128, qwen3-32b's group 8 at d 80): one token over
+    a dense (1, max_len, hkv, hd) cache as blocks of 16 through the identity
+    table, checked and timed over PAGED_CYCLE such caches in turn. An fp8
+    row's bound counts one byte a K/V element, and its SDPA time is taken on
+    the same cache dequantized to bf16: a reference on other inputs, since
+    no single call computes the fp8 function."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
+    from repro_torch.models.attention import to_e4m3
 
     dev, bt, n = torch.device("cuda"), 16, PAGED_CYCLE
     n_blk = max_len // bt
     kc, vc = randn(n, 1, max_len, hkv, hd), randn(n, 1, max_len, hkv, hd)
+    if fp8:
+        kc, vc = to_e4m3(kc), to_e4m3(vc)
     q = randn(n, 1, hq, hd)
     table = pa.make_block_table([list(range(n_blk))], n_blk, dev)
     ctx = torch.tensor([ctx_len], dtype=torch.int32, device=dev)
@@ -381,26 +447,33 @@ def paged_shape(label: str, hq: int, hkv: int, hd: int, max_len: int, ctx_len: i
         return ref.paged_attention_ref(q[i], pa.dense_blocks(kc[i], bt),
                                        pa.dense_blocks(vc[i], bt), table, ctx)
 
+    before = dict(pa.paged_attention.launches_by_kv)
     err, tol = bf16_check(torch.stack([kernel(i) for i in range(n)]),
                           torch.stack([plain(i) for i in range(n)]))
-    check(err <= tol, f"paged_attention at {label}'s decode (q heads {hq} / kv {hkv}, group "
-          f"{hq // hkv}, d {hd}, ctx {ctx_len}): max |err| {err:.3g} <= {tol:.3g} ({PAGED_ULPS} "
+    took = pa.paged_attention.launches_by_kv[pa.KV_NAMES[kc.dtype]] - before[pa.KV_NAMES[kc.dtype]]
+    check(err <= tol and took == n, f"paged_attention at {label}'s decode (q heads {hq} / kv "
+          f"{hkv}, group {hq // hkv}, d {hd}, ctx {ctx_len}, K/V {str(kc.dtype)[6:]}: {took} "
+          f"launches of that instantiation): max |err| {err:.3g} <= {tol:.3g} ({PAGED_ULPS} "
           f"bf16 steps at the largest output)")
-    moved = (2 * ctx_len * hkv * hd + 2 * hq * hd) * q.element_size()
+    moved = 2 * ctx_len * hkv * hd * kc.element_size() + 2 * hq * hd * q.element_size()
     flops = 4 * hq * ctx_len * hd
     qs = q.unsqueeze(3)
-    ks, vs = kc[:, :, :ctx_len].transpose(2, 3), vc[:, :, :ctx_len].transpose(2, 3)
-    splits, per_sm = pa.plan(dev, q.dtype, hd, hq // hkv, 1, hkv, n_blk)
-    r = dict(max_abs_err=err, head_dim=hd, splits=splits, ctas_per_sm=per_sm,
+    ks, vs = (c[:, :, :ctx_len].to(q.dtype).transpose(2, 3) for c in (kc, vc))
+    splits, per_sm = pa.plan(dev, q.dtype, hd, hq // hkv, 1, hkv, n_blk, kc.dtype)
+    r = dict(max_abs_err=err, head_dim=hd, kv_dtype=str(kc.dtype)[6:], splits=splits,
+             ctas_per_sm=per_sm,
              ms=cycled_ms(kernel, range(n)), plain_ms=cycled_ms(plain, range(n)),
              bound_ms=max(moved / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S) * 1e3,
              bound_by="bytes" if moved / HBM_BYTES_PER_S >= flops / BF16_FLOP_PER_S
              else "operations",
              library_ms=cycled_ms(lambda i: F.scaled_dot_product_attention(
                  qs[i], ks[i], vs[i], enable_gqa=True), range(n)))
-    print(f"  paged_attention, {label} (group {hq // hkv}, d {hd}, ctx {ctx_len}, {splits} splits, "
-          f"{per_sm} CTAs per SM): {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, SDPA "
-          f"{r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']})")
+    if fp8:
+        r["library_on"] = "the same cache dequantized to bf16 (a reference on other inputs)"
+    print(f"  paged_attention, {label} (group {hq // hkv}, d {hd}, ctx {ctx_len}, K/V "
+          f"{r['kv_dtype']}, {splits} splits, {per_sm} CTAs per SM): {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.4f}, SDPA{' on bf16' if fp8 else ''} {r['library_ms']:.4f}, bound "
+          f"{r['bound_ms']:.4f} by {r['bound_by']})")
     return r
 
 
@@ -779,14 +852,84 @@ def phase_kernels(cfg, mamba_cfg) -> list[dict]:
         bound_ms=moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
     ))
     del k, v, blocks, want, kr, vr, kw, vw, zeros
+    qwen_cfg = get_config("qwen3-32b")
+    for r, shape in zip(rows, kv_fp8_shapes(qwen_cfg, g)):
+        r["shapes"] = {"qwen3_32b_fp8": shape}
     rows.append(flash_row(cfg, randn))
     rows.append(paged_row(cfg, randn))
+    rows.append(paged_fp8_row(randn))
     rows.append(ssd_row(mamba_cfg, get_config("jamba-1.5-large-398b"), g))
-    rows.append(sparse_row(cfg, get_config("qwen3-32b"), g))
+    rows.append(sparse_row(cfg, qwen_cfg, g))
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
     return rows
+
+
+def kv_fp8_shapes(qwen_cfg, g) -> tuple[dict, dict]:
+    """kv_gather_write and kv_scatter_read on an e4m3 qwen3-32b cache (64
+    layers, 8 kv heads at d 80, max_len 2048; a 1024-token prompt's 64
+    blocks), cast as the fp8 KV cache casts: each bit for bit against its
+    plain version (uint8 views), timed beside it and its byte bound."""
+    import torch
+
+    from repro_torch.kernels import kv_transfer as kv
+    from repro_torch.kernels import ref
+    from repro_torch.models.attention import to_e4m3
+
+    dev, bt = torch.device("cuda"), 16
+    L, hkv, hd = qwen_cfg.n_layers, qwen_cfg.n_kv_heads, qwen_cfg.head_dim
+    n_slots, slots = MAX_LEN // bt, list(range(PROMPT // bt))
+    slots_t = torch.tensor(slots, device=dev)
+    k, v = (to_e4m3(torch.randn((L, MAX_LEN, hkv, hd), generator=g, device=dev))
+            for _ in range(2))
+    blocks = kv.kv_gather_write(k, v, slots, bt)
+    want = ref.kv_gather_write_ref(k, v, slots_t, bt)
+    kr, vr = kv.kv_scatter_read(blocks, slots, n_slots)
+    zeros = torch.zeros_like(k)
+    kw, vw = ref.kv_scatter_read_ref(blocks, slots_t, zeros, zeros, bt)
+    torch.cuda.synchronize()
+    u8 = lambda t: t.view(torch.uint8)  # noqa: E731
+    check(blocks.dtype == torch.float8_e4m3fn and torch.equal(u8(blocks), u8(want)),
+          f"kv_gather_write bit-exact on an e4m3 qwen3-32b cache at {tuple(blocks.shape)}")
+    check(torch.equal(u8(kr), u8(kw)) and torch.equal(u8(vr), u8(vw)),
+          f"kv_scatter_read bit-exact (zero fill included) on e4m3 blocks at {tuple(kr.shape)}")
+    gather_moved = 2 * blocks.numel()
+    scatter_moved = blocks.numel() + 2 * kr.numel()
+    out = (dict(max_abs_err=0.0, bytes_per_element=1,
+                ms=device_ms(lambda: kv.kv_gather_write(k, v, slots, bt)),
+                plain_ms=device_ms(lambda: ref.kv_gather_write_ref(k, v, slots_t, bt)),
+                bound_ms=gather_moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None),
+           dict(max_abs_err=0.0, bytes_per_element=1,
+                ms=device_ms(lambda: kv.kv_scatter_read(blocks, slots, n_slots)),
+                plain_ms=device_ms(
+                    lambda: ref.kv_scatter_read_ref(blocks, slots_t, zeros, zeros, bt)),
+                bound_ms=scatter_moved / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+                library_ms=None))
+    for name, r in zip(("kv_gather_write", "kv_scatter_read"), out):
+        print(f"  {name}, qwen3-32b e4m3: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, bound "
+              f"{r['bound_ms']:.4f})")
+    return out
+
+
+def paged_fp8_row(randn) -> dict:
+    """paged_attention's e4m3 instantiation (an fp8 cache under a bf16 q), at
+    qwen3-32b's decode (phase 10: group 8, d 80, context 1040) and Llama's
+    (group 4, d 128): the row of the kernels line, timed as ``paged_shape``
+    times it."""
+    shapes = {label: paged_shape(label, hq, hkv, hd, max_len, ctx, randn, fp8=True)
+              for label, (hq, hkv, hd, max_len, ctx) in FP8_SHAPES.items()}
+    main = shapes["qwen3_32b_fp8"]
+    return dict(
+        name="paged_attention_e4m3", route="cuda",
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:128",
+        max_abs_err=max(r["max_abs_err"] for r in shapes.values()),
+        **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                                "library_on", "splits", "ctas_per_sm")},
+        shapes=shapes,
+    )
 
 
 def flash_build_proof(build) -> None:
@@ -814,13 +957,15 @@ def flash_build_proof(build) -> None:
 
 def paged_build_proof(build) -> None:
     """Each paged_attention instantiation as ptxas built it, by name: the
-    bf16 tensor-core kernel per head_dim (a whole group of up to 8 heads a
-    CTA) and the float32 CUDA-core kernel per (head_dim, group rounded up
-    to a power of two):
-    registers, spill stores and loads, static shared memory, its K/V ring
-    (dynamic shared memory) and CTAs per SM. The bf16 kernels that Llama
-    (d 128) and qwen3-32b (d 80) decode run must not spill, and the library's
-    SASS must hold the tensor-core (HMMA) and ldmatrix (LDSM) instructions."""
+    tensor-core kernel per (q, K/V) dtype pair (bf16/bf16, and the fp8
+    cache's float32/e4m3 and bf16/e4m3) and head_dim (a whole group of up to
+    8 heads a CTA) and the float32 CUDA-core kernel per (head_dim, group
+    rounded up to a power of two): registers, spill stores and loads,
+    static shared memory, its K/V ring (dynamic shared memory) and CTAs per
+    SM. The tensor-core kernels that Llama (d 128) and qwen3-32b (d 80)
+    decode run, from a bf16 or an e4m3 cache, must not spill, and the
+    library's SASS must hold the tensor-core (HMMA) and ldmatrix (LDSM)
+    instructions."""
     import re
 
     import torch
@@ -830,27 +975,36 @@ def paged_build_proof(build) -> None:
     log = build.build_log("paged_attention")
     dev = torch.device("cuda", torch.cuda.current_device())
     seen = {}
+    codes = {v: k for k, v in pa.KINDS.items()}  # the C entry's dtype code -> (q, K/V)
     for fn, body in re.findall(r"Compiling entry function '(\S*paged_\w*kernel\S*)'"
                                r"(.*?)Compile time", log, flags=re.S):
-        mma = re.search(r"paged_mma_kernelILi(\d+)E", fn)
+        mma = re.search(r"paged_mma_kernelILi(\d+)ELi(\d+)E", fn)
         if mma:
-            dtype, d, g = torch.bfloat16, int(mma.group(1)), 8
+            (dtype, kv_dtype), d, g = codes[int(mma.group(1))], int(mma.group(2)), 8
         else:
             m = re.search(r"paged_attention_kernelIfLi(\d+)ELi(\d+)E", fn)
-            dtype, d, g = torch.float32, int(m.group(1)), int(m.group(2))
+            dtype, kv_dtype, d, g = torch.float32, torch.float32, int(m.group(1)), int(m.group(2))
         regs = int(re.search(r"Used (\d+) registers", body).group(1))
         spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
         smem = re.search(r"(\d+) bytes smem", body)
-        seen[(dtype, d, g)] = stores, loads = int(spill.group(1)), int(spill.group(2))
-        print(f"  paged kernel {str(dtype)[6:]}, d {d}, {g} heads a CTA: {regs} registers, "
-              f"spill stores {stores} B / loads {loads} B, {smem.group(1) if smem else 0} B "
-              f"static + {pa.ring_bytes(dev, dtype, d, g)} B ring shared memory, "
-              f"{pa.ctas_per_sm(dev, dtype, d, g)} CTAs per SM")
-    want = len(pa.HEAD_DIMS) * (1 + 4)  # bf16: one per head_dim; float32: 1, 2, 4, 8 heads
+        seen[(dtype, kv_dtype, d, g)] = stores, loads = int(spill.group(1)), int(spill.group(2))
+        print(f"  paged kernel q {str(dtype)[6:]}, K/V {str(kv_dtype)[6:]}, d {d}, {g} heads a "
+              f"CTA: {regs} registers, spill stores {stores} B / loads {loads} B, "
+              f"{smem.group(1) if smem else 0} B static + "
+              f"{pa.ring_bytes(dev, dtype, d, g, kv_dtype)} B ring shared memory, "
+              f"{pa.ctas_per_sm(dev, dtype, d, g, kv_dtype)} CTAs per SM")
+    # tensor cores: one per (q, K/V) pair and head_dim; float32: 1, 2, 4, 8 heads a CTA
+    want = len(pa.HEAD_DIMS) * (3 + 4)
     check(len(seen) == want, f"ptxas reported all {len(seen)} of {want} paged "
-          "instantiations (bf16 x 5 head_dims; float32 x 5 head_dims x 1, 2, 4, 8 heads a CTA)")
-    check(seen[(torch.bfloat16, 128, 8)] == (0, 0) and seen[(torch.bfloat16, 80, 8)] == (0, 0),
-          "the bf16 paged kernels Llama (d 128) and qwen3-32b (d 80) decode run do not spill")
+          "instantiations (tensor cores: bf16/bf16, float32/e4m3, bf16/e4m3 x 5 head_dims; "
+          "float32 x 5 head_dims x 1, 2, 4, 8 heads a CTA)")
+    served = [(q, kv, d, 8) for q, kv in ((torch.bfloat16, torch.bfloat16),
+                                           (torch.bfloat16, torch.float8_e4m3fn),
+                                           (torch.float32, torch.float8_e4m3fn))
+              for d in (128, 80)]
+    check(all(seen[k] == (0, 0) for k in served),
+          "the tensor-core paged kernels Llama (d 128) and qwen3-32b (d 80) decode run, from "
+          "a bf16 or an e4m3 cache (q bf16 or float32), do not spill")
     sass = build.sass("paged_attention")
     counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in PAGED_SASS}
     check(all(counts.values()), f"paged library SASS holds tensor-core and ldmatrix "
@@ -902,6 +1056,9 @@ def phase_small() -> None:
         n_kv_heads=1, d_ff=256, vocab_size=256))
     small_model("mamba2-2.7b")
     small_model("jamba-1.5-large-398b")
+    small_model("musicgen-large")
+    small_model("internvl2-26b")
+    small_model("llama3.1-8b", fp8=True)
 
 
 def small_engine(arch: str, cfg=None) -> None:
@@ -942,31 +1099,77 @@ def small_engine(arch: str, cfg=None) -> None:
               f"<= {SMALL_TOL}, hits {ig['hit_tokens']}")
 
 
-def small_model(arch: str) -> None:
-    """A reduced Mamba-2 or Jamba stack in float32 through ``Model`` on the
-    card and on the CPU with the same weights: a prefill of two rows of 70
-    tokens (three chunks, the last padded) and 8 decode steps, logits within
-    SMALL_TOL."""
+def small_model(arch: str, fp8: bool = False) -> None:
+    """A reduced stack in float32 through ``Model`` on the card and on the
+    CPU with the same weights: a prefill of two rows of 70 tokens (Mamba-2
+    and Jamba: three chunks, the last padded), 70 seeded audio frame
+    embeddings (musicgen-large) or 8 seeded patch embeddings before 70
+    tokens (internvl2-26b), then 8 decode steps; logits within SMALL_TOL.
+    With ``fp8`` (an e4m3 KV cache) the prefill's caches must match bit for
+    bit and the logits stay within FP8_SMALL_TOL; the rows decode writes may
+    round to a neighbouring e4m3 value (counted)."""
     import torch
 
+    from repro_torch.configs.base import RuntimeConfig
     from repro_torch.configs.registry import reduced_config
     from repro_torch.models.model import Model, init_params
 
     cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
     params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
     on_card = _to(params, "cuda")
-    model = Model(cfg)
-    tokens = torch.randint(0, cfg.vocab_size, (2, 70), generator=torch.Generator().manual_seed(4))
-    lg_cpu, cache_cpu = model.prefill_fn(params, tokens, max_len=80)
-    lg_gpu, cache_gpu = model.prefill_fn(on_card, tokens.cuda(), max_len=80)
+    model = Model(cfg, runtime=RuntimeConfig(use_fp8_kv=fp8))
+    gen = torch.Generator().manual_seed(4)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 70), generator=gen)
+    batch, s = {"tokens": tokens}, 70
+    if cfg.frontend == "audio_stub":
+        batch = {"frame_embeds": torch.randn((2, 70, cfg.d_model), generator=gen)}
+    elif cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = torch.randn((2, cfg.n_frontend_tokens, cfg.d_model),
+                                            generator=gen)
+        s += cfg.n_frontend_tokens
+    max_len = -(-(s + 8) // 16) * 16
+    lg_cpu, cache_cpu = model.prefill_fn(params, batch, max_len=max_len)
+    lg_gpu, cache_gpu = model.prefill_fn(on_card, _to(batch, "cuda"), max_len=max_len)
     diffs = [(lg_gpu.cpu() - lg_cpu).abs().max().item()]
+    if fp8:
+        check(cache_gpu[0].dtype == torch.float8_e4m3fn
+              and all(torch.equal(a.view(torch.uint8), b.view(torch.uint8).cpu())
+                      for a, b in zip(cache_cpu, cache_gpu)),
+              f"reduced fp32 {arch} with an fp8 cache: the prefill's e4m3 caches equal the "
+              "CPU's bit for bit")
     for step in range(8):
-        tok, pos = tokens[:, step], torch.full((2,), 70 + step)
+        tok, pos = tokens[:, step], torch.full((2,), s + step)
         lc = model.decode_fn(params, cache_cpu, tok, pos)
         diffs.append((model.decode_fn(on_card, cache_gpu, tok.cuda(), pos.cuda()).cpu()
                       - lc).abs().max().item())
-    check(max(diffs) <= SMALL_TOL, f"reduced fp32 {arch}: card vs CPU prefill and 8 decode "
-          f"steps, logits max |diff| {max(diffs):.3g} <= {SMALL_TOL}")
+    tol = FP8_SMALL_TOL if fp8 else SMALL_TOL
+    what = f"reduced fp32 {arch}" + (" with an fp8 cache" if fp8 else "")
+    if fp8:
+        flips = sum(e4m3_neighbours(a, b) for a, b in zip(cache_cpu, cache_gpu))
+        print(f"  {what}: after 8 decode steps {flips} e4m3 bytes of the caches one rounding "
+              "step from the CPU's (rows written from K/V that carry the decode attention's "
+              "bf16 P roundings), none further")
+    check(max(diffs) <= tol, f"{what}: card vs CPU prefill and 8 decode steps, logits max "
+          f"|diff| {max(diffs):.3g} <= {tol} (per step {[f'{d:.2g}' for d in diffs]})")
+
+
+def e4m3_neighbours(a, b) -> int:
+    """Bytes of two e4m3 tensors that differ; fails unless each such pair is
+    at most one rounding step apart: adjacent on the e4m3 number line, where
+    -0 and +0 are one point (a value near zero rounds to either)."""
+    import torch
+
+    def ordinal(t):
+        x = t.view(torch.uint8).cpu().int()
+        return torch.where(x >= 0x80, -(x & 0x7F), x)
+
+    x, y = a.view(torch.uint8).cpu().int(), b.view(torch.uint8).cpu().int()
+    differ = x != y
+    pairs = [(hex(i), hex(j)) for i, j in zip(x[differ].tolist()[:8], y[differ].tolist()[:8])]
+    check(bool(((ordinal(a) - ordinal(b)).abs() <= 1).all()),
+          f"the {int(differ.sum())} e4m3 bytes that differ are at most one rounding step "
+          f"apart: {pairs}")
+    return int(differ.sum())
 
 
 def _to(tree: dict, device) -> dict:
@@ -1713,6 +1916,217 @@ def phase_qwen3(cfg) -> dict:
     return launches
 
 
+def model_path(label: str, cfg, batch: dict, seq: int, runtime=None) -> dict:
+    """Prefill ``batch`` (``seq`` positions) and MODEL_STEPS greedy decode
+    steps through ``Model`` on the card, with random bf16 weights from a
+    seed; then the same again with the plain versions beside it, the plain
+    path taking each step from a copy of the kernel path's cache (the same
+    cache, fp8 or bf16) and the kernel path's token. Checks finite logits,
+    flash once a layer per prefill (wgmma) and paged once a layer per step
+    (of the cache's instantiation), the kernel path's logits against the
+    plain path's at every step; returns the readings, the parameters, the
+    kernel path's tokens and logits and its caches."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.models.transformer import position_caches
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = Model(cfg, runtime=runtime)
+    plain = Model(cfg, kernel_mode="ref", runtime=runtime)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"  {label}: {cfg.n_layers} layers, d_model {cfg.d_model}, {cfg.n_heads} / "
+          f"{cfg.n_kv_heads} heads at head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocabulary "
+          f"{cfg.vocab_size}; {n_params / 1e9:.2f} B parameters ({n_params * 2 / 1e9:.2f} GB "
+          f"bf16) up in {time.perf_counter() - t0:.1f} s "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
+    max_len = -(-(seq + MODEL_STEPS) // 16) * 16
+    L = cfg.n_layers
+
+    def decode_loop(cache, first: int, checked: bool):
+        out, steps, gaps = [first], [], []
+        for i in range(MODEL_STEPS):
+            tok, pos = torch.tensor([out[-1]], device=dev), torch.tensor([seq + i], device=dev)
+            if checked:
+                snap = _map_cache(cache, torch.clone)
+            lg = model.decode_fn(params, cache, tok, pos)
+            if checked:
+                gaps.append((lg - plain.decode_fn(params, snap, tok, pos)).abs().max().item())
+                del snap
+            steps.append(lg)
+            out.append(int(lg[0].argmax()))
+        return out, steps, gaps
+
+    model.prefill_fn(params, batch, max_len=max_len)  # warm-up: plans, allocator
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill_fn(params, batch, max_len=max_len)
+    first = int(logits[0, 0].argmax())
+    ttft = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks, steps, _ = decode_loop(cache, first, checked=False)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    launches, routes, kv_kinds = ops.launch_counts(), ops.flash_routes(), ops.paged_kv()
+    peak = torch.cuda.max_memory_allocated()
+    lg = torch.cat([logits[:, 0]] + steps)
+    kv_dtype = position_caches(cache, model.kinds)[0]["k"].dtype
+    kv_name = str(kv_dtype)[6:]
+    check(lg.shape == (MODEL_STEPS + 1, cfg.padded_vocab) and bool(torch.isfinite(lg).all()),
+          f"{label}: {MODEL_STEPS + 1} finite logit rows, tokens {toks[:6]}...")
+    check(launches["flash_attention"] == routes["wgmma"] == L and routes["cuda_cores"] == 0,
+          f"{label}: flash_attention {L} per prefill (one a layer), all wgmma: {routes}")
+    check(launches["paged_attention"] == kv_kinds[kv_name] == L * MODEL_STEPS,
+          f"{label}: paged_attention {L} a step over {MODEL_STEPS} steps, all of the K/V "
+          f"{kv_name} instantiation: {kv_kinds}")
+    check(all(launches[k] == 0 for k in ("kv_gather_write", "kv_scatter_read",
+                                          "sparse_kv_gather", "ssd_chunk")),
+          f"{label}: no pool or SSM kernel on the Model path: {launches}")
+
+    # the plain path beside the kernel path: the prefill on the same batch,
+    # each decode step on a copy of the kernel path's cache
+    logits2, cache2 = model.prefill_fn(params, batch, max_len=max_len)
+    plogits, _ = plain.prefill_fn(params, batch, max_len=max_len)
+    gaps = [(logits2 - plogits).abs().max().item()]
+    del plogits
+    toks2, _, step_gaps = decode_loop(cache2, int(logits2[0, 0].argmax()), checked=True)
+    gaps += step_gaps
+    check(toks2 == toks, f"{label}: the checked run repeats the counted run's tokens")
+    print(f"  {label}: kernel vs plain path, max |dlogit| prefill {gaps[0]:.4g}, decode steps "
+          f"{[f'{x:.3g}' for x in gaps[1:]]} (logit std {lg.std().item():.3g})")
+    del cache2
+    summary = {
+        "ttft_ms": ttft * 1e3,
+        "decode_tok_per_s": MODEL_STEPS / decode_s,
+        "peak_mem_gib": peak / 2**30,
+        "kernel_vs_plain_max_dlogit": gaps,
+        "launches": launches,
+        "flash_routes": routes,
+        "paged_kv": kv_kinds,
+        "cache_dtype": kv_name,
+    }
+    return dict(summary=summary, params=params, model=model, cache=cache, tokens=toks,
+                logits=lg, max_len=max_len)
+
+
+def _map_cache(cache, fn):
+    if isinstance(cache, tuple):
+        return tuple(fn(t) for t in cache)
+    return _map(cache, fn)
+
+
+def profile_decode(label: str, run: dict, seq: int) -> None:
+    """A profiled window of 8 decode steps (at the last positions the run
+    wrote, which it writes again): wall, device time, busy share, top
+    kernels; one paged launch a layer a step."""
+    import torch
+
+    model, params, cache, toks = run["model"], run["params"], run["cache"], run["tokens"]
+    dev, steps = torch.device("cuda"), 8
+    base = seq + MODEL_STEPS - steps
+    with profiled() as prof:
+        t0 = time.perf_counter()
+        for i in range(steps):
+            model.decode_fn(params, cache, torch.tensor([toks[-1]], device=dev),
+                            torch.tensor([base + i], device=dev))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    events = prof.key_averages()
+    report_profile(f"{label} decode step", events, steps, wall_ms)
+    paged = sum(e.count for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+                and "paged" in e.key) / steps
+    check(paged == model.cfg.n_layers, f"{label}: profiled decode step: {paged:g} paged kernels "
+          f"a step = {model.cfg.n_layers} layers")
+
+
+def phase_qwen3_fp8(cfg) -> dict:
+    """qwen3-32b at full width, QWEN3_LAYERS of 64 layers, with an fp8 KV
+    cache through ``Model``: a 1024-token prefill and MODEL_STEPS greedy
+    decode steps (``model_path``), the paged launches all of the e4m3
+    instantiation; then the same model with a bf16 cache fed the same tokens:
+    the logits' gap relative to their largest, and the caches' bytes."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import position_caches
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(10)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, size=(1, PROMPT))).to(dev)
+    run = model_path("qwen3-32b fp8", cfg, {"tokens": tokens}, PROMPT,
+                     RuntimeConfig(use_fp8_kv=True))
+    summary, params = run["summary"], run["params"]
+    caches = position_caches(run["cache"], run["model"].kinds)
+    check(all(c[n].dtype == torch.float8_e4m3fn for c in caches for n in "kv"),
+          "qwen3-32b fp8: every layer's K and V cache is float8_e4m3fn")
+    gap = max(summary["kernel_vs_plain_max_dlogit"])
+    check(gap <= FP8_LOGIT_TOL, f"qwen3-32b fp8: kernel vs plain path at every step on the same "
+          f"fp8 cache, max |dlogit| {gap:.4g} <= {FP8_LOGIT_TOL}")
+
+    # the same model and tokens with a bf16 cache
+    bf16 = Model(cfg)
+    lg16, cache16 = bf16.prefill_fn(params, {"tokens": tokens}, max_len=run["max_len"])
+    rows = [lg16[:, 0]]
+    for i, tok in enumerate(run["tokens"][:-1]):
+        rows.append(bf16.decode_fn(params, cache16, torch.tensor([tok], device=dev),
+                                   torch.tensor([PROMPT + i], device=dev)))
+    lg16 = torch.cat(rows)
+    rel = [((a - b).abs().max() / b.abs().max()).item() for a, b in zip(run["logits"], lg16)]
+    fp8_bytes = sum(c[n].numel() * c[n].element_size() for c in caches for n in "kv")
+    bf16_bytes = sum(t.numel() * t.element_size() for t in cache16)
+    summary.update(fp8_vs_bf16_cache_rel_gap=rel, cache_bytes=fp8_bytes,
+                   bf16_cache_bytes=bf16_bytes)
+    print(f"  qwen3-32b: fp8 vs bf16 cache, logits' gap relative to their largest, per step "
+          f"{[f'{x:.3g}' for x in rel]} (max {max(rel):.3g}; JAX's reduced-model test holds it "
+          f"under 0.1, tests/test_models.py:152-176); cache {fp8_bytes / 2**20:.2f} MiB against "
+          f"{bf16_bytes / 2**20:.2f} MiB in bf16 ({fp8_bytes / bf16_bytes:.2f}x)")
+    del cache16, bf16
+    print("  qwen3 fp8 path: " + json.dumps(summary))
+    profile_decode("qwen3-32b fp8", run, PROMPT)
+    launches = dict(summary["launches"],
+                    paged_attention_e4m3=summary["paged_kv"]["float8_e4m3fn"])
+    return launches
+
+
+def phase_frontend(label: str, cfg) -> dict:
+    """A stub-frontend model at full width through ``Model`` (``model_path``):
+    internvl2-26b prefills its 256 seeded patch embeddings before 768 text
+    tokens, musicgen-large 1024 seeded audio frame embeddings (PROMPT
+    positions either way); the kernel path's logits within DEEP_LOGIT_TOL of
+    the plain path's at every step; TTFT, decode tokens/s and peak memory."""
+    import torch
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    embeds = lambda n: torch.randn((1, n, cfg.d_model), generator=gen,  # noqa: E731
+                                   device=dev).to(torch.bfloat16)
+    if cfg.frontend == "vision_stub":
+        npat = cfg.n_frontend_tokens
+        batch = {"patch_embeds": embeds(npat),
+                 "tokens": torch.randint(0, cfg.vocab_size, (1, PROMPT - npat), generator=gen,
+                                         device=dev)}
+        what = f"{npat} patch embeddings + {PROMPT - npat} text tokens"
+    else:
+        batch, what = {"frame_embeds": embeds(PROMPT)}, f"{PROMPT} audio frame embeddings"
+    print(f"  {label}: prefill of {what}, then {MODEL_STEPS} decode steps from token "
+          f"embeddings (decode positions from {PROMPT})")
+    run = model_path(label, cfg, batch, PROMPT)
+    summary = run["summary"]
+    gap = max(summary["kernel_vs_plain_max_dlogit"])
+    check(gap <= DEEP_LOGIT_TOL, f"{label}: kernel vs plain path at every step, max |dlogit| "
+          f"{gap:.4g} <= {DEEP_LOGIT_TOL}")
+    print(f"  {label} path: " + json.dumps(summary))
+    return summary["launches"]
+
+
 def continuity(cfg, params, full, max_len: int | None = None,
                routes: list | None = None) -> tuple[float, float]:
     """Prefill all but the last token, decode the last at its position, and
@@ -1887,12 +2301,30 @@ def main() -> None:
     print(f"[9] qwen3-32b path: full width, {QWEN3_LAYERS} of 64 layers, through the pool",
           flush=True)
     qwen3_launches = phase_qwen3(qwen3_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[10] qwen3-32b with an fp8 KV cache: full width, {QWEN3_LAYERS} of 64 layers, "
+          "through Model", flush=True)
+    qwen3_fp8_launches = phase_qwen3_fp8(qwen3_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 10's model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    print("[11] internvl2-26b path: full width, all 48 layers, through Model", flush=True)
+    internvl_launches = phase_frontend("internvl2-26b", get_config("internvl2-26b"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 11's model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    print("[12] musicgen-large path: full width, all 48 layers, through Model", flush=True)
+    musicgen_launches = phase_frontend("musicgen-large", get_config("musicgen-large"))
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
-             "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches}
-    own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse"}
+             "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches,
+             "qwen3_fp8": qwen3_fp8_launches, "internvl2": internvl_launches,
+             "musicgen": musicgen_launches}
+    own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse",
+           "paged_attention_e4m3": "qwen3_fp8"}
     for r in rows:
         r["launches"] = paths[own.get(r["name"], "llama")][r["name"]]
-        r["launches_by_path"] = {p: n[r["name"]] for p, n in paths.items()}
+        r["launches_by_path"] = {p: n.get(r["name"], 0) for p, n in paths.items()}
     print(f"done in {time.perf_counter() - t_all:.1f} s", flush=True)
 
     smi = subprocess.run(

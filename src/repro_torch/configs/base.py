@@ -106,3 +106,29 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         """Vocab rounded up to a multiple of 8, as the JAX tree pads it at tp=1."""
         return -(-self.vocab_size // 8) * 8
+
+
+@dataclass(frozen=True)
+class ShapeConfig:
+    """A shape cell (``repro/configs/base.py:205-213``)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+@dataclass(frozen=True)
+class RuntimeConfig:
+    """The fields of ``repro.configs.base.RuntimeConfig`` that the port reads
+    (``:240-258``): knobs that change execution, not the model's math.
+    ``kernel_mode`` takes the port's modes (``kernels/ops.py``: "auto",
+    "kernel", "ref") where JAX's are "auto", "pallas" and "jnp"."""
+
+    kernel_mode: str = "auto"
+    moe_dispatch: str = "einsum"  # einsum | ragged | a2a (ragged on one device)
+    use_fp8_kv: bool = False  # attention K/V caches in float8_e4m3fn

@@ -2,9 +2,10 @@
 
 ``params_from_numpy`` takes the tree of a JAX ``Model.init`` with every leaf
 already turned into a numpy array (``jax.tree.map(np.asarray, params)``)
-and returns the port's tree of tensors. bfloat16 arrives as the
-``ml_dtypes`` type, which torch cannot read directly; its bits move as
-uint16 and are viewed as ``torch.bfloat16`` again, so no value is rounded.
+and returns the port's tree of tensors. bfloat16 and float8_e4m3fn (an fp8
+KV cache) arrive as ``ml_dtypes`` types, which torch cannot read directly;
+their bits move as uint16 or uint8 and are viewed as ``torch.bfloat16`` or
+``torch.float8_e4m3fn`` again, so no value is rounded.
 """
 
 from __future__ import annotations
@@ -16,10 +17,16 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.model import param_shapes
 
 
+# ml_dtypes' name -> (the integer type its bits move as, the torch dtype)
+_VIEWED = {"bfloat16": (np.uint16, torch.bfloat16),
+           "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn)}
+
+
 def tensor_from_numpy(arr: np.ndarray, device) -> torch.Tensor:
     arr = np.array(arr)  # an owned, writable, contiguous copy
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(device)
+    if arr.dtype.name in _VIEWED:
+        bits, dtype = _VIEWED[arr.dtype.name]
+        return torch.from_numpy(arr.view(bits)).view(dtype).to(device)
     return torch.from_numpy(arr).to(device)
 
 

@@ -7,7 +7,8 @@ reference's Beluga (fused kernel, direct) vs MoonCake RDMA (bounce buffer
 and sglist splitting) latencies, MODELED by the port's copy of the paper's
 fabric model (``core/transfer.py``). On the card the twin also times the
 port's ``kv_gather_write`` and ``kv_scatter_read`` on one block of each
-bf16 layout a call, cycling over 32 blocks so that each is cold in L2
+layout a call (bf16, and e4m3 for ``qwen3-32b-fp8``, cast as the fp8 KV
+cache casts), cycling over 32 blocks so that each is cold in L2
 (``.device`` rows), and checks that ``kv_gather_write`` packs
 every fragment of a batch in one launch (``exp09.kernel_single_launch``).
 
@@ -32,6 +33,7 @@ from repro_torch.experiments.common import (
 )
 from repro_torch.kernels import kv_transfer as kvk
 from repro_torch.kernels import ops
+from repro_torch.models.attention import to_e4m3
 
 LAYOUTS = [("qwen3-32b", "qwen3-32b", 2), ("llama3.1-8b", "llama3.1-8b", 2),
            ("qwen3-32b-fp8", "qwen3-32b", 1)]  # (name, arch, dtype bytes)
@@ -60,17 +62,20 @@ def modeled_rows() -> list[tuple]:
     return rows
 
 
-def block_rows(arch: str, layout: KVBlockLayout, dev, gen, timed: bool) -> list[tuple]:
+def block_rows(arch: str, layout: KVBlockLayout, dev, gen, timed: bool,
+               dtype_bytes: int = 2) -> list[tuple]:
     """BLOCKS blocks of ``layout`` written from bf16 caches of their tokens
-    and read back by the port's kernels, checked bit for bit; then timed
-    one block a call, cycling over the blocks so that each call finds its
-    block cold in L2."""
+    (e4m3 ones where ``dtype_bytes`` is 1) and read back by the port's
+    kernels, checked bit for bit; then timed one block a call, cycling over
+    the blocks so that each call finds its block cold in L2."""
     L, bt, hkv, hd = layout.n_layers_kv, layout.block_tokens, layout.n_kv_heads, layout.head_dim
-    k = torch.randn((L, BLOCKS * bt, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((L, BLOCKS * bt, hkv, hd), generator=gen, device=dev).to(torch.bfloat16)
+    cast = to_e4m3 if dtype_bytes == 1 else (lambda t: t.to(torch.bfloat16))
+    k = cast(torch.randn((L, BLOCKS * bt, hkv, hd), generator=gen, device=dev))
+    v = cast(torch.randn((L, BLOCKS * bt, hkv, hd), generator=gen, device=dev))
     pool = ops.kv_gather_write(k, v, list(range(BLOCKS)), bt)
     kr, vr = ops.kv_scatter_read(pool, list(range(BLOCKS)), BLOCKS)
-    exact = torch.equal(kr, k) and torch.equal(vr, v)
+    exact = all(torch.equal(a.view(torch.uint8), b.view(torch.uint8)) if dtype_bytes == 1
+                else torch.equal(a, b) for a, b in ((kr, k), (vr, v)))
     calls = {
         "write": lambda i: ops.kv_gather_write(k, v, [i], bt),
         "read": lambda i: ops.kv_scatter_read(pool[i:i + 1], [0], 1),
@@ -93,9 +98,9 @@ def run(device=None, *, reduced: bool = False, seed: int = 0, timed: bool = True
     gen = torch.Generator(device=dev).manual_seed(seed)
     rows = modeled_rows()
     for name, arch, dtype_bytes in LAYOUTS:
-        if dtype_bytes == 2:
-            cfg = reduced_config(arch) if reduced else get_config(arch)
-            rows += block_rows(name, KVBlockLayout.for_model(cfg, BLOCK_TOKENS), dev, gen, timed)
+        cfg = reduced_config(arch) if reduced else get_config(arch)
+        rows += block_rows(name, KVBlockLayout.for_model(cfg, BLOCK_TOKENS), dev, gen, timed,
+                           dtype_bytes)
     # one launch packs every fragment of a batch (the reference's reduced
     # shapes; the plain version on the CPU, which launches nothing)
     L, n_slots, bt, hkv, hd = 4, 8, 16, 2, 32

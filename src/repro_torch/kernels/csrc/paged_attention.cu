@@ -33,6 +33,19 @@
 // products and a few shuffles). float32 (reduced test models): the CUDA
 // cores (paged_attention_kernel), a whole group a CTA too.
 //
+// An fp8 cache (K/V in e4m3, q in float32 or bf16) runs the tensor-core
+// kernel too, with the contract of JAX's decode after _dequant
+// (repro/models/attention.py:221-245): K and V are read as bf16 (every
+// e4m3 value, subnormals and NaN included, is exact in bf16), q * scale is
+// formed in f32 from q and rounded to bf16 once, P is rounded to bf16 for
+// P.V, and the output is in q's dtype. A tile's e4m3 rows arrive by the
+// same 16-byte cp.async as bf16 ones, half the bytes, into the upper half
+// of the warp's bf16 stage; after the wait the warp widens them in place
+// into the swizzled bf16 layout the ldmatrix loads read (K's bf16 rows lie
+// below the raw bytes; V's cover them, so the warp holds V's raw chunks in
+// registers before any lane writes). The float32 CUDA-core kernel never
+// runs for fp8.
+//
 // Design: ONE launch. The grid is (S, hkv, b) and each (row, kv head) is
 // one thread-block cluster of S CTAs. The
 // wrapper picks S from the SM count, the resident CTAs per SM and the
@@ -86,6 +99,8 @@
 #include <cstdint>
 #include <type_traits>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <cooperative_groups.h>
 
@@ -100,6 +115,16 @@ constexpr int kRingBytes = 65536;  // the K/V stages' budget
 constexpr int kMaxCluster = 16;    // splits: one thread-block cluster per (row, kv head)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The C entry's dtype codes: q (and output) type and K/V storage type.
+constexpr int kF32 = 0;       // q, K, V float32: the CUDA-core kernel
+constexpr int kBf16 = 1;      // q, K, V bf16: the tensor-core kernel
+constexpr int kF32E4m3 = 2;   // q float32, K/V e4m3: the tensor-core kernel
+constexpr int kBf16E4m3 = 3;  // q bf16, K/V e4m3: the tensor-core kernel
+template <int Code> struct Kinds;
+template <> struct Kinds<kBf16> { using Q = __nv_bfloat16; using KV = __nv_bfloat16; };
+template <> struct Kinds<kF32E4m3> { using Q = float; using KV = __nv_fp8_e4m3; };
+template <> struct Kinds<kBf16E4m3> { using Q = __nv_bfloat16; using KV = __nv_fp8_e4m3; };
 
 template <typename T> struct Traits;
 template <> struct Traits<float> {
@@ -604,11 +629,83 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
+// two e4m3 values (the low byte first) as a bf16 pair, exactly
+__device__ __forceinline__ uint32_t widen2(unsigned short two) {
+  const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(two, __NV_E4M3);
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h));
+  return pack2(f.x, f.y);
+}
+// 16 e4m3 values as 16 bf16 in two 16-byte chunks, lo and hi
+__device__ __forceinline__ void widen16(const uint4& raw, __nv_bfloat16* lo,
+                                        __nv_bfloat16* hi) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    o[2 * i] = widen2(static_cast<unsigned short>(w[i] & 0xffffu));
+    o[2 * i + 1] = widen2(static_cast<unsigned short>(w[i] >> 16));
+  }
+  *reinterpret_cast<uint4*>(lo) = make_uint4(o[0], o[1], o[2], o[3]);
+  *reinterpret_cast<uint4*>(hi) = make_uint4(o[4], o[5], o[6], o[7]);
+}
+
+// An fp8 stage's raw rows -> the bf16 stage the ldmatrix loads read. The
+// stage is a bf16 K tile then a bf16 V tile (kTile x D each, chunks
+// swizzled by row); cp.async left the e4m3 K rows, then the e4m3 V rows,
+// unswizzled in the V tile's place. K's bf16 rows lie below every raw
+// byte; V's cover both raw tiles, so each lane holds its V chunks in
+// registers and the warp meets (after all K reads) before any V write.
 template <int D>
+__device__ __forceinline__ void widen_stage(unsigned char* stage, int lane) {
+  constexpr int kRaw = D / 16, kUnits = kTile * kRaw, kPer = (kUnits + 31) / 32;
+  __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(stage);
+  __nv_bfloat16* sv = sk + kTile * D;
+  const unsigned char* rk = stage + kTile * D * 2;
+  const unsigned char* rv = rk + kTile * D;
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int u = lane + 32 * p;
+    if (u < kUnits) {
+      const int j = u / kRaw, c = u % kRaw;
+      widen16(*reinterpret_cast<const uint4*>(rk + j * D + c * 16),
+              sk + j * D + swz<D>(j, 2 * c) * 8, sk + j * D + swz<D>(j, 2 * c + 1) * 8);
+    }
+  }
+  uint4 held[kPer];
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int u = lane + 32 * p;
+    if (u < kUnits) {
+      held[p] = *reinterpret_cast<const uint4*>(rv + (u / kRaw) * D + (u % kRaw) * 16);
+    }
+  }
+  __syncwarp();
+#pragma unroll
+  for (int p = 0; p < kPer; ++p) {
+    const int u = lane + 32 * p;
+    if (u < kUnits) {
+      const int j = u / kRaw, c = u % kRaw;
+      widen16(held[p], sv + j * D + swz<D>(j, 2 * c) * 8, sv + j * D + swz<D>(j, 2 * c + 1) * 8);
+    }
+  }
+}
+
+__device__ __forceinline__ float2 to_f2(const float2& x) { return x; }
+__device__ __forceinline__ float2 to_f2(const __nv_bfloat162& x) {
+  return __bfloat1622float2(x);
+}
+
+// Code: kBf16 (q, K, V bf16), kF32E4m3 or kBf16E4m3 (q float32 or bf16 and
+// the output in q's type; K/V e4m3, widened to bf16 in shared memory)
+template <int Code, int D>
 __global__ void __launch_bounds__(kThreads, 2) paged_mma_kernel(Args args) {
   using Sh = MmaShape<D>;
-  using T = __nv_bfloat16;
+  using T = typename Kinds<Code>::Q;
+  using KV = typename Kinds<Code>::KV;
   using Tr = Traits<T>;
+  constexpr bool kFp8 = sizeof(KV) == 1;
+  using QIn = typename std::conditional<std::is_same<T, float>::value, float2,
+                                        __nv_bfloat162>::type;
   constexpr int G = kMmaHeads, kCpr = Sh::kCpr, kWS = Sh::kWarpStages;
   extern __shared__ __align__(128) unsigned char ring[];  // per warp: kWS x (K tile, V tile)
   __shared__ float s_wm[kWarps][G], s_wl[kWarps][G];
@@ -625,14 +722,14 @@ __global__ void __launch_bounds__(kThreads, 2) paged_mma_kernel(Args args) {
   // q for Q^T's B fragments: k-step ks, head gq, dims 16 ks + 2 tq (+1) and
   // 8 further; heads past the group are zeros
   const T* qrow = static_cast<const T*>(args.q) + ((long long)bi * hq + head0) * D;
-  __nv_bfloat162 qin[Sh::kSteps][2];
+  QIn qin[Sh::kSteps][2];
 #pragma unroll
   for (int ks = 0; ks < Sh::kSteps; ++ks) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      qin[ks][h] = gq < g ? __ldg(reinterpret_cast<const __nv_bfloat162*>(
+      qin[ks][h] = gq < g ? __ldg(reinterpret_cast<const QIn*>(
                                 qrow + gq * D + 16 * ks + 8 * h + 2 * tq))
-                          : __floats2bfloat162_rn(0.f, 0.f);
+                          : QIn{};
     }
   }
   const int ctx = max(0, min(ctx_in, args.max_blocks * bt));
@@ -656,8 +753,8 @@ __global__ void __launch_bounds__(kThreads, 2) paged_mma_kernel(Args args) {
   const int n_tiles =
       active ? (b_hi - 1 - b_lo) * tpb + (last_rows + kTile - 1) / kTile : 0;
 
-  const T* __restrict__ kbase = static_cast<const T*>(args.k);
-  const T* __restrict__ vbase = static_cast<const T*>(args.v);
+  const KV* __restrict__ kbase = static_cast<const KV*>(args.k);
+  const KV* __restrict__ vbase = static_cast<const KV*>(args.v);
   const int* trow = args.table + (long long)bi * args.max_blocks;
   const long long row_stride = (long long)hkv * D;
   const long long head_off = (long long)hk * D;
@@ -668,20 +765,37 @@ __global__ void __launch_bounds__(kThreads, 2) paged_mma_kernel(Args args) {
   auto rows_of = [&](int i) {
     return min(min(kTile, bt - row0_of(i)), ctx - (col_of(i) * bt + row0_of(i)));
   };
-  // tile i's K and V rows into stage st, swizzled, rows past n as zeros
+  // tile i's K and V rows into stage st, rows past n as zeros: bf16 rows
+  // swizzled where ldmatrix reads them, e4m3 rows as they are into the V
+  // tile's place (widen_stage moves them)
   auto stage_tile = [&](int i, int st, int blk) {
     const int n = rows_of(i);
-    T* sk = reinterpret_cast<T*>(my_ring + st * Sh::kStageBytes);
+    unsigned char* stage = my_ring + st * Sh::kStageBytes;
     const long long base =
         (long long)blk * args.block_stride + row0_of(i) * row_stride + head_off;
+    if constexpr (kFp8) {
+      constexpr int kRaw = D / 16;  // 16-byte chunks of an e4m3 row
+      unsigned char* raw = stage + kTile * D * 2;
 #pragma unroll 4
-    for (int u = lane; u < 2 * kTile * kCpr; u += 32) {
-      const int half = u / (kTile * kCpr);  // 0: K, 1: V
-      const int r = u % (kTile * kCpr);
-      const int j = r / kCpr, c = r % kCpr;
-      const long long src = base + (j < n ? j : 0) * row_stride + c * 8;
-      cp_async16(sk + half * kTile * D + j * D + swz<D>(j, c) * 8,
-                 (half ? vbase : kbase) + src, j < n ? 16 : 0);
+      for (int u = lane; u < 2 * kTile * kRaw; u += 32) {
+        const int half = u / (kTile * kRaw);  // 0: K, 1: V
+        const int r = u % (kTile * kRaw);
+        const int j = r / kRaw, c = r % kRaw;
+        const long long src = base + (j < n ? j : 0) * row_stride + c * 16;
+        cp_async16(raw + half * kTile * D + j * D + c * 16, (half ? vbase : kbase) + src,
+                   j < n ? 16 : 0);
+      }
+    } else {
+      __nv_bfloat16* sk = reinterpret_cast<__nv_bfloat16*>(stage);
+#pragma unroll 4
+      for (int u = lane; u < 2 * kTile * kCpr; u += 32) {
+        const int half = u / (kTile * kCpr);  // 0: K, 1: V
+        const int r = u % (kTile * kCpr);
+        const int j = r / kCpr, c = r % kCpr;
+        const long long src = base + (j < n ? j : 0) * row_stride + c * 8;
+        cp_async16(sk + half * kTile * D + j * D + swz<D>(j, c) * 8,
+                   (half ? vbase : kbase) + src, j < n ? 16 : 0);
+      }
     }
   };
   auto block_at = [&](int i) { return max(__ldg(trow + col_of(i)), 0); };
@@ -698,15 +812,16 @@ __global__ void __launch_bounds__(kThreads, 2) paged_mma_kernel(Args args) {
     if (i < n_tiles) stage_tile(i, k, blk[k]);
     cp_async_commit();
   }
-  // Q^T's B fragments: q * scale rounded to bf16 (the contract's rounding
-  // point)
+  // Q^T's B fragments: q * scale, formed in f32 from q as it came (bf16
+  // or float32, never rounded first), rounded to bf16 once (the contract's
+  // rounding point)
   uint32_t qb[Sh::kSteps][2];
 #pragma unroll
   for (int ks = 0; ks < Sh::kSteps; ++ks) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      qb[ks][h] = pack2(__low2float(qin[ks][h]) * args.scale,
-                        __high2float(qin[ks][h]) * args.scale);
+      const float2 f = to_f2(qin[ks][h]);
+      qb[ks][h] = pack2(f.x * args.scale, f.y * args.scale);
     }
   }
 
@@ -730,9 +845,14 @@ __global__ void __launch_bounds__(kThreads, 2) paged_mma_kernel(Args args) {
     const int next_blk = next < n_tiles ? block_at(next) : 0;  // read ahead of the wait
     cp_async_wait<kWS - 1>();
     __syncwarp();
-    const T* sk = reinterpret_cast<const T*>(my_ring + st * Sh::kStageBytes);
-    const T* sv = sk + kTile * D;
     const int n = i < n_tiles ? rows_of(i) : 0;
+    if constexpr (kFp8) {  // warp-uniform n
+      if (n > 0) widen_stage<D>(my_ring + st * Sh::kStageBytes, lane);
+      __syncwarp();
+    }
+    const __nv_bfloat16* sk =
+        reinterpret_cast<const __nv_bfloat16*>(my_ring + st * Sh::kStageBytes);
+    const __nv_bfloat16* sv = sk + kTile * D;
 
     // a warp without a tile this round (n == 0, warp-uniform) skips the
     // products: its stage holds no staged rows, and 0 x NaN is NaN
@@ -811,36 +931,37 @@ __global__ void __launch_bounds__(kThreads, 2) paged_mma_kernel(Args args) {
                           s_act, split, tid);
 }
 
-// The kernel that takes (T, D, G) and its dynamic shared memory: bf16 on the
-// tensor cores, float32 on the CUDA cores; a whole group a CTA in both.
-template <typename T, int D, int G>
+// The kernel that takes (Code, D, G) and its dynamic shared memory: bf16
+// and every e4m3 cache on the tensor cores, float32 on the CUDA cores; a
+// whole group a CTA in both.
+template <int Code, int D, int G>
 struct Kernel {
-  static constexpr bool kMma = std::is_same<T, __nv_bfloat16>::value;
+  static constexpr bool kMma = Code != kF32;
   static void (*fn())(Args) {
     if constexpr (kMma) {
-      return paged_mma_kernel<D>;
+      return paged_mma_kernel<Code, D>;
     } else {
-      return paged_attention_kernel<T, D, G>;
+      return paged_attention_kernel<float, D, G>;
     }
   }
   static constexpr int smem() {
     if constexpr (kMma) {
       return MmaShape<D>::kSmem;
     } else {
-      return Shape<T, D, G>::kSmem;
+      return Shape<float, D, G>::kSmem;
     }
   }
   static constexpr int kSmem = smem();
 };
 
-template <typename T, int D, int G>
+template <int Code, int D, int G>
 cudaError_t prepare() {  // once: the dynamic shared-memory cap, clusters of up to 16
   static cudaError_t err = [] {
-    cudaError_t e = cudaFuncSetAttribute(Kernel<T, D, G>::fn(),
+    cudaError_t e = cudaFuncSetAttribute(Kernel<Code, D, G>::fn(),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Kernel<T, D, G>::kSmem);
+                                         Kernel<Code, D, G>::kSmem);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(Kernel<T, D, G>::fn(),
+    return cudaFuncSetAttribute(Kernel<Code, D, G>::fn(),
                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }();
   return err;
@@ -848,10 +969,10 @@ cudaError_t prepare() {  // once: the dynamic shared-memory cap, clusters of up 
 
 // op 0: launch; op 1: *out = resident CTAs per SM; op 2: *out = dynamic
 // shared memory; op 3: *out = clusters of args.splits CTAs resident at once
-template <typename T, int D, int G>
+template <int Code, int D, int G>
 int run(const Args& args, int op, int* out, cudaStream_t stream) {
-  using K = Kernel<T, D, G>;
-  cudaError_t err = prepare<T, D, G>();
+  using K = Kernel<Code, D, G>;
+  cudaError_t err = prepare<Code, D, G>();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (op == 2) {
     *out = K::kSmem;
@@ -881,42 +1002,48 @@ int run(const Args& args, int op, int* out, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// g: the group. bf16 takes every group in one instantiation; float32 in
-// the least power of two that holds it
-template <typename T, int D>
+// g: the group. The tensor-core kernel takes every group in one
+// instantiation; float32 in the least power of two that holds it
+template <int Code, int D>
 int run_g(const Args& args, int g, int op, int* out, cudaStream_t s) {
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    return run<T, D, kMmaHeads>(args, op, out, s);
+  if constexpr (Code != kF32) {
+    return run<Code, D, kMmaHeads>(args, op, out, s);
   } else {
-    if (g <= 1) return run<T, D, 1>(args, op, out, s);
-    if (g <= 2) return run<T, D, 2>(args, op, out, s);
-    if (g <= 4) return run<T, D, 4>(args, op, out, s);
-    return run<T, D, 8>(args, op, out, s);
+    if (g <= 1) return run<Code, D, 1>(args, op, out, s);
+    if (g <= 2) return run<Code, D, 2>(args, op, out, s);
+    if (g <= 4) return run<Code, D, 4>(args, op, out, s);
+    return run<Code, D, 8>(args, op, out, s);
   }
 }
 
-template <typename T>
+template <int Code>
 int run_d(const Args& args, int d, int g, int op, int* out, cudaStream_t s) {
   switch (d) {
-    case 16: return run_g<T, 16>(args, g, op, out, s);
-    case 32: return run_g<T, 32>(args, g, op, out, s);
-    case 64: return run_g<T, 64>(args, g, op, out, s);
-    case 80: return run_g<T, 80>(args, g, op, out, s);
-    case 128: return run_g<T, 128>(args, g, op, out, s);
+    case 16: return run_g<Code, 16>(args, g, op, out, s);
+    case 32: return run_g<Code, 32>(args, g, op, out, s);
+    case 64: return run_g<Code, 64>(args, g, op, out, s);
+    case 80: return run_g<Code, 80>(args, g, op, out, s);
+    case 128: return run_g<Code, 128>(args, g, op, out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 int dispatch(const Args& args, int dtype, int d, int g, int op, int* out, cudaStream_t s) {
   if (g < 1 || g > 8) return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0) return run_d<float>(args, d, g, op, out, s);
-  if (dtype == 1) return run_d<__nv_bfloat16>(args, d, g, op, out, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (dtype) {
+    case kF32: return run_d<kF32>(args, d, g, op, out, s);
+    case kBf16: return run_d<kBf16>(args, d, g, op, out, s);
+    case kF32E4m3: return run_d<kF32E4m3>(args, d, g, op, out, s);
+    case kBf16E4m3: return run_d<kBf16E4m3>(args, d, g, op, out, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; d in {16, 32, 64, 80, 128}; hq / hkv <= 8.
+// dtype: 0 = float32, 1 = bfloat16 (q, K, V alike); 2 = q float32 and K/V
+// e4m3, 3 = q bfloat16 and K/V e4m3 (the output in q's type); d in {16,
+// 32, 64, 80, 128}; hq / hkv <= 8.
 // block_stride in elements. splits: CTAs per (row, kv head), 1 to 16, one
 // thread-block cluster. Launches ONE kernel on `stream`, allocates nothing;
 // returns a cudaError_t.

@@ -48,10 +48,17 @@ def flash_routes() -> dict[str, int]:
     return dict(_fa.flash_attention.launches_by_route)
 
 
+def paged_kv() -> dict[str, int]:
+    """paged_attention's launches per K/V dtype ("float32", "bfloat16",
+    "float8_e4m3fn": the e4m3 instantiation)."""
+    return dict(_pa.paged_attention.launches_by_kv)
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     _fa.reset_launch_counts()
+    _pa.reset_launch_counts()
 
 
 def flash_attention(q, k, v, *, causal: bool = True, mode: str = "auto"):
@@ -94,9 +101,13 @@ def sparse_kv_gather(kv, token_ids, *, mode: str = "auto"):
 def paged_attention(q, k_blocks, v_blocks, block_table, context_lens, *, mode: str = "auto"):
     """q (b, hq, d) over (n_blocks, bt, hkv, d) K/V blocks -> (b, hq, d).
 
+    K/V in q's dtype, or in ``float8_e4m3fn`` (an fp8 cache) under a
+    float32 or bf16 q: the kernel's e4m3 instantiation on the card, the
+    plain version's fp8 contract on the CPU; any other fp8 type raises.
     The table is one built by ``paged_attention.make_block_table`` on q's
     device, which checked its entries once; it is not checked again here.
     """
+    _pa.kind(q.dtype, k_blocks.dtype)
     if not (isinstance(block_table, torch.Tensor) and block_table.device == q.device
             and block_table.dtype == torch.int32):
         raise ValueError("block_table must be an int32 tensor on q's device, built by "

@@ -32,11 +32,17 @@ builds the kernel and reads the plan) and replayed with new
 
 bfloat16 runs on the tensor cores (mma.sync, the group's up to 8 query
 heads as the products' N), float32 on the CUDA cores; a whole group a CTA
-in both.
+in both. An fp8 cache, K and V in ``float8_e4m3fn`` under a float32 or
+bfloat16 q, runs the tensor-core kernel with its e4m3 instantiation: a
+tile arrives at one byte an element and is widened to bf16 in shared
+memory, q * scale is rounded to bf16 once and the output is in q's dtype,
+as JAX's decode after ``_dequant`` (``ref.paged_attention_ref``).
 
-Takes float32 or bfloat16, head_dim 16, 32, 64, 80 or 128, at most 8 query
-heads per kv head; raises on anything else. Counts its launches in
-``paged_attention.launches``, one per kernel launched.
+Takes (q, K/V) in (float32, float32), (bfloat16, bfloat16), (float32,
+float8_e4m3fn) or (bfloat16, float8_e4m3fn), head_dim 16, 32, 64, 80 or
+128, at most 8 query heads per kv head; raises on anything else (e5m2
+included). Counts its launches in ``paged_attention.launches``, one per
+kernel launched, and by K/V dtype in ``paged_attention.launches_by_kv``.
 """
 
 from __future__ import annotations
@@ -59,7 +65,11 @@ SIGNATURES = {
     "paged_attention_smem": ([_I, _I, _I, ctypes.POINTER(_I)], ctypes.c_int),
     "paged_attention_max_clusters": ([_I, _I, _I, _I, ctypes.POINTER(_I)], ctypes.c_int),
 }
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# (q dtype, K/V dtype) -> the C entry's dtype code (csrc/paged_attention.cu)
+KINDS = {(torch.float32, torch.float32): 0, (torch.bfloat16, torch.bfloat16): 1,
+         (torch.float32, torch.float8_e4m3fn): 2, (torch.bfloat16, torch.float8_e4m3fn): 3}
+KV_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
+            torch.float8_e4m3fn: "float8_e4m3fn"}
 HEAD_DIMS = (16, 32, 64, 80, 128)
 MAX_GROUP = 8
 MAX_SPLITS = 16  # the CTAs of one (row, kv head) form one thread-block cluster
@@ -93,44 +103,56 @@ def split_ranges(ctx: int, bt: int, splits: int) -> list[tuple[int, int]]:
     return [(s * nb // active, (s + 1) * nb // active) for s in range(active)]
 
 
+def kind(dtype: torch.dtype, kv_dtype: torch.dtype | None = None) -> int:
+    """The kernel's dtype code for a q of ``dtype`` over K/V of ``kv_dtype``
+    (default: the same); raises on a pair no kernel takes."""
+    pair = (dtype, kv_dtype or dtype)
+    if pair not in KINDS:
+        raise ValueError(f"paged_attention takes (q, K/V) dtypes {list(KINDS)}, not {pair}")
+    return KINDS[pair]
+
+
 @functools.lru_cache(maxsize=None)
-def ctas_per_sm(device: torch.device, dtype: torch.dtype, d: int, g: int) -> int:
-    """Resident CTAs per SM of the kernel that takes (dtype, d, group), from
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
-    return _query(device, "paged_attention_ctas_per_sm", dtype, d, g)
+def ctas_per_sm(device: torch.device, dtype: torch.dtype, d: int, g: int,
+                kv_dtype: torch.dtype | None = None) -> int:
+    """Resident CTAs per SM of the kernel that takes (q dtype, K/V dtype, d,
+    group), from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    return _query(device, "paged_attention_ctas_per_sm", kind(dtype, kv_dtype), d, g)
 
 
 @functools.lru_cache(maxsize=None)
 def clusters_resident(device: torch.device, dtype: torch.dtype, d: int, g: int,
-                      splits: int) -> int:
+                      splits: int, kv_dtype: torch.dtype | None = None) -> int:
     """Clusters of ``splits`` CTAs of that kernel resident at once, from
     ``cudaOccupancyMaxActiveClusters``."""
-    return _query(device, "paged_attention_max_clusters", dtype, d, g, splits)
+    return _query(device, "paged_attention_max_clusters", kind(dtype, kv_dtype), d, g, splits)
 
 
-def ring_bytes(device: torch.device, dtype: torch.dtype, d: int, g: int) -> int:
+def ring_bytes(device: torch.device, dtype: torch.dtype, d: int, g: int,
+               kv_dtype: torch.dtype | None = None) -> int:
     """Dynamic shared memory (the K/V stages) of that kernel, in bytes."""
-    return _query(device, "paged_attention_smem", dtype, d, g)
+    return _query(device, "paged_attention_smem", kind(dtype, kv_dtype), d, g)
 
 
-def _query(device, fn: str, dtype, d: int, g: int, *more: int) -> int:
+def _query(device, fn: str, code: int, d: int, g: int, *more: int) -> int:
     lib = build.load("paged_attention", SIGNATURES)
     out = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = getattr(lib, fn)(_DTYPES[dtype], d, g, *more, ctypes.byref(out))
+        rc = getattr(lib, fn)(code, d, g, *more, ctypes.byref(out))
     if rc or out.value < 1:
-        raise RuntimeError(f"{fn}({dtype}, d {d}, group {g}, {more}) failed: "
+        raise RuntimeError(f"{fn}(dtype code {code}, d {d}, group {g}, {more}) failed: "
                            f"cudaError_t {rc}, got {out.value}")
     return out.value
 
 
 @functools.lru_cache(maxsize=None)
 def plan(device: torch.device, dtype: torch.dtype, d: int, g: int, b: int, hkv: int,
-         max_blocks: int) -> tuple[int, int]:
-    """(splits, CTAs per SM) of a call on ``device``; read once per shape."""
-    per_sm = ctas_per_sm(device, dtype, d, g)
+         max_blocks: int, kv_dtype: torch.dtype | None = None) -> tuple[int, int]:
+    """(splits, CTAs per SM) of a call on ``device``, sized for the
+    instantiation that takes (q dtype, K/V dtype); read once per shape."""
+    per_sm = ctas_per_sm(device, dtype, d, g, kv_dtype)
     splits = plan_splits(build.sm_count(device), per_sm, b, hkv, max_blocks,
-                         lambda s: clusters_resident(device, dtype, d, g, s))
+                         lambda s: clusters_resident(device, dtype, d, g, s, kv_dtype))
     return splits, per_sm
 
 
@@ -168,8 +190,7 @@ def paged_attention(
     block_table: torch.Tensor,  # (b, max_blocks) int32 on the card
     context_lens: torch.Tensor,  # (b,) int32 on the card
 ) -> torch.Tensor:
-    if q.dtype not in _DTYPES:
-        raise ValueError(f"paged_attention takes float32 or bfloat16, not {q.dtype}")
+    code = kind(q.dtype, k_blocks.dtype)
     for t in (q, k_blocks, v_blocks, block_table, context_lens):
         if t.device != q.device or t.device.type != "cuda":
             raise ValueError("paged_attention takes tensors on the card, all on one device")
@@ -182,11 +203,11 @@ def paged_attention(
     if v_blocks.shape != k_blocks.shape or k_blocks.shape[3] != d:
         raise ValueError(f"bad shapes q {q.shape}, k {k_blocks.shape}, v {v_blocks.shape}")
     inner = (hkv * d, d, 1)
-    if (k_blocks.dtype != q.dtype or v_blocks.dtype != q.dtype or not q.is_contiguous()
+    if (v_blocks.dtype != k_blocks.dtype or not q.is_contiguous()
             or k_blocks.stride()[1:] != inner or v_blocks.stride() != k_blocks.stride()):
-        raise ValueError("k/v blocks must share q's dtype and one block stride, "
+        raise ValueError("k/v blocks must share one dtype and one block stride, "
                          "each block contiguous; q contiguous")
-    item = q.element_size()
+    item = k_blocks.element_size()
     if (k_blocks.data_ptr() | v_blocks.data_ptr()) % 16 or k_blocks.stride(0) * item % 16:
         raise ValueError("k/v blocks must be 16-byte aligned, as must the block stride")
     if q.data_ptr() % 16:
@@ -201,19 +222,25 @@ def paged_attention(
         return out
     max_blocks = block_table.shape[1]
     g = hq // hkv
-    splits, _ = plan(q.device, q.dtype, d, g, b, hkv, max_blocks)
+    splits, _ = plan(q.device, q.dtype, d, g, b, hkv, max_blocks, k_blocks.dtype)
     lib = build.load("paged_attention", SIGNATURES)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.paged_attention_fwd(
             q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(), k_blocks.stride(0),
             block_table.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            _DTYPES[q.dtype], b, hq, hkv, d, bt, max_blocks, splits, 1.0 / math.sqrt(d), stream,
+            code, b, hq, hkv, d, bt, max_blocks, splits, 1.0 / math.sqrt(d), stream,
         )
     if rc:
         raise RuntimeError(f"paged_attention launch failed: cudaError_t {rc}")
     paged_attention.launches += 1
+    paged_attention.launches_by_kv[KV_NAMES[k_blocks.dtype]] += 1
     return out
 
 
-paged_attention.launches = 0
+def reset_launch_counts() -> None:
+    paged_attention.launches = 0
+    paged_attention.launches_by_kv = dict.fromkeys(KV_NAMES.values(), 0)
+
+
+reset_launch_counts()

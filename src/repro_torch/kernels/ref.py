@@ -15,6 +15,15 @@ import torch
 NEG_INF = -1e30
 
 
+def dequant(kv: torch.Tensor) -> torch.Tensor:
+    """An fp8 cache dequantized to bf16 at the attention boundary (JAX's
+    ``_dequant``, ``repro/models/attention.py:352-357``); every e4m3 value,
+    NaN included, is exact in bf16. Other dtypes pass."""
+    if kv.dtype in (torch.float8_e4m3fn, torch.float8_e5m2):
+        return kv.to(torch.bfloat16)
+    return kv
+
+
 def flash_attention_ref(
     q: torch.Tensor,  # (b, sq, hq, d)
     k: torch.Tensor,  # (b, skv, hkv, d)
@@ -87,21 +96,33 @@ def paged_attention_ref(
     row with ``context_lens == 0`` gives zeros, as the Pallas kernel does
     (``paged_attention.py:79-82``); the oracle averages the clamped table's
     rows instead.
+
+    K/V in ``float8_e4m3fn`` (an fp8 cache) follow JAX's decode after
+    ``_dequant`` (``repro/models/attention.py:221-245``) for a q of any
+    dtype: K and V in bf16, q * scale formed in q's dtype and rounded to
+    bf16 once, P rounded to bf16 before P.V; f32 accumulation, the output
+    in q's dtype.
     """
     b, hq, d = q.shape
     _, bt, hkv, _ = k_blocks.shape
     max_blocks = block_table.shape[1]
     g = hq // hkv
     scale = 1.0 / math.sqrt(d)
+    fp8 = k_blocks.dtype == torch.float8_e4m3fn
+    k_blocks, v_blocks = dequant(k_blocks), dequant(v_blocks)
     tbl = block_table.clamp(min=0).long()
     k = k_blocks[tbl].reshape(b, max_blocks * bt, hkv, d)
     v = v_blocks[tbl].reshape(b, max_blocks * bt, hkv, d)
     pos = torch.arange(max_blocks * bt, device=q.device)
     valid = pos[None, :] < context_lens.reshape(-1, 1).to(q.device)
     qg = (q * scale).reshape(b, hkv, g, d)  # rounded to q's dtype, as in JAX
+    if fp8:
+        qg = qg.to(torch.bfloat16)
     s = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k.float())
     s = s.masked_fill(~valid[:, None, None, :], NEG_INF)
     p = torch.softmax(s, dim=-1)
+    if fp8:
+        p = p.to(torch.bfloat16).float()
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
     o = o.masked_fill((context_lens.to(q.device) <= 0).reshape(b, 1, 1, 1), 0.0)
     return o.reshape(b, hq, d).to(q.dtype)

@@ -1,10 +1,15 @@
-"""Attention: projections and GQA decode.
+"""Attention: projections, GQA decode and the fp8 KV cache's casts.
 
 Twin of ``repro/models/attention.py`` for one device. Prefill attention is
 ``ops.flash_attention`` (the CUDA kernel on the card), called from
 ``transformer.forward_full`` where the JAX model calls its jnp chunked
 flash; decode attention stays plain PyTorch, as JAX computes it outside
 any Pallas kernel.
+
+An fp8 cache (``RuntimeConfig.use_fp8_kv``) holds K and V as
+``float8_e4m3fn``: they are cast on the way in (``to_cache_dtype``) and
+dequantized to bf16 at the attention boundary (``kernels.ref.dequant``),
+as JAX does.
 """
 
 from __future__ import annotations
@@ -14,9 +19,34 @@ import math
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.ref import dequant
 from repro_torch.models.layers import apply_rope
 
 NEG_INF = -1e30
+FP8_KV = torch.float8_e4m3fn
+# the largest finite e4m3 is 448 = 1.75 * 2**8; the next step, 480, is the
+# NaN encoding, so a value rounds to 448 up to the midpoint 464 (a tie goes
+# to 448, whose mantissa is even) and to NaN past it
+_E4M3_ROUNDS_TO_NAN = 464.0
+
+
+def to_e4m3(x: torch.Tensor) -> torch.Tensor:
+    """``x.astype(jnp.float8_e4m3fn)`` bit for bit: round to nearest even,
+    and NaN of x's sign where |x| rounds past 448 (infinities included).
+    ``Tensor.to(torch.float8_e4m3fn)`` saturates those to +-448 instead."""
+    y = x.to(FP8_KV)
+    over = x.abs() > _E4M3_ROUNDS_TO_NAN
+    bits = y.view(torch.uint8)
+    return torch.where(over, bits | 0x7F, bits).view(FP8_KV)
+
+
+def to_cache_dtype(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """New K or V cast to a cache's dtype, as ``jnp.astype`` would."""
+    if dtype == FP8_KV:
+        return to_e4m3(x)
+    if dtype.itemsize == 1 and dtype.is_floating_point:
+        raise ValueError(f"an fp8 KV cache is {FP8_KV}, not {dtype}")
+    return x.to(dtype)
 
 
 def qkv_proj(p: dict, x: torch.Tensor, cfg: ModelConfig, rope):
@@ -53,6 +83,7 @@ def decode_attention_replicated(
 ) -> torch.Tensor:
     """One query token against the whole cache, positions >= cache_len masked."""
     b, _, hq, d = q.shape
+    k_cache, v_cache = dequant(k_cache), dequant(v_cache)
     hkv = k_cache.shape[2]
     n_rep = hq // hkv
     # q in the cache dtype, products accumulated in f32 (JAX's
@@ -75,7 +106,13 @@ def update_kv_cache(
     pos: torch.Tensor,  # (b,) write positions
 ) -> None:
     """Write one new token per sequence at its position, in place (JAX
-    returns new arrays; the port updates the cache it owns)."""
+    returns new arrays; the port updates the cache it owns). New K and V are
+    cast to the cache's dtype (``to_cache_dtype``: e4m3 as JAX casts it)."""
     bidx = torch.arange(k_cache.shape[0], device=k_cache.device)
-    k_cache[bidx, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[bidx, pos] = v_new[:, 0].to(v_cache.dtype)
+    for cache, new in ((k_cache, k_new), (v_cache, v_new)):
+        _bits(cache)[bidx, pos] = _bits(to_cache_dtype(new[:, 0], cache.dtype))
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """An fp8 tensor as its bytes, which every indexing op takes."""
+    return t.view(torch.uint8) if t.dtype == FP8_KV else t

@@ -1,9 +1,12 @@
 """Public model API: parameter init, prefill, decode, cache construction.
 
-Twin of ``repro/models/model.py`` for token-input stacks on one device:
-attention with MLPs (llama, olmo, qwen) or with MoE FFNs (arctic,
-llama4-maverick), Mamba-2 (ssm), and the hybrid period of attention,
-Mamba-2, MLP and MoE positions (jamba). The parameter tree has the JAX
+Twin of ``repro/models/model.py`` on one device: attention with MLPs
+(llama, olmo, qwen) or with MoE FFNs (arctic, llama4-maverick), Mamba-2
+(ssm), the hybrid period of attention, Mamba-2, MLP and MoE positions
+(jamba), and the stub frontends, which take precomputed audio frame
+embeddings (musicgen) or vision patch embeddings before the text tokens
+(internvl2). With ``RuntimeConfig.use_fp8_kv`` the attention caches hold
+K and V in ``float8_e4m3fn``. The parameter tree has the JAX
 package's names, shapes, layouts and leaf dtypes (``param_shapes``), so
 weights converted from a JAX ``Model.init`` tree are used as they are, and
 ``init_params`` follows the JAX init rules: normal(0, 1) * 0.02 drawn in
@@ -13,15 +16,19 @@ zeros, and the SSM's ``A_log`` and ``dt_bias`` rules.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RuntimeConfig, ShapeConfig
 from repro_torch.models import transformer as stack_lib
+from repro_torch.models.attention import FP8_KV
 from repro_torch.models.layers import embed_apply, mlp_param_shapes, norm_apply, unembed_apply
 from repro_torch.models.mamba import mamba_param_shapes, ssm_dims
 from repro_torch.models.moe import DISPATCHES, moe_param_shapes
 
 INIT_SCALE = 0.02
+FRONTENDS = ("none", "audio_stub", "vision_stub")
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -127,40 +134,67 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
 class Model:
     """Prefill / decode over a parameter tree for one config: a period-1
     stack of attention layers (with MLP or MoE FFNs) or of Mamba-2 layers,
-    or a hybrid period (Jamba).
+    or a hybrid period (Jamba), with token inputs or a stub frontend.
 
-    ``moe_dispatch`` is ``RuntimeConfig.moe_dispatch`` (``"einsum"``, the
-    default, ``"ragged"`` or ``"a2a"``); on one device ``"a2a"`` runs the
-    ragged dispatch, as JAX does without a mesh (``models/moe.py``).
+    ``runtime`` is the port's ``RuntimeConfig``: ``kernel_mode`` (the
+    dispatcher's mode, ``kernels/ops.py``), ``moe_dispatch`` (``"einsum"``,
+    the default, ``"ragged"`` or ``"a2a"``; on one device ``"a2a"`` runs the
+    ragged dispatch, as JAX does without a mesh) and ``use_fp8_kv``. The
+    keywords ``kernel_mode`` and ``moe_dispatch``, where given, replace
+    those fields.
     """
 
-    def __init__(self, cfg: ModelConfig, kernel_mode: str = "auto",
-                 moe_dispatch: str = "einsum"):
+    def __init__(self, cfg: ModelConfig, kernel_mode: str | None = None,
+                 moe_dispatch: str | None = None, runtime: RuntimeConfig | None = None):
+        given = {"kernel_mode": kernel_mode, "moe_dispatch": moe_dispatch}
+        runtime = dataclasses.replace(runtime or RuntimeConfig(),
+                                      **{k: v for k, v in given.items() if v is not None})
         if cfg.family != "ssm" and cfg.n_heads == 0:
             raise ValueError(f"{cfg.name}: an attention stack without heads")
-        if cfg.frontend != "none":
-            raise ValueError(f"{cfg.name}: the port takes token inputs only")
-        if moe_dispatch not in DISPATCHES:
-            raise ValueError(f"moe_dispatch {moe_dispatch!r} not in {DISPATCHES}")
+        if cfg.frontend not in FRONTENDS:
+            raise ValueError(f"{cfg.name}: frontend {cfg.frontend!r} not in {FRONTENDS}")
+        if runtime.moe_dispatch not in DISPATCHES:
+            raise ValueError(f"moe_dispatch {runtime.moe_dispatch!r} not in {DISPATCHES}")
         self.cfg = cfg
-        self.kernel_mode = kernel_mode
-        self.moe_dispatch = moe_dispatch
+        self.runtime = runtime
+        self.kernel_mode = runtime.kernel_mode
+        self.moe_dispatch = runtime.moe_dispatch
         self.kinds = stack_lib.layer_kinds(cfg)
         # identity block tables of the dense decode caches, built once per
         # (batch, max_len, device) and checked then, never re-checked per
         # step; every attention position of a hybrid shares its table
         self._block_tables: dict[tuple, torch.Tensor] = {}
 
-    def prefill_fn(self, params: dict, tokens: torch.Tensor, max_len: int | None = None,
+    def embed(self, params: dict, batch: dict) -> tuple[torch.Tensor, torch.Tensor]:
+        """(x (b, s, d), positions (b, s)) of a batch (``model.py:64-77``):
+        ``frame_embeds`` cast to the model dtype (audio), ``patch_embeds``
+        before the text tokens' embeddings (vision), else the tokens'
+        embeddings; positions run over the whole sequence."""
+        cfg = self.cfg
+        dtype = torch_dtype(cfg.dtype)
+        if cfg.frontend == "audio_stub":
+            x = batch["frame_embeds"].to(dtype)
+        elif cfg.frontend == "vision_stub":
+            x = torch.cat([batch["patch_embeds"].to(dtype),
+                           embed_apply(params["embed"], batch["tokens"])], dim=1)
+        else:
+            x = embed_apply(params["embed"], batch["tokens"])
+        b, s = x.shape[:2]
+        return x, torch.arange(s, device=x.device).expand(b, s)
+
+    def prefill_fn(self, params: dict, batch, max_len: int | None = None,
                    aux: list | None = None):
-        """tokens (b, s) -> (last-position logits (b, 1, V) f32, decode cache):
-        the (k, v) pair of an attention stack, the SSM dict of an SSM stack,
-        the per-position tree of a hybrid (``init_cache``). ``aux``, if
-        given, receives each MoE layer's aux dict (``moe.moe_apply``)."""
-        b, s = tokens.shape
-        x = embed_apply(params["embed"], tokens)
-        positions = torch.arange(s, device=tokens.device).expand(b, s)
-        cache = self.init_cache(b, max_len if max_len is not None else s, tokens.device)
+        """batch (JAX's dict: ``tokens``, ``frame_embeds``, ``patch_embeds``;
+        a bare (b, s) token tensor is read as ``{"tokens": tokens}``) ->
+        (last-position logits (b, 1, V) f32, decode cache): the (k, v) pair
+        of an attention stack, the SSM dict of an SSM stack, the
+        per-position tree of a hybrid (``init_cache``). ``aux``, if given,
+        receives each MoE layer's aux dict (``moe.moe_apply``)."""
+        if isinstance(batch, torch.Tensor):
+            batch = {"tokens": batch}
+        x, positions = self.embed(params, batch)
+        b, s = positions.shape
+        cache = self.init_cache(b, max_len if max_len is not None else s, x.device)
         h = stack_lib.forward_full(params, x, positions, self.cfg, self.kernel_mode, cache,
                                    self.moe_dispatch, aux)
         h = norm_apply(params["final_ln"], h, self.cfg)
@@ -169,7 +203,9 @@ class Model:
     def decode_fn(self, params: dict, cache, tokens: torch.Tensor, pos: torch.Tensor,
                   aux: list | None = None):
         """tokens, pos (b,) -> logits (b, V) f32; updates ``cache`` in place.
-        ``aux`` as in ``prefill_fn``."""
+        Both frontends decode from token embeddings (``model.py:147-150``);
+        after a vision prefill ``pos`` counts the patches too. ``aux`` as in
+        ``prefill_fn``."""
         x = embed_apply(params["embed"], tokens[:, None])
         table = None
         attn = [c for c, kind in zip(stack_lib.position_caches(cache, self.kinds), self.kinds)
@@ -187,20 +223,23 @@ class Model:
 
     def init_cache(self, batch: int, max_len: int, device):
         """Zeros. Per position, {"k", "v"} (n_periods, b, max_len, hkv, hd)
-        in the model dtype at attention, {"state" (n_periods, b, nh, n, hp)
-        f32, "conv" (n_periods, b, d_conv - 1, conv_dim) in the model dtype}
-        at SSM positions (``repro/models/transformer.py:116-160``). A period-1
-        attention stack returns its position's (k, v) pair, a period-1 SSM
-        stack its dict; a hybrid the tree {"pos_<i>": ...}."""
+        in the model dtype, or in ``float8_e4m3fn`` with ``use_fp8_kv``, at
+        attention, {"state" (n_periods, b, nh, n, hp) f32, "conv"
+        (n_periods, b, d_conv - 1, conv_dim) in the model dtype} at SSM
+        positions (``repro/models/transformer.py:116-160``,
+        ``model.py:164-168``). A period-1 attention stack returns its
+        position's (k, v) pair, a period-1 SSM stack its dict; a hybrid the
+        tree {"pos_<i>": ...}."""
         cfg = self.cfg
         dtype = torch_dtype(cfg.dtype)
+        kv_dtype = FP8_KV if self.runtime.use_fp8_kv else dtype
         n = stack_lib.n_periods(cfg)
 
         def position(kind) -> dict:
             if kind.mixer == "attn":
                 shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-                return {"k": torch.zeros(shape, dtype=dtype, device=device),
-                        "v": torch.zeros(shape, dtype=dtype, device=device)}
+                return {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+                        "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
             _, nh, conv_dim = ssm_dims(cfg)
             ssm = cfg.ssm
             return {
@@ -214,3 +253,24 @@ class Model:
             return {f"pos_{i}": position(kind) for i, kind in enumerate(self.kinds)}
         only = position(self.kinds[0])
         return (only["k"], only["v"]) if self.kinds[0].mixer == "attn" else only
+
+    def input_specs(self, shape: ShapeConfig) -> dict:
+        """The inputs of a shape cell as (shape, dtype) pairs, nothing
+        allocated (``model.py:186-219``, which gives ShapeDtypeStructs)."""
+        cfg = self.cfg
+        b, s = shape.global_batch, shape.seq_len
+        i32, bf16 = torch.int32, torch.bfloat16
+        if shape.kind not in ("train", "prefill"):  # decode
+            return {"tokens": ((b,), i32), "pos": ((b,), i32)}
+        if cfg.frontend == "audio_stub":
+            batch = {"frame_embeds": ((b, s, cfg.d_model), bf16), "labels": ((b, s), i32)}
+        elif cfg.frontend == "vision_stub":
+            npatch = cfg.n_frontend_tokens
+            batch = {"tokens": ((b, s - npatch), i32),
+                     "patch_embeds": ((b, npatch, cfg.d_model), bf16),
+                     "labels": ((b, s - npatch), i32)}
+        else:
+            batch = {"tokens": ((b, s), i32), "labels": ((b, s), i32)}
+        if shape.kind == "prefill":
+            batch.pop("labels")
+        return batch

@@ -15,7 +15,10 @@ The decode cache of a period-1 stack is the (k, v) pair of
 hybrid period (Jamba) has JAX's per-position tree (``cache_specs``):
 ``{"pos_<i>": {"k", "v"}}`` at attention positions and ``{"state",
 "conv"}`` at SSM positions, each with a leading n_periods dimension. Both
-are updated in place.
+are updated in place. K and V are written in the cache's dtype: with an
+fp8 cache, prefill's flash attention still reads the unquantized K and V,
+and decode's paged attention reads the e4m3 blocks (``repro/models/
+transformer.py:170-187``).
 """
 
 from __future__ import annotations
@@ -142,9 +145,10 @@ def forward_full(
                 q, k, v = attn_lib.qkv_proj(lp["attn"], hn, cfg, rope)
                 o = ops.flash_attention(q, k, v, causal=True, mode=kernel_mode)
                 h = h + attn_lib.out_proj(lp["attn"], o)
-                if caches is not None:
-                    caches[j]["k"][i, :, :s] = k
-                    caches[j]["v"][i, :, :s] = v
+                if caches is not None:  # cast to the cache's dtype (e4m3 as JAX casts)
+                    for name, t in (("k", k), ("v", v)):
+                        dst = caches[j][name]
+                        dst[i, :, :s] = attn_lib.to_cache_dtype(t, dst.dtype)
             elif caches is not None:
                 out, state, conv = mamba_lib.mamba_apply(lp["ssm"], hn, cfg, kernel_mode,
                                                          return_state=True)

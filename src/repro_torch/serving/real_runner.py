@@ -32,7 +32,7 @@ from dataclasses import dataclass
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, RuntimeConfig
 from repro_torch.configs.registry import get_config
 from repro_torch.core.index import PrefixIndex
 from repro_torch.core.pool import KVBlockLayout, KVBlockPool
@@ -65,10 +65,29 @@ class RealEngine:
         params: dict | None = None,
         kernel_mode: str = "auto",
         moe_dispatch: str = "einsum",
+        runtime: RuntimeConfig | None = None,
     ) -> "RealEngine":
         """``params`` (e.g. converted from JAX) replaces the seeded init;
-        ``moe_dispatch`` is ``RuntimeConfig.moe_dispatch`` (``models/moe.py``)."""
+        ``moe_dispatch`` is ``RuntimeConfig.moe_dispatch`` (``models/moe.py``).
+        ``runtime``, if given, supplies both instead of the keywords.
+
+        Refused, with a ``ValueError`` that names the cause: a stub frontend
+        (the engine's prompts are tokens; JAX's engine fails there at its
+        first prefill, with a ``KeyError`` for ``frame_embeds`` or
+        ``patch_embeds``) and ``use_fp8_kv`` (the JAX engine fixes its
+        runtime without it, ``repro/serving/real_runner.py:59-61``; serving
+        an fp8 cache through the pool would be a feature JAX lacks). Run
+        either through ``models.model.Model``."""
         cfg = get_config(arch) if isinstance(arch, str) else arch
+        if runtime is not None:
+            kernel_mode, moe_dispatch = runtime.kernel_mode, runtime.moe_dispatch
+        if cfg.frontend != "none":
+            raise ValueError(f"{cfg.name}: RealEngine serves token prompts; frontend "
+                             f"{cfg.frontend!r} runs through models.model.Model")
+        if runtime is not None and runtime.use_fp8_kv:
+            raise ValueError(f"{cfg.name}: RealEngine serves the model dtype's cache, not "
+                             "use_fp8_kv (as the JAX engine); run an fp8 cache through "
+                             "models.model.Model")
         kinds = layer_kinds(cfg)
         if len(kinds) != 1 or kinds[0].mixer != "attn":
             # JAX asserts the same (repro/serving/real_runner.py:56): the pool

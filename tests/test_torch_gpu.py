@@ -927,3 +927,202 @@ def test_flash_wgmma_route_repeats_bit_for_bit_at_head_dim_80(cuda):
     k = _randn(rng, (1, 1024, 8, 80), torch.bfloat16, cuda)
     first = fa.flash_attention(q, k, k)
     assert torch.equal(first, fa.flash_attention(q, k, k))
+
+
+# -- the fp8 KV cache: paged_attention's e4m3 instantiation, the cast helper,
+# the transfer kernels on e4m3 payloads and reduced models on the card.
+# Tolerance 3e-2 for a float32 or bf16 q alike: both sides read bf16 K/V and
+# a bf16 q * scale, and round P to bf16 (the plain version the normalised P,
+# the kernel the tile's unnormalised one), so they differ by bf16 steps.
+FP8_TOL = 3e-2
+FP8_CTXS = [0, 17, 1040]  # one batch: an empty row, a partial block, the main path's
+
+
+def _fp8_rows(rng, dtype, device, ctxs, hq, hkv, d, bt, mb):
+    """_paged_rows with the pool cast to e4m3 as the model's cache is."""
+    from repro_torch.models.attention import to_e4m3
+
+    q, pool, tbl, ctx = _paged_rows(rng, torch.float32, device, ctxs, hq, hkv, d, bt, mb)
+    return q.to(dtype), to_e4m3(pool), tbl, ctx
+
+
+def _fp8_check(q, pool, tbl, ctx):
+    before = dict(pa.paged_attention.launches_by_kv)
+    out = pa.paged_attention(q, pool[:, 0], pool[:, 1], tbl, ctx)
+    want = ref.paged_attention_ref(q, pool[:, 0], pool[:, 1], tbl, ctx)
+    torch.cuda.synchronize()
+    assert out.dtype == q.dtype
+    assert pa.paged_attention.launches_by_kv["float8_e4m3fn"] == before["float8_e4m3fn"] + 1
+    torch.testing.assert_close(out.float(), want.float(), atol=FP8_TOL, rtol=FP8_TOL,
+                               equal_nan=True)
+    return out
+
+
+@pytest.mark.parametrize("g", range(1, 9))
+@pytest.mark.parametrize("d", pa.HEAD_DIMS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_fp8_kernel_matches_plain(cuda, dtype, d, g):
+    """K/V e4m3 under a float32 or bf16 q at every head_dim and group 1-8,
+    contexts {0, 17, 1040} in one batch (the context-0 row all zeros)."""
+    rng = np.random.default_rng(100 * d + g)
+    out = _fp8_check(*_fp8_rows(rng, dtype, cuda, FP8_CTXS, g * 2, 2, d, 16, 66))
+    assert not out[0].any()
+
+
+def test_paged_fp8_kernel_propagates_nan_as_the_plain_version(cuda):
+    """An e4m3 NaN (a K/V value that rounded past 448) inside a row's
+    context: every head of its kv head reads NaN, on both sides; the other
+    rows and kv heads stay finite."""
+    rng = np.random.default_rng(31)
+    q, pool, tbl, ctx = _fp8_rows(rng, torch.bfloat16, cuda, [300, 1040, 64], 16, 2, 128, 16,
+                                  66)
+    bits = pool.view(torch.uint8)
+    bits[int(tbl[1, 3]), 0, 5, 1, 7] = 0x7F  # K of row 1, kv head 1
+    bits[int(tbl[2, 0]), 1, 9, 0, 100] = 0xFF  # V of row 2, kv head 0
+    out = _fp8_check(q, pool, tbl, ctx)
+    nan = torch.isnan(out).reshape(3, 2, 8, 128)
+    assert nan[1, 1].all() and nan[2, 0, :, 100].all()
+    assert not nan[0].any() and not nan[1, 0].any() and not nan[2, 1].any()
+
+
+def test_paged_fp8_kernel_repeats_bit_for_bit(cuda):
+    rng = np.random.default_rng(32)
+    a = _fp8_rows(rng, torch.bfloat16, cuda, [1040], 64, 8, 80, 16, 66)
+    other = _fp8_rows(rng, torch.float32, cuda, [0, 5, 700], 32, 8, 128, 16, 66)
+    first = _fp8_check(*a)
+    _fp8_check(*other)
+    assert torch.equal(first, _fp8_check(*a))
+
+
+def test_paged_fp8_kernel_replays_in_a_cuda_graph(cuda):
+    rng = np.random.default_rng(33)
+    q, pool, tbl, ctx = _fp8_rows(rng, torch.float32, cuda, [1040, 300], 32, 8, 128, 16, 66)
+    k, v = pool[:, 0], pool[:, 1]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        pa.paged_attention(q, k, v, tbl, ctx)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(q, k, v, tbl, ctx)
+    ctx.copy_(torch.tensor([17, 1056], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = ref.paged_attention_ref(q, k, v, tbl, ctx)
+    torch.testing.assert_close(out, want, atol=FP8_TOL, rtol=FP8_TOL)
+    assert torch.equal(out, pa.paged_attention(q, k, v, tbl, ctx))
+
+
+def test_paged_fp8_kernel_refuses_other_pairs(cuda):
+    q = torch.zeros((1, 8, 64), device=cuda)
+    blocks = torch.zeros((2, 16, 1, 64), device=cuda)
+    tbl = pa.make_block_table([[0, 1]], 2, cuda)
+    ctx = torch.ones(1, dtype=torch.int32, device=cuda)
+    for qd, kd in ((torch.float32, torch.float8_e5m2), (torch.bfloat16, torch.float8_e5m2),
+                   (torch.float16, torch.float8_e4m3fn), (torch.float32, torch.bfloat16)):
+        with pytest.raises(ValueError, match="dtypes"):
+            pa.paged_attention(q.to(qd), blocks.to(kd), blocks.to(kd), tbl, ctx)
+
+
+def test_e4m3_cast_on_the_card_equals_the_cpu_bytes(cuda):
+    """to_e4m3 over every bf16 bit pattern and float32 edge cases: the card's
+    cast (another code path than the CPU's) gives the CPU's bytes, which
+    tests/test_torch_fp8.py holds against jnp.astype."""
+    from repro_torch.models.attention import to_e4m3
+
+    bf = torch.arange(-(2**15), 2**15, dtype=torch.int32).to(torch.int16).view(torch.bfloat16)
+    f32 = torch.tensor([464.0, 464.00003, 463.99997, 448.0, 480.0, -464.00003, float("inf"),
+                        -float("inf"), float("nan"), 2.0**-10, 3 * 2.0**-11, 2.0**-9, 1e38,
+                        -0.0, 1e-30])
+    for x in (bf, f32):
+        got = to_e4m3(x.to(cuda)).view(torch.uint8).cpu()
+        assert torch.equal(got, to_e4m3(x).view(torch.uint8))
+
+
+@pytest.mark.parametrize("hd", [16, 80, 128])
+def test_kv_transfer_kernels_bit_exact_on_e4m3(cuda, hd):
+    """gather and scatter move e4m3 payloads as bytes (NaN bytes included)."""
+    from repro_torch.models.attention import to_e4m3
+
+    L, n_slots, bt, hkv = 4, 8, 16, 2
+    gen = torch.Generator(device=cuda).manual_seed(hd)
+    k = to_e4m3(torch.randn((L, n_slots * bt, hkv, hd), generator=gen, device=cuda) * 200)
+    v = to_e4m3(torch.randn((L, n_slots * bt, hkv, hd), generator=gen, device=cuda) * 200)
+    slots = [5, 1, 6]
+    blocks = kv.kv_gather_write(k, v, slots, bt)
+    want = ref.kv_gather_write_ref(k, v, torch.tensor(slots, device=cuda), bt)
+    assert torch.equal(blocks.view(torch.uint8), want.view(torch.uint8))
+    kr, vr = kv.kv_scatter_read(blocks, [0, 3, 7], n_slots)
+    k0 = torch.zeros_like(k)
+    kw, vw = ref.kv_scatter_read_ref(blocks, torch.tensor([0, 3, 7], device=cuda), k0, k0, bt)
+    assert torch.equal(kr.view(torch.uint8), kw.view(torch.uint8))
+    assert torch.equal(vr.view(torch.uint8), vw.view(torch.uint8))
+
+
+# card vs CPU logits of a reduced float32 model decoding from an fp8 cache:
+# both decode attentions round P to bf16 (JAX's contract), the kernel a
+# tile's unnormalised P and the plain version the normalised one, so the
+# logits differ by such roundings (3e-4 to 5e-4 in the first readings, where
+# the bf16-cache models stay under 1e-6); prefill runs no fp8 attention
+FP8_MODEL_TOL = 2e-3
+
+
+def _e4m3_neighbours(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Bytes of two e4m3 tensors that differ; raises unless each such pair
+    is at most one rounding step apart on the e4m3 number line (-0 and +0
+    one point: a value near zero rounds to either)."""
+    def ordinal(t):
+        x = t.view(torch.uint8).cpu().int()
+        return torch.where(x >= 0x80, -(x & 0x7F), x)
+
+    assert ((ordinal(a) - ordinal(b)).abs() <= 1).all()
+    return int((a.view(torch.uint8).cpu() != b.view(torch.uint8).cpu()).sum())
+
+
+@pytest.mark.parametrize("arch", ["musicgen-large", "internvl2-26b", "llama3.1-8b"])
+def test_reduced_frontend_and_fp8_models_card_match_cpu(cuda, arch):
+    """Reduced musicgen-large and internvl2-26b (float32 caches)
+    and llama3.1-8b with an fp8 cache, float32: prefill and 6 decode steps
+    on the card against the CPU, logits within 1e-4 (fp8: FP8_MODEL_TOL);
+    the fp8 prefill caches bit for bit, and the rows decode writes equal or
+    one e4m3 step apart (their K/V carry the attention's P roundings)."""
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.model import Model, init_params
+
+    fp8 = arch == "llama3.1-8b"
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    model = Model(cfg, runtime=RuntimeConfig(use_fp8_kv=fp8))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _to_device(params, cuda)
+    g = torch.Generator().manual_seed(5)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 40), generator=g)}
+    if cfg.frontend == "audio_stub":
+        batch = {"frame_embeds": torch.randn((2, 40, cfg.d_model), generator=g)}
+    elif cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = torch.randn((2, cfg.n_frontend_tokens, cfg.d_model), generator=g)
+    s = 40 + (cfg.n_frontend_tokens if cfg.frontend == "vision_stub" else 0)
+    lc, cc = model.prefill_fn(params, batch, max_len=64)
+    lg, cg = model.prefill_fn(on_card, {k: v.to(cuda) for k, v in batch.items()}, max_len=64)
+    assert (lg.cpu() - lc).abs().max().item() <= 1e-4
+    if fp8:
+        assert cg[0].dtype == torch.float8_e4m3fn
+        for a, b in zip(cc, cg):
+            assert torch.equal(a.view(torch.uint8), b.view(torch.uint8).cpu())
+    diffs = []
+    for step in range(6):
+        tok = torch.full((2,), 3 + step)
+        pos = torch.full((2,), s + step)
+        a = model.decode_fn(params, cc, tok, pos)
+        diffs.append((model.decode_fn(on_card, cg, tok.to(cuda), pos.to(cuda)).cpu() - a)
+                     .abs().max().item())
+    assert max(diffs) <= (FP8_MODEL_TOL if fp8 else 1e-4), diffs
+    if fp8:
+        for a, b in zip(cc, cg):
+            _e4m3_neighbours(a, b)
+
+
+def _to_device(tree, device):
+    return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}
