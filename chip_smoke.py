@@ -17,7 +17,10 @@ Phases, each a hard check (any failure exits non-zero):
    qwen3-32b (d 80) decode runs, from a bf16 or an e4m3 cache, spills or
    the paged library's SASS holds no HMMA and LDSM instruction; then each ssd_chunk instantiation
    (B/C float32, bfloat16) the same way, failing if the bf16 one spills or
-   the ssd_chunk library's SASS holds no tensor-core (HMMA) instruction.
+   the ssd_chunk library's SASS holds no tensor-core (HMMA) instruction;
+   then flash_attention_bwd's three kernels (D, dK/dV, dQ) per dtype with
+   their registers, spills (a spill is printed, a finding for the redesign,
+   not a failure) and dynamic shared memory at d 128 and 80.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it (Llama-3.1-8B: 32 layers, 8 kv heads,
    head_dim 128; 1024-token prompts = 64 pool blocks; max_len 2048; decode
@@ -61,7 +64,16 @@ Phases, each a hard check (any failure exits non-zero):
    dequantized to bf16 (a reference on other inputs); gather and scatter on
    an e4m3 qwen3-32b cache (64 layers), bit for bit. exp10's top-k read is
    also timed over 96 seeded sources in turn (63 MB, above L2) beside its
-   byte bound.
+   byte bound. flash_attention_bwd against flash_attention_bwd_ref at the
+   training path's shape (olmo-1b: b 4, 2048 tokens, 16 heads at d 128,
+   causal, bf16), Llama's group 4 and qwen3-32b's group 8 (d 80) at 1024
+   tokens, in float32, and at every ragged and non-causal shape of
+   FLASH_SHAPES, its gradients within FLASH_TOL (bf16) or F32_GRAD_TOL
+   (float32) of the largest |gradient|; the forward's stored log-sum-exp
+   against flash_attention_lse_ref's on both routes (LSE_TOL); timed against
+   the plain version, its bound (2.5 times the forward's operations at 989
+   TFLOP/s) and the backward of ``scaled_dot_product_attention`` under
+   autograd (timed only).
 3. small: reduced Llama-3.1-8B and Arctic-480B and a narrow qwen3-32b
    (head_dim 80, group 8, d_model 640, 2 layers) in float32 served cold and
    warm on the card (kernels) and on the CPU (plain versions) with the same
@@ -71,7 +83,11 @@ Phases, each a hard check (any failure exits non-zero):
    the per-step logits must agree within 1e-4; the attention prefills' flash
    calls (float32) take the cuda_cores route. Then reduced Llama-3.1-8B
    with an fp8 KV cache, the same: the prefill's e4m3 caches bit for bit,
-   the logits within FP8_SMALL_TOL.
+   the logits within FP8_SMALL_TOL. Then one float32 train step of reduced
+   olmo-1b and Llama-3.1-8B (``make_train_step``, AdamW, remat "full") on the
+   card (the forward kernel with its log-sum-exp twice a layer, the backward
+   kernels once) and on the CPU from the same weights and batch: loss, grad
+   norm, every gradient leaf and the updated weights within SMALL_TOL.
 4. main path: full-width Llama-3.1-8B (random weights from a seed, bf16)
    served through ``RealEngine`` (kernels for tensors on the card): two cold
    prompts, two that hit a 512-token shared prefix, two full repeats. Checks
@@ -157,9 +173,25 @@ Phases, each a hard check (any failure exits non-zero):
 12. musicgen-large: full width (d 2048, 32 / 32 heads at d 64, d_ff 8192,
    gelu, vocabulary 2048), all 48 layers (3.2 B parameters): 1024 seeded
    audio frame embeddings, then 16 decode steps, as phase 11.
+13. training (phase 12's model freed first): olmo-1b at full width and depth
+   (d 2048, 16 / 16 heads at d 128, d_ff 8192, vocabulary 50304, tied
+   embeddings, non-parametric norms, 16 layers, 1.18 B parameters, bf16)
+   through ``Model.loss_fn``, ``make_train_step`` and ``run_train_loop``,
+   remat "full", ``OptimizerConfig()`` (AdamW, bf16 gradient compression),
+   ``SyntheticLM`` batches of 4 x 2048 tokens. (i) one step on the kernel
+   path against the same step with the plain versions (kernel_mode="ref")
+   from the same weights and batch: loss, grad norm, every gradient leaf and
+   the updated weights within the TRAIN_* limits; (ii) 8 steps through
+   ``run_train_loop``: finite losses and grad norms, 32 flash forward
+   launches a step (16 and 16 recomputed, wgmma), 16 of each backward kernel,
+   no pool, paged or SSM kernel; step time, tokens/s, the model-FLOP share
+   of 989 TFLOP/s and peak memory, and a profiled step; (iii) 5 steps on one
+   repeated batch at peak_lr 1e-3 (no warmup): the last loss below the first.
 
 Prints the kernel table as one JSON line (the e4m3 paged instantiation as
-a row of its own, ``paged_attention_e4m3``; each row's launches by path),
+a row of its own, ``paged_attention_e4m3``, and the attention backward as
+``flash_attention_bwd``, its launches from phase 13; each row's launches by
+path),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Without a GPU it exits non-zero before doing anything.
 """
@@ -307,6 +339,40 @@ STATE_TOL_L0, STATE_TOL = 1e-4, 5e-2
 # about 3e-2 already: there continuity is held to twice the floor measured in
 # the same run, which a gross bf16-only fault still crosses
 CONTINUITY_TOL, CONTINUITY_BF16_FLOORS = 1e-4, 2
+# flash_attention_bwd against its plain version on the same inputs, relative
+# to the largest |gradient|: bf16 within FLASH_TOL (the gradients' bf16
+# rounding, 1.2e-3 at the training shape in the first reading); float32
+# within F32_GRAD_TOL (f32 sums in other orders: readings up to 2.5e-6)
+F32_GRAD_TOL = 2e-5
+# the forward's stored log-sum-exp against flash_attention_lse_ref's, absolute
+# on values of 1-10 (f32 sums in other orders: readings up to 9.5e-7)
+LSE_TOL = 1e-5
+# phase 2's backward at the training path's shape (olmo-1b: b 4, 2048
+# tokens, 16 / 16 heads at d 128), Llama's group 4 at d 128, qwen3-32b's
+# group 8 at d 80, and float32: label -> (b, sq, skv, hq, hkv, d, causal, dtype)
+BWD_SHAPES = {"olmo_1b_train": (4, 2048, 2048, 16, 16, 128, True, "bfloat16"),
+              "llama_group4": (1, 1024, 1024, 32, 8, 128, True, "bfloat16"),
+              "qwen3_32b_group8": (1, 1024, 1024, 64, 8, 80, True, "bfloat16"),
+              "llama_group4_f32": (1, 1024, 1024, 32, 8, 128, True, "float32")}
+# phase 13: olmo-1b at full width and depth, trained on SyntheticLM batches
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, OVERFIT_STEPS = 2048, 4, 8, 5
+# phase 13 (i), one AdamW step on the kernel path against the plain path
+# (kernel_mode="ref") from the same weights and batch, bf16 through 16
+# layers (flash rounds P to bf16 for P.V, the plain version does not, and
+# the paths' bf16 roundings of the residual stream compound, as in phases
+# 9-12). Limits set from the first readings (in the comments), a few times
+# above; the inputs are seeded, so a rerun reads the same.
+TRAIN_LOSS_TOL = 5e-4  # |loss difference| at a loss of 11.2 (reading 1.2e-4)
+TRAIN_NORM_TOL = 1e-5  # grad norm, relative (reading 1.3e-6)
+# each gradient leaf, relative to its largest |entry| (reading 4.1e-2)
+TRAIN_GRAD_TOL = 0.1
+# the updated weights, absolute, in units of the step's lr: at step 1 the
+# default schedule's lr is 3e-6, below half a bf16 step of most weights (|w|
+# ~ 0.02 -> 6e-5), so the update moves only weights whose bf16 step is under
+# about 2 lr; AdamW's first update is lr * g / (|g| + eps), so a gradient
+# whose sign differs between the paths moves such a weight 2 lr apart, plus
+# a bf16 step in rounding: 4 lr at most
+TRAIN_PARAM_LRS = 4
 
 
 def check(cond: bool, what: str) -> None:
@@ -860,6 +926,7 @@ def phase_kernels(cfg, mamba_cfg) -> list[dict]:
     rows.append(paged_fp8_row(randn))
     rows.append(ssd_row(mamba_cfg, get_config("jamba-1.5-large-398b"), g))
     rows.append(sparse_row(cfg, qwen_cfg, g))
+    rows.append(bwd_row())
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
@@ -1045,6 +1112,142 @@ def ssd_build_proof(build) -> None:
           f"instructions: {counts}")
 
 
+def bwd_build_proof(build) -> None:
+    """flash_attention_bwd's kernels as ptxas built them: registers and
+    spills of each (kernel, dtype), and the dynamic shared memory of dK/dV
+    and dQ at d 128 and 80. A spill is printed, not failed: this first
+    design is right and simple, and a spill is a finding for its redesign."""
+    import re
+
+    from repro_torch.kernels import flash_attention as fa
+
+    lib = build.load("flash_attention_bwd", fa.BWD_SIGNATURES)
+    log = build.build_log("flash_attention_bwd")
+    for fn, body in re.findall(r"Compiling entry function '(\S*flash_bwd_\w+?_kernel\S*)'"
+                               r"(.*?)(?=Compiling entry function|\Z)", log, flags=re.S):
+        kernel = re.search(r"flash_bwd_(\w+?)_kernel", fn).group(1)
+        dtype = "bfloat16" if "bfloat16" in fn else "float32"
+        regs = re.search(r"Used (\d+) registers", body).group(1)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        smem = {d: lib.flash_attention_bwd_smem({"dkdv": 1, "dq": 2}[kernel], d)
+                for d in (128, 80)} if kernel != "delta" else {}
+        spilled = spill.group(1) != "0" or spill.group(2) != "0"
+        print(f"  flash_attention_bwd {kernel} kernel, {dtype}: {regs} registers, spill "
+              f"stores {spill.group(1)} B / loads {spill.group(2)} B"
+              f"{' (SPILLS)' if spilled else ''}"
+              + (f", dynamic shared memory {smem[128]} B at d 128, {smem[80]} B at d 80"
+                 if smem else ""))
+
+
+def attn_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs attention scores: under the causal mask aligned at
+    position 0, row r sees min(r + 1, skv) keys."""
+    if not causal:
+        return sq * skv
+    n = min(sq, skv)
+    return n * (n + 1) // 2 + max(sq - skv, 0) * skv
+
+
+def bwd_row() -> dict:
+    """flash_attention_bwd against flash_attention_bwd_ref at BWD_SHAPES and
+    at FLASH_SHAPES, timed at each BWD_SHAPES entry against the plain version,
+    its bound and SDPA's backward; the forward's log-sum-exp against the
+    plain one on both routes."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def inputs(b, sq, skv, hq, hkv, d, dtype):
+        return [torch.randn(shape, generator=g, device=dev).to(dtype)
+                for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d), (b, sq, hq, d))]
+
+    def compared(q, k, v, do, causal, label):
+        before = fa.flash_attention_bwd.launches
+        o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+        rel = max(_rel(a, b) for a, b in zip(got, want))
+        err = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        tol = FLASH_TOL if q.dtype == torch.bfloat16 else F32_GRAD_TOL
+        check(fa.flash_attention_bwd.launches == before + 1 and rel <= tol,
+              f"flash_attention_bwd within {tol} of the largest |grad| at {label} "
+              f"(max rel {rel:.3g}, abs {err:.3g})")
+        return o, lse, rel, err
+
+    def lse_check(q, k, v, route_name):
+        _, lse = fa.flash_attention(q, k, v, causal=True, force_route=route_name,
+                                    return_lse=True)
+        _, want = ref.flash_attention_lse_ref(q, k, v, causal=True)
+        e = (lse - want).abs().max().item()
+        check(e <= LSE_TOL, f"flash_attention ({route_name}, {q.dtype}) stores the "
+              f"log-sum-exp within {LSE_TOL} of the plain one at q {tuple(q.shape)} "
+              f"(max |err| {e:.3g})")
+        return e
+
+    shapes, row = {}, None
+    for label, (b, sq, skv, hq, hkv, d, causal, dt) in BWD_SHAPES.items():
+        dtype = getattr(torch, dt)
+        q, k, v, do = inputs(b, sq, skv, hq, hkv, d, dtype)
+        o, lse, rel, err = compared(q, k, v, do, causal, f"{label} q {tuple(q.shape)} {dt}")
+        flops = 2.5 * 4 * hq * d * b * attn_pairs(sq, skv, causal)
+        moved = (3 * q.numel() + 2 * k.numel()) * q.element_size() + lse.numel() * 4 \
+            + (q.numel() + 2 * k.numel()) * q.element_size()
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        dot = do.transpose(1, 2)
+        r = dict(q=list(q.shape), kv=list(k.shape), dtype=dt, max_rel_err=rel, max_abs_err=err,
+                 ms=device_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, causal)),
+                 plain_ms=device_ms(
+                     lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal), iters=5),
+                 bound_ms=max(flops / BF16_FLOP_PER_S, moved / HBM_BYTES_PER_S) * 1e3,
+                 bound_by="operations" if flops / BF16_FLOP_PER_S > moved / HBM_BYTES_PER_S
+                 else "bytes",
+                 library_ms=device_ms(lambda: torch.autograd.grad(
+                     out, (qt, kt, vt), dot, retain_graph=True)))
+        r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+        print(f"  flash_attention_bwd, {label} (q {tuple(q.shape)}, group {hq // hkv}, {dt}): "
+              f"{r['ms']:.4f} ms ({r['tflops']:.2f} TFLOP/s), plain {r['plain_ms']:.4f}, SDPA "
+              f"backward {r['library_ms']:.4f}, bound {r['bound_ms']:.4f} by {r['bound_by']}")
+        if row is None:  # the training path's shape: the row itself, with the forward beside
+            row = dict(
+                name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/attention.py:128",
+                replaces_note="no Pallas backward exists: JAX trains through jax.grad of its "
+                              "jnp chunked flash attention (this line); the forward kernel "
+                              "differentiated is src/repro/kernels/flash_attention.py:135",
+                **{k_: r[k_] for k_ in ("max_abs_err", "max_rel_err", "ms", "plain_ms",
+                                        "bound_ms", "bound_by", "library_ms", "tflops")},
+                fwd_ms=device_ms(lambda: fa.flash_attention(q, k, v, causal=causal)),
+                fwd_lse_ms=device_ms(
+                    lambda: fa.flash_attention(q, k, v, causal=causal, return_lse=True)),
+                lse_err={"wgmma": lse_check(q, k, v, "wgmma"),
+                         "cuda_cores": lse_check(q[:1, :1024], k[:1, :1024], v[:1, :1024],
+                                                 "cuda_cores")},
+            )
+            print(f"  flash_attention forward at {label}: {row['fwd_ms']:.4f} ms, with its "
+                  f"log-sum-exp {row['fwd_lse_ms']:.4f} ms")
+        else:
+            shapes[label] = r
+        if dtype == torch.float32:
+            row["lse_err"]["cuda_cores_f32"] = lse_check(q, k, v, "cuda_cores")
+        del q, k, v, do, o, lse, qt, kt, vt, out, dot
+    rels = []
+    for b, sq, skv, nq, nkv, d, causal in FLASH_SHAPES:
+        q, k, v, do = inputs(b, sq, skv, nq, nkv, d, torch.bfloat16)
+        rels.append(compared(q, k, v, do, causal,
+                             f"b {b}, sq {sq}, skv {skv}, heads {nq}/{nkv}, d {d}, "
+                             f"{'causal' if causal else 'non-causal'}")[2])
+    row["max_rel_err_shapes"] = max(rels)
+    row["shapes"] = shapes
+    return row
+
+
 def phase_small() -> None:
     from repro_torch.configs.registry import get_config
 
@@ -1059,6 +1262,56 @@ def phase_small() -> None:
     small_model("musicgen-large")
     small_model("internvl2-26b")
     small_model("llama3.1-8b", fp8=True)
+    small_train("olmo-1b")
+    small_train("llama3.1-8b")
+
+
+def small_train(arch: str) -> None:
+    """One float32 train step of a reduced stack (``make_train_step``,
+    AdamW, remat "full") on the card and on the CPU from the same weights
+    and SyntheticLM batch: loss, grad norm, every gradient leaf (relative to
+    its largest entry) and the updated weights within SMALL_TOL; on the
+    card, flash's forward kernel twice a layer (the recompute) on the
+    cuda_cores route and the backward kernels once a layer."""
+    import torch
+
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state, tree_leaves
+    from repro_torch.training.train_loop import make_train_step, to_device, value_and_grad
+
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _to(params, "cuda")
+    model = Model(cfg, runtime=RuntimeConfig(remat="full"))
+    batch = next(SyntheticLM(DataConfig(seq_len=70, global_batch=2, vocab_size=cfg.vocab_size)))
+    cpu_b, card_b = to_device(batch, "cpu"), to_device(batch, "cuda")
+    loss_c, _, g_c = value_and_grad(model, params, cpu_b)
+    ops.reset_launch_counts()
+    loss_g, _, g_g = value_and_grad(model, on_card, card_b)
+    torch.cuda.synchronize()
+    launches, routes, bwd = ops.launch_counts(), ops.flash_routes(), ops.bwd_kernels()
+    L = cfg.n_layers
+    check(launches["flash_attention"] == routes["cuda_cores"] == 2 * L
+          and launches["flash_attention_bwd"] == L and set(bwd.values()) == {L},
+          f"reduced fp32 {arch} train step: flash forward {2 * L} (twice a layer), backward "
+          f"{L}, each of its kernels {L}: {launches['flash_attention']}, {routes}, {bwd}")
+    grad_gap = max(_rel(a.cpu(), b) for a, b in zip(tree_leaves(g_g), tree_leaves(g_c)))
+    opt = OptimizerConfig()
+    p_c, _, m_c = make_train_step(model, opt)(params, init_opt_state(opt, params), cpu_b)
+    p_g, _, m_g = make_train_step(model, opt)(on_card, init_opt_state(opt, on_card), card_b)
+    loss_gap = abs(float(m_g["loss"]) - float(m_c["loss"]))
+    norm_gap = abs(float(m_g["grad_norm"]) / float(m_c["grad_norm"]) - 1)
+    param_gap = max((a.cpu() - b).abs().max().item()
+                    for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)))
+    check(max(abs(float(loss_g) - float(loss_c)), grad_gap, loss_gap, norm_gap,
+              param_gap) <= SMALL_TOL,
+          f"reduced fp32 {arch} train step, card vs CPU: loss {loss_gap:.3g}, grad norm "
+          f"(relative) {norm_gap:.3g}, gradient leaves (relative) {grad_gap:.3g}, updated "
+          f"weights {param_gap:.3g}, all <= {SMALL_TOL}")
 
 
 def small_engine(arch: str, cfg=None) -> None:
@@ -2189,6 +2442,155 @@ def profile_model(model, params, prompts, toks, max_len: int | None = None) -> N
     report_profile("decode step", prof.key_averages(), steps, wall_ms, top=6)
 
 
+def phase_train(cfg) -> dict:
+    """olmo-1b at full width and depth trained on the card (module
+    docstring, phase 13); returns the launches of (ii)'s 8 steps."""
+    import math
+
+    import torch
+
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state, tree_leaves
+    from repro_torch.training.train_loop import (TrainLoopConfig, make_train_step,
+                                                 run_train_loop, to_device, value_and_grad)
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    runtime = RuntimeConfig(remat="full")
+    model = Model(cfg, runtime=runtime)
+    plain = Model(cfg, kernel_mode="ref", runtime=runtime)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    L, tokens = cfg.n_layers, TRAIN_BATCH * TRAIN_SEQ
+    print(f"  olmo-1b: {L} layers, d_model {cfg.d_model}, {cfg.n_heads} / {cfg.n_kv_heads} "
+          f"heads at head_dim {cfg.head_dim}, d_ff {cfg.d_ff}, vocabulary {cfg.vocab_size}; "
+          f"{n_params / 1e9:.3f} B parameters up in {time.perf_counter() - t0:.1f} s; batches "
+          f"of {TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    data = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  vocab_size=cfg.vocab_size))
+    opt = OptimizerConfig()
+
+    # (i) one step on the kernel path and on the plain path, same weights and batch
+    batch = to_device(next(data), dev)
+    loss_k, _, g_k = value_and_grad(model, params, batch)
+    loss_p, _, g_p = value_and_grad(plain, params, batch)
+    gaps = sorted(((_rel(a, b), name) for (name, a), b in zip(_named(g_k), tree_leaves(g_p))),
+                  reverse=True)
+    grad_gap = gaps[0][0]
+    print(f"  (i) gradient leaves furthest apart, kernel vs plain (relative to the leaf's largest "
+          f"entry): {[(n, f'{x:.3g}') for x, n in gaps[:4]]}")
+    del g_k, g_p
+    p_k, _, m_k = make_train_step(model, opt)(params, init_opt_state(opt, params), batch)
+    p_k = [t.float() for t in tree_leaves(p_k)]
+    p_p, _, m_p = make_train_step(plain, opt)(params, init_opt_state(opt, params), batch)
+    param_gap = max((a - b.float()).abs().max().item() for a, b in zip(p_k, tree_leaves(p_p)))
+    param_tol = TRAIN_PARAM_LRS * float(m_k["lr"])
+    moved = sum(int((a != b.float()).sum()) for a, b in zip(p_k, tree_leaves(params)))
+    del p_k, p_p
+    loss_gap = abs(float(m_k["loss"]) - float(m_p["loss"]))
+    norm_gap = abs(float(m_k["grad_norm"]) / float(m_p["grad_norm"]) - 1)
+    print(f"  (i) one step, kernel vs plain path: loss {float(m_k['loss']):.6f} vs "
+          f"{float(m_p['loss']):.6f}, grad norm {float(m_k['grad_norm']):.6f} vs "
+          f"{float(m_p['grad_norm']):.6f}; {moved} of {n_params} weights moved by the step "
+          f"(lr {float(m_k['lr']):.3g})")
+    check(abs(float(loss_k) - float(loss_p)) <= TRAIN_LOSS_TOL and loss_gap <= TRAIN_LOSS_TOL,
+          f"(i) loss, kernel vs plain: |diff| {loss_gap:.4g} <= {TRAIN_LOSS_TOL}")
+    check(norm_gap <= TRAIN_NORM_TOL,
+          f"(i) grad norm, kernel vs plain: relative {norm_gap:.4g} <= {TRAIN_NORM_TOL}")
+    check(grad_gap <= TRAIN_GRAD_TOL, f"(i) every gradient leaf, kernel vs plain: relative to "
+          f"its largest entry {grad_gap:.4g} <= {TRAIN_GRAD_TOL}")
+    check(param_gap <= param_tol, f"(i) the updated weights, kernel vs plain: max |diff| "
+          f"{param_gap:.4g} <= {TRAIN_PARAM_LRS} lr = {param_tol:.3g}")
+    del plain
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (ii) TRAIN_STEPS steps through run_train_loop, counted, timed
+    stamps = []
+
+    def on_metrics(step, metrics):
+        stamps.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    stamps.append(time.perf_counter())
+    trained, state, history = run_train_loop(
+        model, opt, TrainLoopConfig(steps=TRAIN_STEPS, log_every=1), data, params=params,
+        on_metrics=on_metrics)
+    launches, routes, bwd = ops.launch_counts(), ops.flash_routes(), ops.bwd_kernels()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    check(len(history) == TRAIN_STEPS and all(map(math.isfinite, losses + norms)),
+          f"(ii) {TRAIN_STEPS} steps through run_train_loop: finite losses "
+          f"{[f'{x:.4f}' for x in losses]}, grad norms {[f'{x:.4f}' for x in norms]}")
+    check(launches["flash_attention"] == routes["wgmma"] == 2 * L * TRAIN_STEPS
+          and launches["flash_attention_bwd"] == L * TRAIN_STEPS
+          and set(bwd.values()) == {L * TRAIN_STEPS},
+          f"(ii) per step: flash forward {launches['flash_attention'] / TRAIN_STEPS:g} "
+          f"({L} + {L} recomputed, wgmma: {routes}), backward "
+          f"{launches['flash_attention_bwd'] / TRAIN_STEPS:g}, its kernels {bwd}")
+    check(all(launches[k] == 0 for k in ("kv_gather_write", "kv_scatter_read",
+                                          "paged_attention", "ssd_chunk", "sparse_kv_gather")),
+          f"(ii) no pool, paged or SSM kernel on the training path: {launches}")
+    step_s = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+    step_ms = step_s[len(step_s) // 2] * 1e3  # median
+    attn_flops = 4 * cfg.n_heads * cfg.head_dim * TRAIN_BATCH * attn_pairs(
+        TRAIN_SEQ, TRAIN_SEQ, True) * L
+    model_flops = 6 * n_params * tokens + 3 * attn_flops  # forward + backward, no recompute
+    summary = {
+        "step_ms": step_ms, "step_ms_all": [x * 1e3 for x in step_s],
+        "tokens_per_s": tokens / (step_ms * 1e-3),
+        "model_tflop_per_step": model_flops / 1e12,
+        "model_flop_share": model_flops / (step_ms * 1e-3) / BF16_FLOP_PER_S,
+        "peak_mem_gib": peak / 2**30, "losses": losses, "grad_norms": norms,
+        "kernel_vs_plain": {"loss": loss_gap, "grad_norm_rel": norm_gap,
+                            "grad_leaf_rel": grad_gap, "updated_weights": param_gap},
+    }
+    print(f"  (ii) step {step_ms:.1f} ms (median of {TRAIN_STEPS}; all "
+          f"{[f'{x * 1e3:.0f}' for x in step_s]}), {summary['tokens_per_s']:.0f} tokens/s, "
+          f"model FLOPs {summary['model_tflop_per_step']:.1f} TFLOP a step "
+          f"({summary['model_flop_share']:.1%} of 989 TFLOP/s), peak "
+          f"{summary['peak_mem_gib']:.2f} GiB")
+    del trained, state
+    batch = to_device(next(data), dev)
+    step = make_train_step(model, opt)
+    opt_state = init_opt_state(opt, params)
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t1 = time.perf_counter()
+        out = step(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    del out, opt_state
+    report_profile("train step", prof.key_averages(), 1, wall_ms, top=10)
+
+    # (iii) OVERFIT_STEPS steps on one repeated batch: the loss goes down
+    fast = OptimizerConfig(peak_lr=1e-3, warmup_steps=1)
+    _, _, hist = run_train_loop(model, fast, TrainLoopConfig(steps=OVERFIT_STEPS, log_every=1),
+                                iter([batch] * OVERFIT_STEPS), params=params)
+    fit = [h["loss"] for h in hist]
+    check(fit[-1] < fit[0], f"(iii) {OVERFIT_STEPS} steps on one repeated batch (peak_lr 1e-3, "
+          f"no warmup): loss {[f'{x:.4f}' for x in fit]}, last below first")
+    summary["overfit_losses"] = fit
+    print("  olmo-1b training path: " + json.dumps(summary))
+    return launches
+
+
+def _named(tree: dict, path: str = ""):
+    """(path, leaf) in ``tree_leaves`` order: keys sorted, depth first."""
+    for k in sorted(tree):
+        if isinstance(tree[k], dict):
+            yield from _named(tree[k], f"{path}/{k}")
+        else:
+            yield f"{path}/{k}", tree[k]
+
+
 def _fields(derived: str) -> dict:
     """``a=1;b=x`` -> {"a": "1", "b": "x"}: a twin row's derived column."""
     return dict(f.split("=", 1) for f in derived.split(";") if "=" in f)
@@ -2264,6 +2666,7 @@ def main() -> None:
     flash_build_proof(build)
     paged_build_proof(build)
     ssd_build_proof(build)
+    bwd_build_proof(build)
 
     cfg, mamba_cfg = get_config("llama3.1-8b"), get_config("mamba2-2.7b")
     print("[2] kernels vs plain versions", flush=True)
@@ -2316,12 +2719,17 @@ def main() -> None:
     print(f"  phase 11's model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     print("[12] musicgen-large path: full width, all 48 layers, through Model", flush=True)
     musicgen_launches = phase_frontend("musicgen-large", get_config("musicgen-large"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 12's model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    print("[13] training: olmo-1b full width, all 16 layers, AdamW steps", flush=True)
+    train_launches = phase_train(get_config("olmo-1b"))
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
              "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches,
              "qwen3_fp8": qwen3_fp8_launches, "internvl2": internvl_launches,
-             "musicgen": musicgen_launches}
+             "musicgen": musicgen_launches, "train": train_launches}
     own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse",
-           "paged_attention_e4m3": "qwen3_fp8"}
+           "paged_attention_e4m3": "qwen3_fp8", "flash_attention_bwd": "train"}
     for r in rows:
         r["launches"] = paths[own.get(r["name"], "llama")][r["name"]]
         r["launches_by_path"] = {p: n.get(r["name"], 0) for p, n in paths.items()}

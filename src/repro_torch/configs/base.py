@@ -130,5 +130,8 @@ class RuntimeConfig:
     "kernel", "ref") where JAX's are "auto", "pallas" and "jnp"."""
 
     kernel_mode: str = "auto"
+    # checkpoint policy of a training forward, per period of the stack:
+    # none | full (recompute everything) | dots (save matmul outputs)
+    remat: str = "full"
     moe_dispatch: str = "einsum"  # einsum | ragged | a2a (ragged on one device)
     use_fp8_kv: bool = False  # attention K/V caches in float8_e4m3fn

@@ -1,4 +1,5 @@
-// Causal / non-causal GQA flash attention, forward only, in two routes.
+// Causal / non-causal GQA flash attention, forward, in two routes; its
+// gradient is flash_attention_bwd.cu.
 //
 // Replaces the Pallas TPU kernel repro/kernels/flash_attention.py:
 // flash_attention (pallas_call at :135). Same contract: q (b, sq, hq, d),
@@ -9,6 +10,10 @@
 // entirely above the diagonal issue no loads and no products. Query head h
 // reads kv head h / (hq / hkv). The wrapper (flash_attention.py) picks the
 // route from dtype and head_dim alone; neither route falls back on the other.
+// Both routes take an optional lse (b, hq, sq) f32 output, null when serving:
+// each row's log-sum-exp of its scaled, masked scores in natural log (the
+// wgmma route's exp2-domain max and sum converted), which the backward reads
+// to recompute P.
 //
 // Bound on an H100: operations. At the main path's prefill shapes (one
 // layer of Llama-3.1-8B, sq = skv = 1024, hq = 32, d = 128) the causal work
@@ -120,8 +125,8 @@ __device__ __forceinline__ float warp_sum(float x) {
 template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o, int sq, int skv,
-                 int hq, int hkv, int d, int causal, float scale) {
+                 const T* __restrict__ v, T* __restrict__ o, float* __restrict__ lse,
+                 int sq, int skv, int hq, int hkv, int d, int causal, float scale) {
   constexpr int kpad = sizeof(T) == 4 ? 1 : 2;  // odd word stride between key rows
   const int ldk = d + kpad;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -226,6 +231,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qp = q0 + row0 + r;
     if (qp >= sq) continue;
     const float denom = fmaxf(l[r], 1e-30f);
+    if (lse != nullptr && lane == 0) lse[(bi * hq + h) * sq + qp] = m[r] + logf(denom);
     T* orow = o + ((bi * sq + qp) * hq + h) * d;
 #pragma unroll
     for (int i = 0; i < kMaxCols; ++i) {
@@ -236,7 +242,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse, int b, int sq,
            int skv, int hq, int hkv, int d, int causal, float scale,
            cudaStream_t stream) {
   constexpr int kpad = sizeof(T) == 4 ? 1 : 2;
@@ -245,16 +251,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int b, int sq,
   const dim3 grid((sq + kBQ - 1) / kBQ, hq, b);
   flash_fwd_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, skv, hq, hkv, d,
-      causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse), sq, skv, hq,
+      hkv, d, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. Returns a cudaError_t.
+// dtype: 0 = float32, 1 = bfloat16; lse (b, hq, sq) f32 or null. Returns a
+// cudaError_t.
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
-                                   void* o, int dtype, int b, int sq, int skv,
+                                   void* o, void* lse, int dtype, int b, int sq, int skv,
                                    int hq, int hkv, int d, int causal,
                                    float scale, void* stream) {
   if (d % 16 != 0 || d > kMaxD || hkv <= 0 || hq % hkv != 0) {
@@ -262,9 +269,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
   }
   if (b == 0 || sq == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(q, k, v, o, b, sq, skv, hq, hkv, d, causal, scale, s);
+  if (dtype == 0) return launch<float>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, causal, scale, s);
   if (dtype == 1) {
-    return launch<__nv_bfloat16>(q, k, v, o, b, sq, skv, hq, hkv, d, causal, scale, s);
+    return launch<__nv_bfloat16>(q, k, v, o, lse, b, sq, skv, hq, hkv, d, causal, scale, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -282,6 +289,7 @@ constexpr int kPvParts = 2;  // P.V issued in parts, each part's exps beside the
 constexpr int kThreads = 384;  // warpgroups 0, 1: consumers; warpgroup 2: the producer
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kNoEncoder = 9999;  // return codes above cudaError_t's range
 constexpr int kEncodeFailed = 10000;  // + the CUresult of cuTensorMapEncodeTiled
 
@@ -539,7 +547,7 @@ template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, __nv_bfloat16* __restrict__ out,
-                   int b, int sq, int skv, int hq, int hkv, int n_q_tiles, int causal,
+                   float* __restrict__ lse, int b, int sq, int skv, int hq, int hkv, int n_q_tiles, int causal,
                    float scale_log2) {
   using S = Smem<D>;
   using Tl = Tile<D>;
@@ -724,7 +732,15 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       for (int h = 0; h < 2; ++h) {
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
         l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
-        l[h] = 1.f / fmaxf(l[h], 1e-30f);
+        l[h] = fmaxf(l[h], 1e-30f);
+        // the row's log-sum-exp in natural log: m is in raw score units and
+        // l sums 2^((s - m) scale log2 e) = e^((s - m) scale)
+        const int qp = qr + 8 * h;
+        if (lse != nullptr && t == 0 && qp < sq) {
+          lse[(static_cast<long long>(w.bi) * hq + w.h) * sq + qp] =
+              (m[h] * scale_log2 + log2f(l[h])) * kLn2;
+        }
+        l[h] = 1.f / l[h];
       }
       // o[4J + e]: row qr + 8 (e >> 1), column 8J + 2t + (e & 1)
 #pragma unroll
@@ -779,7 +795,8 @@ int encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, const uint64_t* d
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, const uint64_t* q_dims,
+int launch(const void* q, const void* k, const void* v, void* o, void* lse,
+           const uint64_t* q_dims,
            const uint64_t* q_strides, const uint64_t* kv_dims, const uint64_t* kv_strides,
            const uint32_t* box, int b, int sq, int skv, int hq, int hkv, int causal, float scale,
            int ctas, cudaStream_t stream) {
@@ -800,8 +817,8 @@ int launch(const void* q, const void* k, const void* v, void* o, const uint64_t*
   const long long items = static_cast<long long>(n_q_tiles) * hq * b;
   const int grid = static_cast<int>(items < ctas ? items : ctas);
   flash_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), b, sq, skv, hq, hkv, n_q_tiles, causal,
-      scale * kLog2e);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), static_cast<float*>(lse), b, sq, skv, hq, hkv,
+      n_q_tiles, causal, scale * kLog2e);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -824,7 +841,9 @@ extern "C" int flash_attention_wgmma_smem(int d) {
 // most one CTA per SM (the wrapper passes the SM count); the grid is the
 // smaller of it and the work items. Returns a cudaError_t, 9999 if libcuda
 // has no cuTensorMapEncodeTiled, or 10000 + its CUresult if it refuses a map.
+// lse: (b, hq, sq) f32 or null, as the other route's.
 extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const void* v, void* o,
+                                         void* lse,
                                          const uint64_t* q_dims, const uint64_t* q_strides,
                                          const uint64_t* kv_dims, const uint64_t* kv_strides,
                                          const uint32_t* box, int b, int sq, int skv, int hq,
@@ -848,13 +867,13 @@ extern "C" int flash_attention_wgmma_fwd(const void* q, const void* k, const voi
   }
   switch (d) {
     case 64:
-      return w::launch<64>(q, k, v, o, q_dims, q_strides, kv_dims, kv_strides, box, b, sq, skv,
+      return w::launch<64>(q, k, v, o, lse, q_dims, q_strides, kv_dims, kv_strides, box, b, sq, skv,
                            hq, hkv, causal, scale, ctas, s);
     case 80:
-      return w::launch<80>(q, k, v, o, q_dims, q_strides, kv_dims, kv_strides, box, b, sq, skv,
+      return w::launch<80>(q, k, v, o, lse, q_dims, q_strides, kv_dims, kv_strides, box, b, sq, skv,
                            hq, hkv, causal, scale, ctas, s);
     default:
-      return w::launch<128>(q, k, v, o, q_dims, q_strides, kv_dims, kv_strides, box, b, sq, skv,
+      return w::launch<128>(q, k, v, o, lse, q_dims, q_strides, kv_dims, kv_strides, box, b, sq, skv,
                             hq, hkv, causal, scale, ctas, s);
   }
 }

@@ -19,7 +19,18 @@ as a fallback for the other:
 
 Raises on anything else, and on a build or launch failure of either route.
 Counts its launches in ``flash_attention.launches`` and per route in
-``flash_attention.launches_by_route``.
+``flash_attention.launches_by_route``. With ``return_lse`` either route
+also stores each row's log-sum-exp (b, hq, sq) f32, natural log, which
+``flash_attention_bwd`` reads.
+
+``flash_attention_bwd`` wraps ``csrc/flash_attention_bwd.cu``, the
+gradient (dq, dk, dv) the plain ``ref.flash_attention_bwd_ref`` computes,
+in three kernels on the CUDA cores (D = rowsum(dO * O); dK and dV per kv
+tile, the GQA group summed inside a CTA; dQ per q tile): float32 or
+bfloat16 at head_dim a multiple of 16 up to 128. It replaces no Pallas
+kernel (JAX differentiates its jnp chunked flash); ``kernels/ops.py`` runs
+it under autograd. Counts its calls in ``flash_attention_bwd.launches``
+and each kernel's launches in ``flash_attention_bwd.launches_by_kernel``.
 """
 
 from __future__ import annotations
@@ -48,16 +59,25 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _U64P, _U32P = ctypes.POINTER(ctypes.c_uint64), ctypes.POINTER(ctypes.c_uint32)
 SIGNATURES = {
     "flash_attention_fwd": (
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
         ctypes.c_int,
     ),
     "flash_attention_wgmma_fwd": (
-        [_P, _P, _P, _P, _U64P, _U64P, _U64P, _U64P, _U32P,
+        [_P, _P, _P, _P, _P, _U64P, _U64P, _U64P, _U64P, _U32P,
          _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _I, _P],
         ctypes.c_int,
     ),
     "flash_attention_wgmma_smem": ([_I], ctypes.c_int),
 }
+BWD_SIGNATURES = {
+    "flash_attention_bwd": (
+        [_P] * 10 + [_I] * 8 + [ctypes.c_float, _P],
+        ctypes.c_int,
+    ),
+    "flash_attention_bwd_smem": ([_I, _I], ctypes.c_int),
+}
+# the backward's kernels, in launch order (csrc/flash_attention_bwd.cu)
+BWD_KERNELS = ("delta", "dkdv", "dq")
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NO_ENCODER, _ENCODE_FAILED = 9999, 10000
 
@@ -125,10 +145,12 @@ def flash_attention(
     causal: bool = True,
     *,
     force_route: str | None = None,
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """``force_route`` runs the named route where ``route`` would pick the
     other (chip_smoke.py times both on the same inputs); it raises where
-    that route cannot take the inputs."""
+    that route cannot take the inputs. With ``return_lse``, returns
+    (out, lse (b, hq, sq) f32)."""
     for t in (q, k, v):
         if t.device.type != "cuda" or not t.is_contiguous() or t.dtype != q.dtype:
             raise ValueError("flash_attention takes contiguous q, k, v of one dtype on the card")
@@ -144,6 +166,8 @@ def flash_attention(
             raise ValueError(f"the wgmma route takes bf16 at head_dim {WGMMA_HEAD_DIMS}")
         picked = force_route
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
+    lse_ptr = lse.data_ptr() if return_lse else None
     lib = build.load("flash_attention", SIGNATURES)
     if picked == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
@@ -156,14 +180,14 @@ def flash_attention(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if picked == "wgmma":
             rc = lib.flash_attention_wgmma_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
                 _u64(q_dims), _u64(q_strides), _u64(kv_dims), _u64(kv_strides),
                 (ctypes.c_uint32 * 4)(*box), b, sq, skv, hq, hkv, d, int(causal),
                 1.0 / math.sqrt(d), GRID_CTAS or build.sm_count(q.device), stream,
             )
         else:
             rc = lib.flash_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse_ptr,
                 _DTYPES[q.dtype], b, sq, skv, hq, hkv, d, int(causal),
                 1.0 / math.sqrt(d), stream,
             )
@@ -176,12 +200,60 @@ def flash_attention(
         raise RuntimeError(f"flash_attention ({picked}) launch failed: cudaError_t {rc}")
     flash_attention.launches += 1
     flash_attention.launches_by_route[picked] += 1
-    return out
+    if not return_lse:
+        return out
+    if skv == 0:  # no keys: the log-sum-exp of an empty row
+        lse.fill_(-math.inf)
+    return out, lse
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+    """(dq, dk, dv) of ``flash_attention`` at output gradient ``do``, from
+    the forward's inputs, its output ``o`` and its ``lse``; the gradients in
+    the inputs' dtype. Raises on what the kernels do not take and on a
+    build or launch failure."""
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.device.type != "cuda" or not t.is_contiguous() or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention_bwd takes contiguous tensors of one dtype on "
+                             f"the card; {name} is {t.dtype} on {t.device}")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd needs 16-byte aligned tensors; {name} "
+                             f"starts at {t.data_ptr():#x}")
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    route(q.dtype, d)  # the dtypes and head_dims the kernels take
+    if (hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or o.shape != q.shape or do.shape != q.shape):
+        raise ValueError(f"bad shapes q {q.shape}, k {k.shape}, v {v.shape}, o {o.shape}, "
+                         f"do {do.shape}")
+    if (lse.device != q.device or lse.dtype != torch.float32 or lse.shape != (b, hq, sq)
+            or not lse.is_contiguous()):
+        raise ValueError(f"lse must be a contiguous ({b}, {hq}, {sq}) float32 tensor on "
+                         f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+    lib = build.load("flash_attention_bwd", BWD_SIGNATURES)
+    with torch.cuda.device(q.device):
+        rc = lib.flash_attention_bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            _DTYPES[q.dtype], b, sq, skv, hq, hkv, d, int(causal), 1.0 / math.sqrt(d),
+            torch.cuda.current_stream(q.device).cuda_stream,
+        )
+    if rc:
+        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t {rc}")
+    if b and sq and skv:  # otherwise a memset or nothing ran
+        flash_attention_bwd.launches += 1
+        for name in BWD_KERNELS:
+            flash_attention_bwd.launches_by_kernel[name] += 1
+    return dq, dk, dv
 
 
 def reset_launch_counts() -> None:
     flash_attention.launches = 0
     flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
+    flash_attention_bwd.launches = 0
+    flash_attention_bwd.launches_by_kernel = dict.fromkeys(BWD_KERNELS, 0)
 
 
 reset_launch_counts()

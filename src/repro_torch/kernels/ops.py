@@ -8,6 +8,14 @@
                ``chip_smoke.py`` compare the two with it).
 
 There is no fallback: a kernel that fails to build or launch raises.
+
+Under autograd (grad enabled and q, k or v requiring grad) the kernel
+route of ``flash_attention`` goes through ``FlashAttention``, a
+``torch.autograd.Function`` whose forward is the forward kernel with its
+log-sum-exp and whose backward is ``flash_attention_bwd``; otherwise it is
+one forward launch, as serving runs it. The plain versions train through
+PyTorch's own autograd. ``ssd_chunk`` has no backward kernel yet: under
+autograd on the card it raises (ROADMAP.md queue 1 item 3b).
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ KERNELS = {
     "kv_gather_write": _kv.kv_gather_write,
     "kv_scatter_read": _kv.kv_scatter_read,
     "flash_attention": _fa.flash_attention,
+    "flash_attention_bwd": _fa.flash_attention_bwd,
     "paged_attention": _pa.paged_attention,
     "ssd_chunk": _ssd.ssd_chunk,
     "sparse_kv_gather": _kv.sparse_kv_gather,
@@ -61,8 +70,37 @@ def reset_launch_counts() -> None:
     _pa.reset_launch_counts()
 
 
+def bwd_kernels() -> dict[str, int]:
+    """flash_attention_bwd's launches per kernel ("delta", "dkdv", "dq")."""
+    return dict(_fa.flash_attention_bwd.launches_by_kernel)
+
+
+def _differentiated(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+class FlashAttention(torch.autograd.Function):
+    """The forward kernel, saving its output and log-sum-exp; the backward
+    kernels for the gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        o, lse = _fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _fa.flash_attention_bwd(q, k, v, o, lse, do.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, mode: str = "auto"):
     if use_kernel(q, mode):
+        if _differentiated(q, k, v):
+            return FlashAttention.apply(q, k, v, causal)
         return _fa.flash_attention(q, k, v, causal=causal)
     return _ref.flash_attention_ref(q, k, v, causal=causal)
 
@@ -122,5 +160,10 @@ def ssd_chunk(x, a_log, b_mat, c_mat, *, return_cum: bool = False, mode: str = "
     """Intra-chunk SSD + chunk states over (nb, Lc) tiles; B/C group-shaped.
     With ``return_cum`` also the prefix sums of a_log over each chunk."""
     if use_kernel(x, mode):
+        if _differentiated(x, a_log, b_mat, c_mat):
+            raise NotImplementedError(
+                "ssd_chunk has no backward kernel yet (the Mamba-2 / Jamba training path, "
+                "ROADMAP.md queue 1 item 3b): train SSM stacks on the CPU or with "
+                "kernel_mode='ref'")
         return _ssd.ssd_chunk(x, a_log, b_mat, c_mat, return_cum=return_cum)
     return _ref.ssd_chunk_ref(x, a_log, b_mat, c_mat, return_cum=return_cum)

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the kernels on the serving path.
+"""Plain PyTorch versions of the kernels on the serving and training paths.
 
 Each ``*_ref`` mirrors ``repro.kernels.ref`` (signature and arithmetic) and
 is the numerics ground truth: the dispatcher in ``ops.py`` runs it for
@@ -32,19 +32,53 @@ def flash_attention_ref(
     q_offset: int = 0,
 ) -> torch.Tensor:
     b, sq, hq, d = q.shape
+    p = torch.softmax(_scores(q, k, causal, q_offset), dim=-1)
+    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
+    return o.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def _scores(q, k, causal: bool, q_offset: int = 0) -> torch.Tensor:
+    """The scaled, masked f32 scores (b, hkv, g, sq, skv) of the forward."""
+    b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
-    g = hq // hkv
-    scale = 1.0 / math.sqrt(d)
-    qg = q.reshape(b, sq, hkv, g, d)
-    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * scale
+    qg = q.reshape(b, sq, hkv, hq // hkv, d)
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float()) * (1.0 / math.sqrt(d))
     if causal:
         qpos = q_offset + torch.arange(sq, device=q.device)
         kpos = torch.arange(skv, device=q.device)
-        mask = qpos[:, None] >= kpos[None, :]
-        s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1)
-    o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
-    return o.reshape(b, sq, hq, d).to(q.dtype)
+        s = s.masked_fill(~(qpos[:, None] >= kpos[None, :]), NEG_INF)
+    return s
+
+
+def flash_attention_lse_ref(q, k, v, causal: bool = True):
+    """``flash_attention_ref``'s output and each row's log-sum-exp of the
+    scaled, masked scores, (b, hq, sq) f32 in natural log: what the
+    forward kernel stores for the backward."""
+    b, sq, hq, _ = q.shape
+    lse = torch.logsumexp(_scores(q, k, causal), dim=-1)  # (b, hkv, g, sq)
+    return flash_attention_ref(q, k, v, causal=causal), lse.reshape(b, hq, sq)
+
+
+def flash_attention_bwd_ref(q, k, v, o, lse, do, causal: bool = True):
+    """The gradients (dq, dk, dv) of ``flash_attention_ref`` at output
+    gradient ``do``, as the backward kernels compute them: P recomputed from
+    q, k and the forward's ``lse``, D = rowsum(dO * O), dV = P^T dO,
+    dS = P * (dO V^T - D), dQ = dS K * scale, dK = dS^T Q * scale, dK and dV
+    summed over each GQA group. f32 math, outputs in the input dtype."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    g = hq // hkv
+    scale = 1.0 / math.sqrt(d)
+    s = _scores(q, k, causal)  # (b, hkv, g, sq, skv)
+    p = torch.exp(s - lse.float().reshape(b, hkv, g, sq, 1))
+    dog = do.float().reshape(b, sq, hkv, g, d)
+    delta = (dog * o.float().reshape(b, sq, hkv, g, d)).sum(-1)  # (b, sq, hkv, g)
+    dv = torch.einsum("bhgqk,bqhgd->bkhd", p, dog)
+    dp = torch.einsum("bqhgd,bkhd->bhgqk", dog, v.float())
+    ds = p * (dp - delta.permute(0, 2, 3, 1)[..., None])
+    dq = torch.einsum("bhgqk,bkhd->bqhgd", ds, k.float()) * scale
+    dk = torch.einsum("bhgqk,bqhgd->bkhd", ds, q.float().reshape(b, sq, hkv, g, d)) * scale
+    return dq.reshape(b, sq, hq, d).to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def kv_gather_write_ref(

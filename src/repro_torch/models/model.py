@@ -1,4 +1,5 @@
-"""Public model API: parameter init, prefill, decode, cache construction.
+"""Public model API: parameter init, training loss, prefill, decode, cache
+construction.
 
 Twin of ``repro/models/model.py`` on one device: attention with MLPs
 (llama, olmo, qwen) or with MoE FFNs (arctic, llama4-maverick), Mamba-2
@@ -139,7 +140,8 @@ class Model:
     ``runtime`` is the port's ``RuntimeConfig``: ``kernel_mode`` (the
     dispatcher's mode, ``kernels/ops.py``), ``moe_dispatch`` (``"einsum"``,
     the default, ``"ragged"`` or ``"a2a"``; on one device ``"a2a"`` runs the
-    ragged dispatch, as JAX does without a mesh) and ``use_fp8_kv``. The
+    ragged dispatch, as JAX does without a mesh), ``remat`` (``loss_fn``'s
+    checkpoint policy) and ``use_fp8_kv``. The
     keywords ``kernel_mode`` and ``moe_dispatch``, where given, replace
     those fields.
     """
@@ -181,6 +183,41 @@ class Model:
             x = embed_apply(params["embed"], batch["tokens"])
         b, s = x.shape[:2]
         return x, torch.arange(s, device=x.device).expand(b, s)
+
+    def loss_fn(self, params: dict, batch: dict) -> tuple[torch.Tensor, dict]:
+        """(mean next-token loss, {"lm_loss", "load_balance_loss"}) of a
+        batch (``model.py:82-112``): ``labels`` (b, s) and an optional
+        ``loss_mask`` (b, s) beside the inputs ``embed`` reads. Logits in
+        f32; the vision stub predicts from the text segment only; the loss
+        is ``logsumexp`` minus the target's logit, averaged over the shifted
+        positions (or over the mask, its sum floored at 1); MoE adds
+        0.01 times the load-balance loss summed over layers. Differentiable:
+        ``training.train_loop`` takes its gradient."""
+        cfg = self.cfg
+        x, positions = self.embed(params, batch)
+        aux: list = []
+        h = stack_lib.forward_full(params, x, positions, cfg, self.kernel_mode, None,
+                                   self.moe_dispatch, aux, remat=self.runtime.remat)
+        h = norm_apply(params["final_ln"], h, cfg)
+        logits = unembed_apply(params["embed"], h)  # (b, s, V) f32
+        if cfg.frontend == "vision_stub":
+            logits = logits[:, cfg.n_frontend_tokens:]
+        logits = logits[:, :-1]
+        targets = batch["labels"][:, 1:].long()
+        nll = torch.logsumexp(logits, dim=-1) - logits.gather(-1, targets[..., None])[..., 0]
+        mask = batch.get("loss_mask")
+        if mask is not None:
+            mask = mask[:, 1:].float()
+            loss = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+        else:
+            loss = nll.mean()
+        aux_lb = torch.zeros((), dtype=torch.float32, device=loss.device)
+        for stats in aux:
+            aux_lb = aux_lb + stats["load_balance_loss"]
+        out = {"lm_loss": loss, "load_balance_loss": aux_lb}
+        if cfg.moe.enabled:
+            loss = loss + 0.01 * aux_lb
+        return loss, out
 
     def prefill_fn(self, params: dict, batch, max_len: int | None = None,
                    aux: list | None = None):

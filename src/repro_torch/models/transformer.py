@@ -19,10 +19,18 @@ are updated in place. K and V are written in the cache's dtype: with an
 fp8 cache, prefill's flash attention still reads the unquantized K and V,
 and decode's paged attention reads the e4m3 blocks (``repro/models/
 transformer.py:170-187``).
+
+A training forward (grad enabled, no cache) recomputes each period in the
+backward under ``remat`` (``RuntimeConfig.remat``, JAX's ``jax.checkpoint``
+of the scanned period): "full" keeps only the period's input
+(``nothing_saveable``), "dots" also keeps the outputs of matrix products
+without batch dimensions (``checkpoint_dots_with_no_batch_dims``), "none"
+keeps every activation.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -38,6 +46,7 @@ from repro_torch.models.layers import mlp_apply, norm_apply, rope_tables
 
 # tokens per block when decode attention reads the dense cache as blocks
 DECODE_BLOCK_TOKENS = 16
+REMAT = ("none", "full", "dots")
 
 
 @dataclass(frozen=True)
@@ -115,6 +124,27 @@ def _ffn(lp: dict, kind: LayerKind, h: torch.Tensor, cfg: ModelConfig,
     return h + mlp_apply(lp["mlp"], hn, cfg)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matrix products without batch dimensions (mm,
+    addmm: every projection), recompute the rest (``bmm``: attention's
+    batched products)."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpointed(fn, remat: str):
+    """``fn`` recomputed in the backward under the ``remat`` policy."""
+    from torch.utils.checkpoint import checkpoint, create_selective_checkpoint_contexts
+
+    kw = {}
+    if remat == "dots":
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
 def forward_full(
     params: dict,
     x: torch.Tensor,  # (b, s, d) embedded inputs
@@ -124,20 +154,26 @@ def forward_full(
     cache=None,
     moe_dispatch: str = "einsum",
     aux: list | None = None,
+    remat: str = "none",
 ) -> torch.Tensor:
     """Run the full stack; returns the hidden states. ``cache``, if given,
     receives each layer's decode state (JAX's ``collect_cache``): k and v in
     positions [0, s) at attention layers, the final SSM state and the conv
     window at SSM layers. ``aux``, if given, receives each MoE layer's aux
-    dict (``moe.moe_apply``) in layer order."""
+    dict (``moe.moe_apply``) in layer order. ``remat`` applies under grad
+    and without a cache (module docstring)."""
+    if remat not in REMAT:
+        raise ValueError(f"remat {remat!r} not in {REMAT}")
     kinds = layer_kinds(cfg)
     caches = position_caches(cache, kinds) if cache is not None else None
     s = x.shape[1]
     rope = None
     if any(kind.mixer == "attn" for kind in kinds):
         rope = rope_tables(positions, cfg.head_dim, cfg.rope_theta)
-    h = x
-    for i in range(n_periods(cfg)):
+
+    def period(h: torch.Tensor, i: int):
+        """Period i of the stack: (h, its MoE layers' aux dicts)."""
+        stats = []
         for j, kind in enumerate(kinds):
             lp = layer_params(params["stack"][f"pos_{j}"], i)
             hn = norm_apply(lp["ln1"], h, cfg)
@@ -157,7 +193,16 @@ def forward_full(
                 caches[j]["conv"][i] = conv
             else:
                 h = h + mamba_lib.mamba_apply(lp["ssm"], hn, cfg, kernel_mode)
-            h = _ffn(lp, kind, h, cfg, moe_dispatch, aux)
+            h = _ffn(lp, kind, h, cfg, moe_dispatch, stats)
+        return h, stats
+
+    if remat != "none" and caches is None and torch.is_grad_enabled():
+        period = _checkpointed(period, remat)
+    h = x
+    for i in range(n_periods(cfg)):
+        h, stats = period(h, i)
+        if aux is not None:
+            aux.extend(stats)
     return h
 
 

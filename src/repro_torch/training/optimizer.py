@@ -1,0 +1,155 @@
+"""Optimizers from scratch: AdamW, Lion, SGD, the schedule and clipping.
+
+Twin of ``repro/training/optimizer.py:19-163`` over the port's parameter
+tree (nested dicts of tensors). The details that decide the numbers are
+JAX's: moments in f32 whatever the parameter dtype; the update computed in
+f32 and cast back to each leaf's dtype; the schedule and the bias
+corrections ``b ** step`` computed in float32 tensors, not Python doubles;
+decoupled weight decay on every leaf with ``ndim >= 2``, which takes in the
+stacked per-layer vectors (a norm weight of shape (layers, d)), as JAX's
+does. Leaves are visited in JAX's flattening order (sorted keys), so the
+global norm sums them as JAX does. Every function is pure: it returns new
+tensors and changes none it was given.
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+
+import torch
+
+
+@dataclass(frozen=True)
+class OptimizerConfig:
+    name: str = "adamw"  # adamw | lion | sgd
+    peak_lr: float = 3e-4
+    min_lr: float = 3e-5
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    # "none" | "bf16": gradients cast to bf16 before clipping (JAX casts them
+    # before its data-parallel all-reduce; on one device only the rounding is left)
+    grad_compression: str = "bf16"
+
+
+def tree_leaves(tree: dict) -> list[torch.Tensor]:
+    """The leaves of a nested dict in JAX's order: keys sorted, depth first."""
+    out = []
+    for key in sorted(tree):
+        v = tree[key]
+        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def tree_unflatten(like: dict, leaves) -> dict:
+    """``leaves`` (in ``tree_leaves`` order) in the structure of ``like``."""
+    it = iter(leaves)
+
+    def walk(t: dict) -> dict:
+        return {k: walk(t[k]) if isinstance(t[k], dict) else next(it) for k in sorted(t)}
+
+    return walk(like)
+
+
+def tree_map(fn, tree: dict, *rest: dict) -> dict:
+    """``fn`` over the leaves of trees of one structure."""
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def _f32(x, device) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=torch.float32, device=device)
+
+
+def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup then cosine decay to ``min_lr``, a float32 scalar."""
+    step = step.to(torch.float32)
+    warm = cfg.peak_lr * step / max(cfg.warmup_steps, 1)
+    prog = torch.clamp((step - cfg.warmup_steps) / max(cfg.total_steps - cfg.warmup_steps, 1),
+                       0.0, 1.0)
+    cos = cfg.min_lr + 0.5 * (cfg.peak_lr - cfg.min_lr) * (1 + torch.cos(math.pi * prog))
+    return torch.where(step < cfg.warmup_steps, warm, cos)
+
+
+def global_norm(tree: dict) -> torch.Tensor:
+    leaves = tree_leaves(tree)
+    total = sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves)
+    return torch.sqrt(total)
+
+
+def clip_by_global_norm(grads: dict, max_norm: float) -> tuple[dict, torch.Tensor]:
+    norm = global_norm(grads)
+    scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
+    return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), norm
+
+
+def init_opt_state(cfg: OptimizerConfig, params: dict) -> dict:
+    """{"step": int32 0, and the f32 moments the optimizer keeps: "m" and
+    "v" (AdamW), "m" (Lion), none (SGD)}, on the parameters' device."""
+    device = tree_leaves(params)[0].device
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    state = {"step": torch.zeros((), dtype=torch.int32, device=device)}
+    if cfg.name == "adamw":
+        state["m"] = tree_map(zeros, params)
+        state["v"] = tree_map(zeros, params)
+    elif cfg.name == "lion":
+        state["m"] = tree_map(zeros, params)
+    elif cfg.name != "sgd":
+        raise ValueError(cfg.name)
+    return state
+
+
+def apply_updates(cfg: OptimizerConfig, params: dict, grads: dict,
+                  state: dict) -> tuple[dict, dict]:
+    """One optimizer step: (new params, new state)."""
+    step = state["step"] + 1
+    lr = lr_schedule(cfg, step)
+    b1, b2 = cfg.b1, cfg.b2
+
+    if cfg.name == "adamw":
+        bc1 = 1.0 - torch.pow(_f32(b1, step.device), step.to(torch.float32))
+        bc2 = 1.0 - torch.pow(_f32(b2, step.device), step.to(torch.float32))
+
+        def adamw(p, g, m, v):
+            g = g.to(torch.float32)
+            m = b1 * m + (1 - b1) * g
+            v = b2 * v + (1 - b2) * torch.square(g)
+            delta = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+            if p.ndim >= 2:  # decoupled weight decay on matrices (and stacked vectors)
+                delta = delta + cfg.weight_decay * p.to(torch.float32)
+            return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
+
+        out = tree_map(adamw, params, grads, state["m"], state["v"])
+        return _nth(out, 0), {"step": step, "m": _nth(out, 1), "v": _nth(out, 2)}
+
+    if cfg.name == "lion":
+        def lion(p, g, m):
+            g = g.to(torch.float32)
+            u = torch.sign(b1 * m + (1 - b1) * g)
+            if p.ndim >= 2:
+                u = u + cfg.weight_decay * p.to(torch.float32)
+            m = b2 * m + (1 - b2) * g
+            return (p.to(torch.float32) - lr * u).to(p.dtype), m
+
+        out = tree_map(lion, params, grads, state["m"])
+        return _nth(out, 0), {"step": step, "m": _nth(out, 1)}
+
+    if cfg.name == "sgd":
+        new = tree_map(lambda p, g: (p.to(torch.float32) - lr * g.to(torch.float32)).to(p.dtype),
+                       params, grads)
+        return new, {"step": step}
+
+    raise ValueError(cfg.name)
+
+
+def _nth(tree: dict, i: int) -> dict:
+    """A tree of tuples -> the tree of their i-th items."""
+    return {k: _nth(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}

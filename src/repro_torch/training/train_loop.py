@@ -1,0 +1,146 @@
+"""Train step and host-side training loop.
+
+Twin of ``repro/training/train_loop.py:30-143``. ``make_train_step`` gives
+
+    (params, opt_state, batch) -> (params, opt_state, metrics)
+
+where JAX's ``jax.value_and_grad(loss_fn)`` is PyTorch autograd through
+``Model.loss_fn`` (the attention kernels' gradient is the backward kernel,
+``kernels/ops.py``), in JAX's order:
+
+  * gradients cast to bf16 (``OptimizerConfig.grad_compression="bf16"``)
+    before the clip;
+  * ``accum_steps`` microbatches: the batch's leading dimension split, each
+    microbatch's (compressed) gradient added into f32 zeros, the sum and the
+    loss divided by ``accum_steps``, the last microbatch's aux kept;
+  * global-norm clipping, then the optimizer;
+  * metrics ``loss``, ``grad_norm``, ``lr`` (of the new step) and ``aux/*``
+    as 0-dim tensors on the parameters' device.
+
+The step is eager PyTorch: nothing is jitted or donated, and the parameters
+and state it is given are left as they were.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.models.model import Model
+from repro_torch.training import optimizer as opt_lib
+from repro_torch.training.optimizer import (OptimizerConfig, tree_leaves, tree_map,
+                                            tree_unflatten)
+
+CHECKPOINT_TODO = ("the checkpointer is not ported yet (ROADMAP.md queue 1 item 4): "
+                   "run without a checkpoint directory")
+
+
+def value_and_grad(model: Model, params: dict, batch: dict):
+    """(loss, aux, gradient tree) of ``model.loss_fn`` at ``params``; a leaf
+    the loss does not read gets zeros, as from ``jax.grad``."""
+    live = tree_map(lambda p: p.detach().requires_grad_(True), params)
+    with torch.enable_grad():
+        loss, aux = model.loss_fn(live, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
+                                    materialize_grads=True)
+    aux = {k: v.detach() for k, v in aux.items()}
+    return loss.detach(), aux, tree_unflatten(params, grads)
+
+
+def make_train_step(model: Model, opt_cfg: OptimizerConfig, accum_steps: int = 1) -> Callable:
+    def compress(g: dict) -> dict:
+        if opt_cfg.grad_compression == "bf16":
+            return tree_map(lambda x: x.to(torch.bfloat16), g)
+        return g
+
+    def train_step(params: dict, opt_state: dict, batch: dict):
+        if accum_steps == 1:
+            loss, aux, grads = value_and_grad(model, params, batch)
+            grads = compress(grads)
+        else:
+            def micro(x, i):
+                b = x.shape[0]
+                if b % accum_steps:
+                    raise ValueError(f"batch {b} is not {accum_steps} whole microbatches")
+                n = b // accum_steps
+                return x[i * n:(i + 1) * n]
+
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                                   device=p.device), params)
+            loss = 0.0
+            for i in range(accum_steps):
+                mb = {k: micro(v, i) for k, v in batch.items()}
+                l, aux, g = value_and_grad(model, params, mb)
+                g = compress(g)
+                grads = tree_map(lambda a, b_: a + b_.to(a.dtype), grads, g)
+                loss = loss + l
+            grads = tree_map(lambda g: g / accum_steps, grads)
+            loss = loss / accum_steps
+
+        grads, gnorm = opt_lib.clip_by_global_norm(grads, opt_cfg.grad_clip)
+        params, opt_state = opt_lib.apply_updates(opt_cfg, params, grads, opt_state)
+        metrics = {
+            "loss": loss,
+            "grad_norm": gnorm,
+            "lr": opt_lib.lr_schedule(opt_cfg, opt_state["step"]),
+            **{f"aux/{k}": v for k, v in aux.items()},
+        }
+        return params, opt_state, metrics
+
+    return train_step
+
+
+@dataclass
+class TrainLoopConfig:
+    steps: int = 100
+    log_every: int = 10
+    checkpoint_every: int = 50
+    checkpoint_dir: str | None = None
+    keep_checkpoints: int = 2
+
+
+def to_device(batch: dict, device) -> dict:
+    """A numpy batch (``data.pipeline``) as tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(v)).to(device) if not isinstance(v, torch.Tensor)
+            else v.to(device) for k, v in batch.items()}
+
+
+def run_train_loop(
+    model: Model,
+    opt_cfg: OptimizerConfig,
+    loop_cfg: TrainLoopConfig,
+    data_iter,
+    params: dict | None = None,
+    opt_state: dict | None = None,
+    start_step: int = 0,
+    step_fn=None,
+    on_metrics=None,
+):
+    """Steps ``start_step`` .. ``loop_cfg.steps`` on batches from ``data_iter``,
+    each moved to the parameters' device; returns (params, opt_state,
+    history), history holding the metrics as floats at the first step and
+    every ``log_every`` steps. ``params`` is required: the port draws no
+    JAX key (``models.model.init_params`` makes them from a generator)."""
+    if params is None:
+        raise ValueError("run_train_loop needs params (models.model.init_params makes them)")
+    if loop_cfg.checkpoint_dir:
+        raise NotImplementedError(CHECKPOINT_TODO)
+    if opt_state is None:
+        opt_state = opt_lib.init_opt_state(opt_cfg, params)
+    if step_fn is None:
+        step_fn = make_train_step(model, opt_cfg)
+    device = tree_leaves(params)[0].device
+
+    history = []
+    for step in range(start_step, loop_cfg.steps):
+        batch = to_device(next(data_iter), device)
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        if (step + 1) % loop_cfg.log_every == 0 or step == start_step:
+            m = {k: float(v) for k, v in metrics.items()}
+            history.append({"step": step + 1, **m})
+            if on_metrics:
+                on_metrics(step + 1, m)
+    return params, opt_state, history

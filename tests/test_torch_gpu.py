@@ -187,6 +187,7 @@ def test_dispatch_counts_launches_on_the_card(cuda):
     assert ops.launch_counts() == {
         "kv_gather_write": 1, "kv_scatter_read": 1, "flash_attention": 1,
         "paged_attention": 1, "ssd_chunk": 1, "sparse_kv_gather": 1,
+        "flash_attention_bwd": 0,
     }
     assert ops.flash_routes() == {"wgmma": 0, "cuda_cores": 1}  # float32, d = 16
     ops.reset_launch_counts()
@@ -1126,3 +1127,163 @@ def test_reduced_frontend_and_fp8_models_card_match_cpu(cuda, arch):
 def _to_device(tree, device):
     return {k: _to_device(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+# ---------------------------------------------------------------------------
+# Training: the flash backward kernels, the forward's log-sum-exp, autograd
+# through ops.flash_attention, and a reduced train step card vs CPU.
+# Tolerances relative to the largest |gradient|: f32 2e-5, bf16 2e-2 (TOL).
+# ---------------------------------------------------------------------------
+
+BWD_CASES = FLASH_CASES + [
+    (1, 129, 129, 16, 2, 80, True),  # qwen3-32b's d 80, group 8
+    (2, 200, 200, 8, 8, 128, False),
+    (1, 300, 64, 4, 4, 16, True),  # sq > skv under the mask
+    (1, 64, 300, 8, 1, 128, False),
+]
+
+
+def _rel(a, b) -> float:
+    return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)).item()
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
+    b, sq, skv, hq, hkv, d, causal = case
+    rng = np.random.default_rng(7)
+    q, do = (_randn(rng, (b, sq, hq, d), dtype, cuda) for _ in range(2))
+    k, v = (_randn(rng, (b, skv, hkv, d), dtype, cuda) for _ in range(2))
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == dtype and a.shape == w.shape
+        assert _rel(a, w) <= TOL[dtype], name
+
+
+@pytest.mark.parametrize("route", fa.ROUTES)
+def test_flash_stores_the_log_sum_exp(cuda, route):
+    rng = np.random.default_rng(8)
+    for b, sq, skv, hq, hkv, d, causal in [(1, 100, 100, 8, 2, 128, True),
+                                           (1, 37, 80, 4, 1, 64, True),
+                                           (2, 64, 300, 8, 2, 80, False)]:
+        q = _randn(rng, (b, sq, hq, d), torch.bfloat16, cuda)
+        k, v = (_randn(rng, (b, skv, hkv, d), torch.bfloat16, cuda) for _ in range(2))
+        o, lse = fa.flash_attention(q, k, v, causal=causal, force_route=route, return_lse=True)
+        o_ref, lse_ref = ref.flash_attention_lse_ref(q, k, v, causal)
+        assert lse.shape == (b, hq, sq) and lse.dtype == torch.float32
+        assert (lse - lse_ref).abs().max().item() <= 1e-5
+        assert torch.equal(o, fa.flash_attention(q, k, v, causal=causal, force_route=route))
+
+
+def test_flash_bwd_repeats_bit_for_bit(cuda):
+    """No atomics: the GQA group's sum is taken inside a CTA."""
+    rng = np.random.default_rng(9)
+    q, do = (_randn(rng, (2, 200, 16, 128), torch.bfloat16, cuda) for _ in range(2))
+    k, v = (_randn(rng, (2, 200, 2, 128), torch.bfloat16, cuda) for _ in range(2))
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    first = fa.flash_attention_bwd(q, k, v, o, lse, do)
+    for _ in range(3):
+        again = fa.flash_attention_bwd(q, k, v, o, lse, do)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_bwd_rejects_what_it_cannot_take(cuda):
+    q = torch.zeros((1, 64, 4, 64), device=cuda)
+    k = torch.zeros((1, 64, 2, 64), device=cuda)
+    o, lse = fa.flash_attention(q, k, k, return_lse=True)
+    with pytest.raises(ValueError, match="lse"):
+        fa.flash_attention_bwd(q, k, k, o, lse[:, :, :10], q)
+    with pytest.raises(ValueError, match="one dtype"):
+        fa.flash_attention_bwd(q, k, k, o, lse, q.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="bad shapes"):
+        fa.flash_attention_bwd(q, k, k[:, :32], o, lse, q)
+    with pytest.raises(ValueError, match="head_dim"):
+        x = torch.zeros((1, 8, 2, 24), device=cuda)
+        fa.flash_attention_bwd(x, x, x, x, torch.zeros((1, 2, 8), device=cuda), x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_through_the_kernels_matches_plain_autograd(cuda, dtype):
+    rng = np.random.default_rng(10)
+    base = [_randn(rng, s, dtype, cuda) for s in ((2, 100, 8, 64), (2, 100, 2, 64),
+                                                  (2, 100, 2, 64))]
+    do = _randn(rng, (2, 100, 8, 64), dtype, cuda)
+    ops.reset_launch_counts()
+    qkv = [t.clone().requires_grad_(True) for t in base]
+    ops.flash_attention(*qkv).backward(do)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    assert ops.bwd_kernels() == {"delta": 1, "dkdv": 1, "dq": 1}
+    plain = [t.clone().requires_grad_(True) for t in base]
+    ops.flash_attention(*plain, mode="ref").backward(do)
+    assert ops.launch_counts()["flash_attention_bwd"] == 1  # "ref" is plain autograd
+    for a, b in zip(qkv, plain):
+        assert _rel(a.grad, b.grad) <= TOL[dtype]
+    with torch.no_grad():  # serving: one forward launch, no log-sum-exp, no backward
+        ops.flash_attention(*qkv)
+    assert ops.launch_counts()["flash_attention"] == 2
+
+
+def test_ssd_chunk_under_autograd_on_the_card_raises(cuda):
+    x = torch.zeros((1, 32, 2, 16), device=cuda, requires_grad=True)
+    a = torch.zeros((1, 32, 2), device=cuda)
+    b = torch.zeros((1, 32, 1, 16), device=cuda)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        ops.ssd_chunk(x, a, b, b)
+    with torch.no_grad():
+        ops.ssd_chunk(x, a, b, b)
+
+
+@pytest.mark.parametrize("arch", ["olmo-1b", "llama3.1-8b", "qwen1.5-0.5b"])
+def test_reduced_train_step_card_matches_cpu(cuda, arch):
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state, tree_leaves
+    from repro_torch.training.train_loop import make_train_step, value_and_grad
+
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _tree_to(params, cuda)
+    model = Model(cfg, runtime=RuntimeConfig(remat="full"))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 48)))
+    batch = {"tokens": tokens, "labels": tokens}
+    card = {k: v.to(cuda) for k, v in batch.items()}
+    loss_c, _, g_c = value_and_grad(model, params, batch)
+    loss_g, _, g_g = value_and_grad(model, on_card, card)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-4
+    for a, b in zip(tree_leaves(g_g), tree_leaves(g_c)):
+        assert _rel(a.cpu(), b) <= 1e-4
+    opt = OptimizerConfig()
+    p_c, _, m_c = make_train_step(model, opt)(params, init_opt_state(opt, params), batch)
+    p_g, _, m_g = make_train_step(model, opt)(on_card, init_opt_state(opt, on_card), card)
+    assert abs(float(m_g["grad_norm"]) / float(m_c["grad_norm"]) - 1) <= 1e-4
+    for a, b in zip(tree_leaves(p_g), tree_leaves(p_c)):
+        assert (a.cpu() - b).abs().max().item() <= 1e-4
+
+
+def test_remat_policies_on_the_card_give_the_same_gradients(cuda):
+    """remat "full" and "dots" recompute each layer's forward kernel in the
+    backward (2 launches a layer), "none" keeps it (1); the gradients agree."""
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training.optimizer import tree_leaves
+    from repro_torch.training.train_loop import value_and_grad
+
+    cfg = dataclasses.replace(reduced_config("llama3.1-8b"), dtype="float32")
+    params = _tree_to(init_params(cfg, torch.Generator().manual_seed(0), "cpu"), cuda)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(0, 256, (2, 48))).to(cuda)
+    batch = {"tokens": tokens, "labels": tokens}
+    grads = {}
+    for remat, per_layer in (("none", 1), ("full", 2), ("dots", 2)):
+        ops.reset_launch_counts()
+        _, _, grads[remat] = value_and_grad(Model(cfg, runtime=RuntimeConfig(remat=remat)),
+                                            params, batch)
+        assert ops.launch_counts()["flash_attention"] == per_layer * cfg.n_layers
+        assert ops.launch_counts()["flash_attention_bwd"] == cfg.n_layers
+    for remat in ("full", "dots"):
+        for a, b in zip(tree_leaves(grads[remat]), tree_leaves(grads["none"])):
+            assert _rel(a, b) <= 1e-6, remat
