@@ -50,10 +50,10 @@ TURNS_HELPERS = (
     "  asm volatile(\"bar.sync %0, 256;\" ::\"r\"(id) : \"memory\");\n}\n"
     "__device__ __forceinline__ void turn_pass(int id) {\n"
     "  asm volatile(\"bar.arrive %0, 256;\" ::\"r\"(id) : \"memory\");\n}\n"
-    "__device__ __forceinline__ void tma_load(")
+    "// S (64 x 128 f32) (+)= Q (64 x 16, smem)")
 VARIANTS = {  # name -> (edits of the source, head_dims it runs at)
     "pingpong_qk": ([
-        ("__device__ __forceinline__ void tma_load(", TURNS_HELPERS, 1),
+        ("// S (64 x 128 f32) (+)= Q (64 x 16, smem)", TURNS_HELPERS, 1),
         ("    int it = 0;  // K/V tiles consumed so far",
          "    if (wg == 1) turn_pass(1);\n    int it = 0;  // K/V tiles consumed so far", 1),
         ("        float s[64];\n        wgmma_fence();\n",

@@ -6,8 +6,10 @@ Each ``csrc/<name>.cu`` has a plain C interface and compiles on its own:
          -Xcompiler -fPIC -Xptxas=-v -o build/kernels/<name>-<hash>.so csrc/<name>.cu
 
 into ``build/kernels/`` at the root of the checkout (listed in
-``.gitignore``). The file name carries a hash of the source, so an edited
-source is rebuilt; ``ptxas``'s report (registers, shared memory, spills)
+``.gitignore``), with ``csrc/`` on the include path for the headers the
+sources share (``hopper_common.cuh``). The file name carries a hash of the
+source and of the headers it includes, so an edited source or header is
+rebuilt; ``ptxas``'s report (registers, shared memory, spills)
 is kept beside the library as ``<name>-<hash>.log``. ``build_all`` starts
 one ``nvcc`` per source, all at once. A failed build raises.
 """
@@ -18,6 +20,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -28,7 +31,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v", "-I", str(CSRC),
 ]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -59,9 +62,16 @@ def sass(name: str) -> str:
     return out.stdout
 
 
+def digest(src: str) -> str:
+    """A hash of a source's text and of every ``csrc/`` header it includes."""
+    h = hashlib.sha1(src.encode())
+    for header in re.findall(r'^#include "([\w.]+)"', src, re.M):
+        h.update((CSRC / header).read_bytes())
+    return h.hexdigest()[:12]
+
+
 def lib_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}-{digest}.so"
+    return BUILD_DIR / f"{name}-{digest((CSRC / f'{name}.cu').read_text())}.so"
 
 
 def build_all(names: list[str] | None = None) -> dict[str, Path]:
@@ -120,8 +130,7 @@ def load_variant(name: str, tag: str, edits, signatures) -> ctypes.CDLL:
     """``patched_source(name, edits)`` built into build/kernels/ as
     ``<name>_<tag>-<hash>.so`` and loaded with ``signatures``."""
     src = patched_source(name, edits)
-    digest = hashlib.sha1(src.encode()).hexdigest()[:12]
-    cu = BUILD_DIR / f"{name}_{tag}-{digest}.cu"
+    cu = BUILD_DIR / f"{name}_{tag}-{digest(src)}.cu"
     so = cu.with_suffix(".so")
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

@@ -80,9 +80,10 @@
 // output columns per lane.
 
 #include <cstdint>
-#include <cuda.h>  // CUtensorMap and its enums; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -282,6 +283,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
 
 namespace wgmma_route {
 
+using namespace hopper;
+
 constexpr int kBQ = 128;  // query rows per work item: two consumer warpgroups of 64
 constexpr int kBKV = 128;  // keys per K/V tile
 constexpr int kStages = 2;  // K/V tiles in flight
@@ -290,8 +293,6 @@ constexpr int kThreads = 384;  // warpgroups 0, 1: consumers; warpgroup 2: the p
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-constexpr int kNoEncoder = 9999;  // return codes above cudaError_t's range
-constexpr int kEncodeFailed = 10000;  // + the CUresult of cuTensorMapEncodeTiled
 
 // A Q, K or V tile of 128 rows as TMA boxes. d 64 and 128: boxes of 64
 // columns (128 B rows, the widest under the 128-byte swizzle), one or two a
@@ -324,66 +325,6 @@ struct Smem {  // byte offsets from a 1024-aligned base (the widest swizzle atom
   static constexpr int kBytes = kBar + 8 * (4 + 4 * kStages) + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("{\n .reg .b64 state;\n mbarrier.arrive.shared::cta.b64 state, [%0];\n}"
-               ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n .reg .pred p;\n mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      " selp.u32 %0, 1, 0, p;\n}"
-      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t globaltimer() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// Wait for the completion of the phase with this parity. A load or an
-// arrival that never comes traps after 10 s instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try(bar, parity)) return;
-  const uint64_t t0 = globaltimer();
-  while (!mbar_try(bar, parity)) {
-    if (globaltimer() - t0 > 10000000000ull) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];"
-      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar),
-        "r"(c0), "r"(c1), "r"(c2), "r"(c3) : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading and stride byte
-// offsets (16-byte units), the swizzle in bits 62-63 (1: 128 B, 3: 32 B).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
-                                              uint64_t layout) {
-  return static_cast<uint64_t>((addr & 0x3FFFFu) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) | (static_cast<uint64_t>(sbo >> 4) << 32) |
-         (layout << 62);
-}
 // K-major (Q, K): 8-row groups kGroupBytes apart; a k16 step lies inside one
 // swizzle row (32 B of a 128 B row, or the whole 32 B row), so the leading
 // offset is not read.
@@ -407,22 +348,6 @@ template <int D>
 __device__ __forceinline__ uint32_t kstep_off(int kk) {
   using T = Tile<D>;
   return (kk * 16 / T::kBoxCols) * T::kBoxBytes + (kk * 16 % T::kBoxCols) * 2;
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait0() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
-}
-// keep the compiler from moving accumulator registers across an async wgmma
-template <int N>
-__device__ __forceinline__ void fence_regs(float* r) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 // S (64 x 128 f32) (+)= Q (64 x 16, smem) . K^T (16 x 128, smem), both K-major.
@@ -758,40 +683,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant
       }
     }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime's entry-point query: no -lcuda
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-int encode(EncodeTiled enc, CUtensorMap* map, const void* ptr, const uint64_t* dims,
-           const uint64_t* strides, const uint32_t* box, CUtensorMapSwizzle swizzle) {
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
-                         dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : kEncodeFailed + static_cast<int>(r);
 }
 
 template <int D>

@@ -25,12 +25,16 @@ also stores each row's log-sum-exp (b, hq, sq) f32, natural log, which
 
 ``flash_attention_bwd`` wraps ``csrc/flash_attention_bwd.cu``, the
 gradient (dq, dk, dv) the plain ``ref.flash_attention_bwd_ref`` computes,
-in three kernels on the CUDA cores (D = rowsum(dO * O); dK and dV per kv
-tile, the GQA group summed inside a CTA; dQ per q tile): float32 or
-bfloat16 at head_dim a multiple of 16 up to 128. It replaces no Pallas
-kernel (JAX differentiates its jnp chunked flash); ``kernels/ops.py`` runs
-it under autograd. Counts its calls in ``flash_attention_bwd.launches``
-and each kernel's launches in ``flash_attention_bwd.launches_by_kernel``.
+in three kernels (the rows' statistics D = rowsum(dO * O); dK and dV per kv
+tile, the GQA group summed inside a CTA; dQ per q tile), on the same two
+routes as the forward, picked by the same ``route``: ``"wgmma"`` (bf16 at
+d 64, 80 and 128, the products on the tensor cores fed by TMA) and
+``"cuda_cores"`` (float32, and bf16 at the other multiples of 16 up to
+128). Neither is a fallback for the other. It replaces no Pallas kernel
+(JAX differentiates its jnp chunked flash); ``kernels/ops.py`` runs it
+under autograd. Counts its calls in ``flash_attention_bwd.launches``, per
+route in ``flash_attention_bwd.launches_by_route`` and each kernel's
+launches in ``flash_attention_bwd.launches_by_kernel``.
 """
 
 from __future__ import annotations
@@ -75,9 +79,21 @@ BWD_SIGNATURES = {
         ctypes.c_int,
     ),
     "flash_attention_bwd_smem": ([_I, _I], ctypes.c_int),
+    "flash_attention_bwd_wgmma": (
+        [_P] * 10 + [_U64P, _U64P, _U64P, _U64P, _U32P] + [_I] * 8 + [ctypes.c_float, _P],
+        ctypes.c_int,
+    ),
+    "flash_attention_bwd_wgmma_smem": ([_I, _I], ctypes.c_int),
 }
-# the backward's kernels, in launch order (csrc/flash_attention_bwd.cu)
+# the backward's kernels, in launch order (csrc/flash_attention_bwd.cu); on
+# the wgmma route "delta" also packs each row's log-sum-exp beside D
 BWD_KERNELS = ("delta", "dkdv", "dq")
+# the backward's wgmma route (namespace wgmma_route of the source): a CTA
+# owns BWD_BLOCK keys (dK/dV) or query rows (dQ), 64 per consumer
+# warpgroup, and streams tiles of 64 query rows or keys past them; every
+# TMA box is BWD_BOX_ROWS rows. The rows' (lse log2 e, D) scratch is padded
+# to a multiple of BWD_BLOCK rows.
+BWD_BLOCK, BWD_BOX_ROWS = 128, 64
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _NO_ENCODER, _ENCODE_FAILED = 9999, 10000
 
@@ -92,6 +108,19 @@ def route(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "cuda_cores"
+
+
+def pick_route(dtype: torch.dtype, head_dim: int, force_route: str | None = None) -> str:
+    """``route``'s pick, or ``force_route`` where that route takes these
+    inputs (the forward and the backward alike); raises otherwise."""
+    picked = route(dtype, head_dim)
+    if force_route is None:
+        return picked
+    if force_route not in ROUTES:
+        raise ValueError(f"route {force_route!r} not in {ROUTES}")
+    if force_route == "wgmma" and picked != "wgmma":
+        raise ValueError(f"the wgmma route takes bf16 at head_dim {WGMMA_HEAD_DIMS}")
+    return force_route
 
 
 def q_tile_order(n_q_tiles: int, heads_x_batch: int) -> list[int]:
@@ -156,15 +185,9 @@ def flash_attention(
             raise ValueError("flash_attention takes contiguous q, k, v of one dtype on the card")
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
-    picked = route(q.dtype, d)
+    picked = pick_route(q.dtype, d, force_route)
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {q.shape}, k {k.shape}, v {v.shape}")
-    if force_route is not None:
-        if force_route not in ROUTES:
-            raise ValueError(f"route {force_route!r} not in {ROUTES}")
-        if force_route == "wgmma" and picked != "wgmma":
-            raise ValueError(f"the wgmma route takes bf16 at head_dim {WGMMA_HEAD_DIMS}")
-        picked = force_route
     out = torch.empty_like(q)
     lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
     lse_ptr = lse.data_ptr() if return_lse else None
@@ -207,11 +230,35 @@ def flash_attention(
     return out, lse
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
+def bwd_tensor_map_args(shape: tuple[int, ...], elem_bytes: int = 2):
+    """``tensor_map_args`` for the backward's wgmma route: the same map over
+    the (b, s, h, d) tensor as it lies, with boxes of BWD_BOX_ROWS rows."""
+    dims, strides, box = tensor_map_args(shape, elem_bytes)
+    return dims, strides, (box[0], 1, BWD_BOX_ROWS, 1)
+
+
+def bwd_stat_rows(sq: int) -> int:
+    """Rows per (batch row, q head) of the wgmma route's statistics scratch:
+    sq rounded up to BWD_BLOCK (the padded rows hold (+inf, 0), so their P is
+    0)."""
+    return -(-sq // BWD_BLOCK) * BWD_BLOCK
+
+
+def bwd_grids(b: int, sq: int, skv: int, hq: int, hkv: int) -> dict[str, tuple[int, int]]:
+    """The wgmma route's CTA grids (x, y): dK/dV one CTA per (batch row, kv
+    head) and BWD_BLOCK keys, dQ one per (batch row, q head) and BWD_BLOCK
+    query rows."""
+    return {"dkdv": (b * hkv, -(-skv // BWD_BLOCK)), "dq": (b * hq, -(-sq // BWD_BLOCK))}
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, *,
+                        force_route: str | None = None):
     """(dq, dk, dv) of ``flash_attention`` at output gradient ``do``, from
     the forward's inputs, its output ``o`` and its ``lse``; the gradients in
-    the inputs' dtype. Raises on what the kernels do not take and on a
-    build or launch failure."""
+    the inputs' dtype. ``force_route`` runs the named route where ``route``
+    would pick the other; it raises where that route cannot take the inputs.
+    Raises on what the kernels do not take and on a build or launch
+    failure."""
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
         if t.device.type != "cuda" or not t.is_contiguous() or t.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd takes contiguous tensors of one dtype on "
@@ -221,7 +268,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
                              f"starts at {t.data_ptr():#x}")
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
-    route(q.dtype, d)  # the dtypes and head_dims the kernels take
+    picked = pick_route(q.dtype, d, force_route)
     if (hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
             or o.shape != q.shape or do.shape != q.shape):
         raise ValueError(f"bad shapes q {q.shape}, k {k.shape}, v {v.shape}, o {o.shape}, "
@@ -231,19 +278,39 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
         raise ValueError(f"lse must be a contiguous ({b}, {hq}, {sq}) float32 tensor on "
                          f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
     lib = build.load("flash_attention_bwd", BWD_SIGNATURES)
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            do.data_ptr())
     with torch.cuda.device(q.device):
-        rc = lib.flash_attention_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            do.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            _DTYPES[q.dtype], b, sq, skv, hq, hkv, d, int(causal), 1.0 / math.sqrt(d),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        if picked == "wgmma":
+            sq_pad = bwd_stat_rows(sq)
+            stat = torch.empty((b, hq, sq_pad, 2), dtype=torch.float32, device=q.device)
+            q_dims, q_strides, box = bwd_tensor_map_args(tuple(q.shape))
+            kv_dims, kv_strides, _ = bwd_tensor_map_args(tuple(k.shape))
+            rc = lib.flash_attention_bwd_wgmma(
+                *ptrs, stat.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                _u64(q_dims), _u64(q_strides), _u64(kv_dims), _u64(kv_strides),
+                (ctypes.c_uint32 * 4)(*box), b, sq, skv, hq, hkv, d, sq_pad, int(causal),
+                1.0 / math.sqrt(d), stream,
+            )
+        else:
+            delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
+            rc = lib.flash_attention_bwd(
+                *ptrs, delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                _DTYPES[q.dtype], b, sq, skv, hq, hkv, d, int(causal), 1.0 / math.sqrt(d),
+                stream,
+            )
+    if rc == _NO_ENCODER:
+        raise RuntimeError("flash_attention_bwd (wgmma): libcuda has no cuTensorMapEncodeTiled")
+    if rc >= _ENCODE_FAILED:
+        raise RuntimeError(f"flash_attention_bwd (wgmma): cuTensorMapEncodeTiled refused a "
+                           f"map: CUresult {rc - _ENCODE_FAILED}")
     if rc:
-        raise RuntimeError(f"flash_attention_bwd launch failed: cudaError_t {rc}")
+        raise RuntimeError(f"flash_attention_bwd ({picked}) launch failed: cudaError_t {rc}")
     if b and sq and skv:  # otherwise a memset or nothing ran
         flash_attention_bwd.launches += 1
+        flash_attention_bwd.launches_by_route[picked] += 1
         for name in BWD_KERNELS:
             flash_attention_bwd.launches_by_kernel[name] += 1
     return dq, dk, dv
@@ -253,6 +320,7 @@ def reset_launch_counts() -> None:
     flash_attention.launches = 0
     flash_attention.launches_by_route = dict.fromkeys(ROUTES, 0)
     flash_attention_bwd.launches = 0
+    flash_attention_bwd.launches_by_route = dict.fromkeys(ROUTES, 0)
     flash_attention_bwd.launches_by_kernel = dict.fromkeys(BWD_KERNELS, 0)
 
 

@@ -75,6 +75,11 @@ def bwd_kernels() -> dict[str, int]:
     return dict(_fa.flash_attention_bwd.launches_by_kernel)
 
 
+def bwd_routes() -> dict[str, int]:
+    """flash_attention_bwd's calls per route ("wgmma", "cuda_cores")."""
+    return dict(_fa.flash_attention_bwd.launches_by_route)
+
+
 def _differentiated(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 

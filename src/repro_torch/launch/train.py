@@ -80,7 +80,8 @@ def main(argv: list[str] | None = None) -> list[dict]:
     _, _, history = run_train_loop(
         model, opt_cfg,
         TrainLoopConfig(steps=args.steps, log_every=5, checkpoint_every=args.checkpoint_every),
-        iter(data), params=params, step_fn=make_train_step(model, opt_cfg, args.accum),
+        iter(data), params=params, step_fn=make_train_step(model, opt_cfg, args.accum,
+                                                           in_place=True),
         on_metrics=on_metrics,
     )
     return history

@@ -8,8 +8,10 @@ corrections ``b ** step`` computed in float32 tensors, not Python doubles;
 decoupled weight decay on every leaf with ``ndim >= 2``, which takes in the
 stacked per-layer vectors (a norm weight of shape (layers, d)), as JAX's
 does. Leaves are visited in JAX's flattening order (sorted keys), so the
-global norm sums them as JAX does. Every function is pure: it returns new
-tensors and changes none it was given.
+global norm sums them as JAX does. Every function is pure (it returns new
+tensors and changes none it was given) except ``apply_updates`` with
+``in_place``, which the training loop uses to keep one copy of the weights
+and moments.
 """
 
 from __future__ import annotations
@@ -107,9 +109,13 @@ def init_opt_state(cfg: OptimizerConfig, params: dict) -> dict:
     return state
 
 
-def apply_updates(cfg: OptimizerConfig, params: dict, grads: dict,
-                  state: dict) -> tuple[dict, dict]:
-    """One optimizer step: (new params, new state)."""
+def apply_updates(cfg: OptimizerConfig, params: dict, grads: dict, state: dict,
+                  in_place: bool = False) -> tuple[dict, dict]:
+    """One optimizer step: (new params, new state). With ``in_place`` each
+    leaf's new value and moments are written into the tensors it was given,
+    leaf by leaf (so only one leaf's f32 temporaries live at a time), and
+    ``params`` and ``state`` themselves come back; the arithmetic is the
+    same, so the values equal the pure step's bit for bit."""
     step = state["step"] + 1
     lr = lr_schedule(cfg, step)
     b1, b2 = cfg.b1, cfg.b2
@@ -118,7 +124,7 @@ def apply_updates(cfg: OptimizerConfig, params: dict, grads: dict,
         bc1 = 1.0 - torch.pow(_f32(b1, step.device), step.to(torch.float32))
         bc2 = 1.0 - torch.pow(_f32(b2, step.device), step.to(torch.float32))
 
-        def adamw(p, g, m, v):
+        def update(p, g, m, v):
             g = g.to(torch.float32)
             m = b1 * m + (1 - b1) * g
             v = b2 * v + (1 - b2) * torch.square(g)
@@ -127,11 +133,9 @@ def apply_updates(cfg: OptimizerConfig, params: dict, grads: dict,
                 delta = delta + cfg.weight_decay * p.to(torch.float32)
             return (p.to(torch.float32) - lr * delta).to(p.dtype), m, v
 
-        out = tree_map(adamw, params, grads, state["m"], state["v"])
-        return _nth(out, 0), {"step": step, "m": _nth(out, 1), "v": _nth(out, 2)}
-
-    if cfg.name == "lion":
-        def lion(p, g, m):
+        moments = ("m", "v")
+    elif cfg.name == "lion":
+        def update(p, g, m):
             g = g.to(torch.float32)
             u = torch.sign(b1 * m + (1 - b1) * g)
             if p.ndim >= 2:
@@ -139,15 +143,25 @@ def apply_updates(cfg: OptimizerConfig, params: dict, grads: dict,
             m = b2 * m + (1 - b2) * g
             return (p.to(torch.float32) - lr * u).to(p.dtype), m
 
-        out = tree_map(lion, params, grads, state["m"])
-        return _nth(out, 0), {"step": step, "m": _nth(out, 1)}
+        moments = ("m",)
+    elif cfg.name == "sgd":
+        def update(p, g):
+            return ((p.to(torch.float32) - lr * g.to(torch.float32)).to(p.dtype),)
 
-    if cfg.name == "sgd":
-        new = tree_map(lambda p, g: (p.to(torch.float32) - lr * g.to(torch.float32)).to(p.dtype),
-                       params, grads)
-        return new, {"step": step}
+        moments = ()
+    else:
+        raise ValueError(cfg.name)
 
-    raise ValueError(cfg.name)
+    if in_place:
+        for leaves in zip(tree_leaves(params), tree_leaves(grads),
+                          *(tree_leaves(state[k]) for k in moments)):
+            for dst, new in zip((leaves[0], *leaves[2:]), update(*leaves)):
+                dst.copy_(new)
+        state["step"].copy_(step)
+        return params, state
+    out = tree_map(update, params, grads, *(state[k] for k in moments))
+    new_state = {"step": step, **{k: _nth(out, i + 1) for i, k in enumerate(moments)}}
+    return _nth(out, 0), new_state
 
 
 def _nth(tree: dict, i: int) -> dict:

@@ -17,8 +17,12 @@ where JAX's ``jax.value_and_grad(loss_fn)`` is PyTorch autograd through
   * metrics ``loss``, ``grad_norm``, ``lr`` (of the new step) and ``aux/*``
     as 0-dim tensors on the parameters' device.
 
-The step is eager PyTorch: nothing is jitted or donated, and the parameters
-and state it is given are left as they were.
+The step is eager PyTorch: nothing is jitted. By default it is pure: the
+parameters and state it is given are left as they were. With ``in_place``
+it writes the new weights and moments into the tensors it was given, in
+the same f32 arithmetic, so one copy of each is held instead of two (the
+twin of JAX's ``donate_argnums=(0, 1)``, ``repro/training/train_loop.py:122``).
+``run_train_loop`` steps in place.
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ def value_and_grad(model: Model, params: dict, batch: dict):
     return loss.detach(), aux, tree_unflatten(params, grads)
 
 
-def make_train_step(model: Model, opt_cfg: OptimizerConfig, accum_steps: int = 1) -> Callable:
+def make_train_step(model: Model, opt_cfg: OptimizerConfig, accum_steps: int = 1,
+                    in_place: bool = False) -> Callable:
     def compress(g: dict) -> dict:
         if opt_cfg.grad_compression == "bf16":
             return tree_map(lambda x: x.to(torch.bfloat16), g)
@@ -81,7 +86,8 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, accum_steps: int = 1
             loss = loss / accum_steps
 
         grads, gnorm = opt_lib.clip_by_global_norm(grads, opt_cfg.grad_clip)
-        params, opt_state = opt_lib.apply_updates(opt_cfg, params, grads, opt_state)
+        params, opt_state = opt_lib.apply_updates(opt_cfg, params, grads, opt_state,
+                                                  in_place=in_place)
         metrics = {
             "loss": loss,
             "grad_norm": gnorm,
@@ -123,7 +129,12 @@ def run_train_loop(
     each moved to the parameters' device; returns (params, opt_state,
     history), history holding the metrics as floats at the first step and
     every ``log_every`` steps. ``params`` is required: the port draws no
-    JAX key (``models.model.init_params`` makes them from a generator)."""
+    JAX key (``models.model.init_params`` makes them from a generator).
+
+    The default step updates the weights and moments in place
+    (``make_train_step(..., in_place=True)``): the loop steps the very
+    tensors it is given, as JAX's donates them, and holds no copy. A caller
+    that needs its weights afterwards passes a copy."""
     if params is None:
         raise ValueError("run_train_loop needs params (models.model.init_params makes them)")
     if loop_cfg.checkpoint_dir:
@@ -131,7 +142,7 @@ def run_train_loop(
     if opt_state is None:
         opt_state = opt_lib.init_opt_state(opt_cfg, params)
     if step_fn is None:
-        step_fn = make_train_step(model, opt_cfg)
+        step_fn = make_train_step(model, opt_cfg, in_place=True)
     device = tree_leaves(params)[0].device
 
     history = []

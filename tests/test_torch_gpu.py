@@ -1287,3 +1287,87 @@ def test_remat_policies_on_the_card_give_the_same_gradients(cuda):
     for remat in ("full", "dots"):
         for a, b in zip(tree_leaves(grads[remat]), tree_leaves(grads["none"])):
             assert _rel(a, b) <= 1e-6, remat
+
+
+# ---------------------------------------------------------------------------
+# The backward's wgmma route (bf16, d 64 / 80 / 128): against the plain
+# version at ragged, GQA and non-causal shapes, beside the CUDA-core route on
+# the same inputs; reruns bit for bit; the route picked and counted.
+# ---------------------------------------------------------------------------
+
+BWD_WGMMA_CASES = [
+    # (b, sq, skv, hq, hkv, d, causal)
+    (1, 37, 80, 4, 1, 128, True),  # sq < skv: keys past every row get dK = dV = 0
+    (1, 37, 80, 8, 2, 64, True),
+    (1, 37, 80, 8, 1, 80, True),
+    (1, 129, 129, 16, 2, 80, True),  # one row past a 128-row block
+    (1, 300, 64, 4, 4, 64, True),  # sq > skv under the mask
+    (1, 64, 300, 8, 2, 64, False),
+    (2, 200, 200, 16, 2, 80, False),
+    (2, 200, 200, 8, 8, 128, True),
+    (1, 100, 300, 8, 2, 128, True),  # key blocks that no row sees
+]
+
+
+@pytest.mark.parametrize("case", BWD_WGMMA_CASES)
+def test_flash_bwd_wgmma_matches_plain_at_ragged_shapes(cuda, case):
+    b, sq, skv, hq, hkv, d, causal = case
+    rng = np.random.default_rng(11)
+    q, do = (_randn(rng, (b, sq, hq, d), torch.bfloat16, cuda) for _ in range(2))
+    k, v = (_randn(rng, (b, skv, hkv, d), torch.bfloat16, cuda) for _ in range(2))
+    o, lse = fa.flash_attention(q, k, v, causal=causal, return_lse=True)
+    want = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+    fa.reset_launch_counts()
+    got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    slow = fa.flash_attention_bwd(q, k, v, o, lse, do, causal, force_route="cuda_cores")
+    assert fa.flash_attention_bwd.launches_by_route == {"wgmma": 1, "cuda_cores": 1}
+    for name, a, s, w in zip(("dq", "dk", "dv"), got, slow, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape
+        assert torch.isfinite(a).all()
+        assert _rel(a, w) <= TOL[torch.bfloat16], name
+        assert _rel(s, w) <= TOL[torch.bfloat16], name
+
+
+def test_flash_bwd_wgmma_repeats_bit_for_bit(cuda):
+    """No atomics on the tensor-core route either: dK and dV of a GQA group
+    are summed inside one CTA, dQ inside another."""
+    rng = np.random.default_rng(12)
+    for b, sq, skv, hq, hkv, d in ((2, 300, 300, 16, 2, 128), (1, 129, 129, 16, 2, 80)):
+        q, do = (_randn(rng, (b, sq, hq, d), torch.bfloat16, cuda) for _ in range(2))
+        k, v = (_randn(rng, (b, skv, hkv, d), torch.bfloat16, cuda) for _ in range(2))
+        o, lse = fa.flash_attention(q, k, v, return_lse=True)
+        first = fa.flash_attention_bwd(q, k, v, o, lse, do, force_route="wgmma")
+        for _ in range(3):
+            again = fa.flash_attention_bwd(q, k, v, o, lse, do, force_route="wgmma")
+            assert all(torch.equal(a, x) for a, x in zip(first, again))
+
+
+def test_flash_bwd_force_route_refuses_what_the_route_cannot_take(cuda):
+    q = torch.zeros((1, 64, 4, 64), device=cuda)
+    k = torch.zeros((1, 64, 2, 64), device=cuda)
+    o, lse = fa.flash_attention(q, k, k, return_lse=True)
+    with pytest.raises(ValueError, match="wgmma route takes bf16"):
+        fa.flash_attention_bwd(q, k, k, o, lse, q, force_route="wgmma")
+    with pytest.raises(ValueError, match="not in"):
+        fa.flash_attention_bwd(q, k, k, o, lse, q, force_route="tensor_cores")
+
+
+def test_training_step_backward_takes_the_wgmma_route(cuda):
+    """A bf16 attention stack at head_dim 64 trains through the wgmma
+    backward: one call (three kernels) a layer, all on that route."""
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training.train_loop import value_and_grad
+
+    cfg = dataclasses.replace(get_config("qwen1.5-0.5b"), n_layers=2, d_model=256, n_heads=4,
+                              n_kv_heads=4, d_ff=512, vocab_size=512)
+    assert cfg.head_dim == 64
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    tokens = torch.from_numpy(np.random.default_rng(3).integers(0, 512, (2, 200))).to(cuda)
+    ops.reset_launch_counts()
+    loss, _, grads = value_and_grad(Model(cfg, runtime=RuntimeConfig(remat="full")), params,
+                                    {"tokens": tokens, "labels": tokens})
+    assert torch.isfinite(loss)
+    assert ops.bwd_routes() == {"wgmma": cfg.n_layers, "cuda_cores": 0}
+    assert ops.bwd_kernels() == dict.fromkeys(fa.BWD_KERNELS, cfg.n_layers)
