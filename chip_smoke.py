@@ -21,7 +21,10 @@ Phases, each a hard check (any failure exits non-zero):
    then flash_attention_bwd's kernels: the wgmma route's dK/dV and dQ at
    d 64, 80 and 128 with their registers, spills and dynamic shared memory,
    failing on a spill or a library whose SASS lacks HGMMA and UTMALDG; the
-   CUDA-core route's three kernels per dtype (a spill there is printed).
+   CUDA-core route's three kernels per dtype (a spill there is printed);
+   then ssd_chunk_bwd's three kernels per B/C dtype with their registers,
+   spills and shared memory, the main kernel's CTAs per SM, failing if the
+   main kernel spills.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it (Llama-3.1-8B: 32 layers, 8 kv heads,
    head_dim 128; 1024-token prompts = 64 pool blocks; max_len 2048; decode
@@ -177,6 +180,14 @@ Phases, each a hard check (any failure exits non-zero):
 12. musicgen-large: full width (d 2048, 32 / 32 heads at d 64, d_ff 8192,
    gelu, vocabulary 2048), all 48 layers (3.2 B parameters): 1024 seeded
    audio frame embeddings, then 16 decode steps, as phase 11.
+    The SSD backward ``ssd_chunk_bwd`` against ``ssd_chunk_bwd_ref`` at
+   SSD_BWD_SHAPES: mamba2-2.7b's training call (32 chunk tiles of 256, 80
+   heads of 64, d_state 128, one bf16 group), Jamba's 256 heads, a ragged
+   chunk of 100, two groups, float32 B/C, with and without dcum, decays
+   strong enough that exp above the diagonal would overflow: dx and da
+   within SSD_TOL of their scale, dB and dC within one rounding of the f32
+   result, a second call equal bit for bit; timed at the training shape and
+   at Jamba's beside the plain version and the bound.
 13. training (phase 12's model freed first): olmo-1b at full width and depth
    (d 2048, 16 / 16 heads at d 128, d_ff 8192, vocabulary 50304, tied
    embeddings, non-parametric norms, 16 layers, 1.18 B parameters, bf16)
@@ -201,10 +212,33 @@ Phases, each a hard check (any failure exits non-zero):
    step's peak printed beside the loop's; a profiled step; (iii) 5 steps
    on one repeated batch at peak_lr 1e-3 (no warmup): the last loss below
    the first.
+14. Mamba-2 training (phase 13's model freed first): mamba2-2.7b at full
+   width and depth (d 2560, 64 layers, 80 SSD heads of 64, d_state 128, one
+   group, chunk 256, vocabulary 50280, tied embeddings, 2.70 B parameters)
+   through ``Model.loss_fn`` and ``run_train_loop``, remat "full",
+   ``OptimizerConfig()``, phase 13's batches of 4 x 2048 tokens. (i) float32
+   weights: one gradient on the kernel path (``ssd_chunk`` forward and the
+   ``ssd_chunk_bwd`` kernel) against the plain path (kernel_mode="ref"),
+   the first path's gradients parked on the host: the loss within
+   SSM_LOSS_TOL and every gradient leaf within SSM_GRAD_TOL of its largest
+   entry, limits set from ``experiments/ssd_train_probe.py``'s readings; the
+   kernel built with a planted fault (SSM_FAULT) refused by the same limit;
+   at layers 0, 31 and 63 each layer's own backward call against the
+   float64 ``ssd_chunk_bwd_ref`` on its captured inputs, within SSM_F64_TOL,
+   the fault refused there too. (ii) bf16: 8 steps through
+   ``run_train_loop`` in place: finite losses and grad norms, 128 forward
+   and 64 backward SSD launches a step, no attention, pool, paged or sparse
+   kernel; step time, tokens/s, the model-FLOP share of 989 TFLOP/s (the
+   SSD's FLOPs stated) and peak memory; a profiled step by kind of kernel.
+   (iii) 5 steps on one repeated batch at peak_lr 1e-3: the last loss below
+   the first. The pure step is not run at this size (a second 30 GB of
+   weights and moments); its equality with the in-place loop is phase 13's
+   check and a ``gpu`` test's on a reduced mamba2.
 
 Prints the kernel table as one JSON line (the e4m3 paged instantiation as
 a row of its own, ``paged_attention_e4m3``, and the attention backward as
-``flash_attention_bwd``, its launches from phase 13; each row's launches by
+``flash_attention_bwd``, its launches from phase 13, and the SSD backward
+as ``ssd_chunk_bwd``, its launches from phase 14; each row's launches by
 path),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Without a GPU it exits non-zero before doing anything.
@@ -224,7 +258,8 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.experiments.common import HBM_BYTES_PER_S, cycled_ms, device_ms  # noqa: E402
+from repro_torch.experiments.common import (  # noqa: E402
+    HBM_BYTES_PER_S, cycled_ms, device_ms, rounding_steps)
 
 BF16_FLOP_PER_S = 989e12  # dense tensor-core bf16
 FLASH_TOL = 2e-2  # bf16, tests/test_kernels.py:42
@@ -374,6 +409,37 @@ BWD_SHAPES = {"olmo_1b_train": (4, 2048, 2048, 16, 16, 128, True, "bfloat16"),
 BWD_TRAIN_MS = 1.5
 # phase 13: olmo-1b at full width and depth, trained on SyntheticLM batches
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, OVERFIT_STEPS = 2048, 4, 8, 5
+# phase 2's SSD backward against ssd_chunk_bwd_ref on the same inputs: dx and
+# da within SSD_TOL of each output's scale (f32 sums in other orders on both
+# sides: readings 1.1e-6 to 2.7e-6 in the first chip run), dB and dC (in B's
+# dtype) within one rounding step of the f32 result (common.rounding_steps).
+# label -> (chunk tiles, Lc, heads, head dim, groups, d_state, B/C dtype,
+# with dcum, largest decay per step; None: the model's dt * A draws of
+# ssd_inputs). Decays of up to 2 a step make cum fall past -100 within a
+# chunk, where exp above the diagonal overflows
+SSD_BWD_SHAPES = {"mamba2_2.7b_train": (32, 256, 80, 64, 1, 128, "bfloat16", True, None),
+                  "jamba": (4, 256, 256, 64, 1, 128, "bfloat16", True, None),
+                  "ragged_lc100": (8, 100, 80, 64, 1, 128, "bfloat16", True, 2.0),
+                  "groups2": (8, 256, 80, 64, 2, 128, "bfloat16", True, 2.0),
+                  "float32_bc": (8, 256, 80, 64, 1, 128, "float32", True, 2.0),
+                  "no_dcum": (32, 256, 80, 64, 1, 128, "bfloat16", False, 2.0)}
+# phase 14: mamba2-2.7b at full width and depth trained on phase 13's
+# SyntheticLM batches; its SSD backward checked per layer at these layers
+SSM_TRAIN_STEPS, SSM_F64_LAYERS = 8, (0, 31, 63)
+# phase 14 (i), float32 weights, the kernel path against the plain path from
+# the same weights and batch: the two differ only by f32 summation order
+# through 64 layers. Readings (experiments/ssd_train_probe.py, batches 0 and
+# 1, NVIDIA H100 80GB HBM3, 700.00 W): loss gap 1.9e-6 and 0 at a loss of
+# 11.334; the furthest gradient leaf 3.04e-5 and 4.66e-5 of its largest
+# entry; per layer (0, 31, 63) dx, da, dB and dC against the float64
+# backward 4.9e-6 to 8.4e-6. The limits are four to ten times those. The
+# planted faults read: without u_j in dcum ("no_u") the furthest leaf 20.1
+# and 15.8, da per layer 0.25-0.38; without a head block's dB and dC
+# partial ("drop_block") 0.53 and 0.54, dB and dC per layer 0.54-0.93
+SSM_LOSS_TOL = 2e-5
+SSM_GRAD_TOL = 2e-4
+SSM_F64_TOL = 5e-5
+SSM_FAULT = "no_u"
 # phase 13 (i), one AdamW step on the kernel path against the plain path
 # (kernel_mode="ref") from the same weights and batch, bf16 through 16
 # layers (flash rounds P to bf16 for P.V, the plain version does not, and
@@ -661,7 +727,8 @@ def ssd_row(cfg, jamba_cfg, g) -> dict:
     from repro_torch.kernels import ssd_chunk as ssd
 
     rows = {}
-    for key, c_, seq in ((1024, cfg, 1024), (4096, cfg, 4096), ("jamba", jamba_cfg, 1024)):
+    for key, c_, seq in ((1024, cfg, 1024), (4096, cfg, 4096), ("jamba", jamba_cfg, 1024),
+                         ("mamba2_2.7b_train", cfg, TRAIN_BATCH * TRAIN_SEQ)):
         x, a, b, c = ssd_inputs(c_, seq, g)
         y, st, cum = ssd.ssd_chunk(x, a, b, c, return_cum=True)
         yr, sr = ref.ssd_chunk_ref(x, a, b, c)
@@ -704,9 +771,105 @@ def ssd_row(cfg, jamba_cfg, g) -> dict:
     row = rows[1024]
     row["ms_4096"], row["plain_ms_4096"] = rows[4096]["ms"], rows[4096]["plain_ms"]
     row["max_abs_err_4096"] = rows[4096]["max_abs_err"]
-    jamba = rows["jamba"]
-    row["shapes"] = {"jamba": {k: jamba[k] for k in (
-        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}}
+    row["shapes"] = {key: {k: rows[key][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
+        for key in ("jamba", "mamba2_2.7b_train")}
+    return row
+
+
+def ssd_bwd_bound(nb, lc, nh, hp, g, n, bc_dtype, with_dcum) -> tuple[float, str, float]:
+    """(bound in ms, what bounds it, FLOPs) of one ssd_chunk_bwd call: each
+    input read once and each output written once; the products on causal
+    pairs, per head (dM = dy.x^T, M^T.dy, w dst^T B, w x dst^T) and per group
+    (G = C.B^T in B/C's type, dG^T.C and dG.B after the head sum), f32
+    products at the TF32 tensor-core rate."""
+    import torch
+
+    es = torch.tensor([], dtype=getattr(torch, bc_dtype)).element_size()
+    moved = (4 * (3 * nb * lc * nh * hp + nb * nh * n * hp + (3 if with_dcum else 2) * nb * lc
+                  * nh) + 4 * es * nb * lc * g * n)
+    pairs = lc * (lc + 1) // 2
+    flops_g = nb * g * 2 * pairs * n
+    flops_f32 = nb * nh * (4 * pairs * hp + 4 * lc * n * hp) + nb * g * 4 * pairs * n
+    t_bytes = moved / HBM_BYTES_PER_S
+    t_ops = (flops_g / (BF16_FLOP_PER_S if es == 2 else TF32_FLOP_PER_S)
+             + flops_f32 / TF32_FLOP_PER_S)
+    return (max(t_bytes, t_ops) * 1e3, "operations" if t_ops > t_bytes else "bytes",
+            flops_g + flops_f32)
+
+
+def ssd_bwd_row(cfg, jamba_cfg, g) -> dict:
+    """ssd_chunk_bwd against ssd_chunk_bwd_ref at SSD_BWD_SHAPES (module
+    docstring, phase 2), each rerun bit for bit; timed at the training shape
+    and Jamba's 256 heads against the plain version and the bound. No single
+    PyTorch call computes this gradient, so the library column is null."""
+    import torch
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    dev = torch.device("cuda")
+    row, shapes = None, {}
+    for label, (nb, lc, nh, hp, ng, n, bc, with_dcum, decay) in SSD_BWD_SHAPES.items():
+        if decay is None:  # the model's draws, at this many tokens of one sequence
+            x, a, b, c = ssd_inputs(jamba_cfg if label == "jamba" else cfg, nb * lc, g)
+            check(tuple(x.shape) == (nb, lc, nh, hp) and tuple(b.shape) == (nb, lc, ng, n),
+                  f"{label}: the config gives x {tuple(x.shape)}, B {tuple(b.shape)}")
+        else:
+            x = torch.randn((nb, lc, nh, hp), generator=g, device=dev) * 0.05
+            a = -torch.rand((nb, lc, nh), generator=g, device=dev) * decay
+            bcm = torch.randn((nb, lc, 2 * ng * n), generator=g, device=dev) * 0.5
+            bcm = bcm.to(getattr(torch, bc))
+            b = bcm[..., :ng * n].reshape(nb, lc, ng, n)
+            c = bcm[..., ng * n:].reshape(nb, lc, ng, n)
+        dy = torch.randn((nb, lc, nh, hp), generator=g, device=dev)
+        dst = torch.randn((nb, nh, n, hp), generator=g, device=dev)
+        dcum = torch.randn((nb, lc, nh), generator=g, device=dev) if with_dcum else None
+        got = ssd.ssd_chunk_bwd(x, a, b, c, dy, dst, dcum)
+        want = ref.ssd_chunk_bwd_ref(x, a, b, c, dy, dst, dcum)
+        torch.cuda.synchronize()
+        rel = {k: _rel(gv, wv) for k, gv, wv in zip(("dx", "da"), got, want)}
+        ulp = {k: rounding_steps(gv, wv) for k, gv, wv in zip(("dB", "dC"), got[2:], want[2:])}
+        cum = torch.cumsum(a, dim=1)
+        overflow = (cum.max(1).values - cum.min(1).values).max().item()
+        check(all(torch.isfinite(t).all() for t in got) and max(rel.values()) <= SSD_TOL
+              and max(ulp.values()) <= 1.0,
+              f"ssd_chunk_bwd at {label} (x {tuple(x.shape)}, groups {ng}, B/C {bc}, dcum "
+              f"{'random' if with_dcum else 'none'}; cum spans up to {overflow:.0f} in a "
+              f"chunk): dx, da {[f'{v:.3g}' for v in rel.values()]} of their scale <= "
+              f"{SSD_TOL}; dB, dC {[f'{v:.3g}' for v in ulp.values()]} rounding steps <= 1")
+        again = ssd.ssd_chunk_bwd(x, a, b, c, dy, dst, dcum)
+        check(all(torch.equal(p, q) for p, q in zip(got, again)),
+              f"ssd_chunk_bwd at {label}: a second call equals the first bit for bit")
+        r = {"max_abs_err": max((p.float() - q.float()).abs().max().item()
+                                for p, q in zip(got, want)),
+             "max_rel_err": max(rel.values()), "max_round_steps": max(ulp.values())}
+        del got, want, again
+        if label in ("mamba2_2.7b_train", "jamba"):
+            bound, by, flops = ssd_bwd_bound(nb, lc, nh, hp, ng, n, bc, with_dcum)
+            r.update(ms=device_ms(lambda: ssd.ssd_chunk_bwd(x, a, b, c, dy, dst, dcum),
+                                  iters=10),
+                     plain_ms=device_ms(lambda: ref.ssd_chunk_bwd_ref(x, a, b, c, dy, dst,
+                                                                      dcum), iters=3),
+                     bound_ms=bound, bound_by=by, library_ms=None)
+            r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+            print(f"  ssd_chunk_bwd, {label} (x {tuple(x.shape)}): {r['ms']:.4f} ms "
+                  f"({r['tflops']:.2f} TFLOP/s of {flops / 1e9:.1f} GFLOP on causal pairs), "
+                  f"plain {r['plain_ms']:.4f}, bound {bound:.4f} by {by} (computed for f32 "
+                  f"CUDA cores {flops / F32_FLOP_PER_S * 1e3:.4f} ms); library: none, no "
+                  "single PyTorch call computes this gradient")
+        if row is None:
+            row = dict(name="ssd_chunk_bwd", route="cuda",
+                       source="src/repro_torch/kernels/csrc/ssd_chunk_bwd.cu",
+                       replaces="src/repro/models/mamba.py:67",
+                       replaces_note="no Pallas backward exists: JAX trains through "
+                                     "jax.value_and_grad of its jnp _ssd_chunked (this "
+                                     "line); the forward kernel differentiated is "
+                                     "src/repro/kernels/ssd_chunk.py:72", **r)
+        else:
+            shapes[label] = r
+        del x, a, b, c, dy, dst, dcum
+    row["shapes"] = shapes
     return row
 
 
@@ -972,6 +1135,7 @@ def phase_kernels(cfg, mamba_cfg) -> list[dict]:
     rows.append(ssd_row(mamba_cfg, get_config("jamba-1.5-large-398b"), g))
     rows.append(sparse_row(cfg, qwen_cfg, g))
     rows.append(bwd_row())
+    rows.append(ssd_bwd_row(mamba_cfg, get_config("jamba-1.5-large-398b"), g))
     for r in rows:
         print(f"  {r['name']}: {r['ms']:.4f} ms (plain {r['plain_ms']:.4f}, "
               f"bound {r['bound_ms']:.4f} by {r['bound_by']}, library {r['library_ms']})")
@@ -1155,6 +1319,41 @@ def ssd_build_proof(build) -> None:
     counts = {op: len(re.findall(rf"\b{op}\b", sass)) for op in SSD_SASS}
     check(sum(counts.values()) > 0, f"ssd_chunk library SASS holds tensor-core "
           f"instructions: {counts}")
+
+
+def ssd_bwd_build_proof(build) -> None:
+    """ssd_chunk_bwd's kernels as ptxas built them, by B/C dtype: registers,
+    spills and shared memory; the main kernel's dynamic shared memory and
+    CTAs per SM. A spill in the main kernel fails."""
+    import re
+
+    import torch
+
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    seen = []
+    for fn, body in re.findall(r"Compiling entry function '(\S*ssd_bwd_\w+?_kernel\S*)'"
+                               r"(.*?)(?=Compiling entry function|\Z)",
+                               build.build_log("ssd_chunk_bwd"), flags=re.S):
+        kernel = re.search(r"ssd_bwd_(\w+?)_kernel", fn).group(1)
+        dtype = "bfloat16" if "nv_bfloat16" in fn else "float32" if "IfE" in fn else "-"
+        regs = re.search(r"Used (\d+) registers", body).group(1)
+        spill = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", body)
+        smem = re.search(r"(\d+) bytes smem", body)
+        extra = ""
+        if kernel == "main":
+            dt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+            extra = (f", {ssd.smem_bytes(dt, 'ssd_chunk_bwd')} B dynamic shared memory, "
+                     f"{ssd.ctas_per_sm(dt, 'ssd_chunk_bwd')} CTAs per SM")
+            check(spill.group(1) == spill.group(2) == "0",
+                  f"ssd_chunk_bwd's main kernel (B/C {dtype}) does not spill")
+        print(f"  ssd_chunk_bwd {kernel} kernel, B/C {dtype}: {regs} registers, spill stores "
+              f"{spill.group(1)} B / loads {spill.group(2)} B, "
+              f"{smem.group(1) if smem else 0} B static shared memory{extra}")
+        seen.append((kernel, dtype))
+    check(sorted(seen) == sorted([("main", "bfloat16"), ("main", "float32"), ("bc", "bfloat16"),
+                                  ("bc", "float32"), ("da", "-")]),
+          f"ptxas built ssd_chunk_bwd's kernels for both B/C dtypes: {sorted(seen)}")
 
 
 def bwd_build_proof(build) -> None:
@@ -2661,7 +2860,8 @@ def phase_train(cfg) -> dict:
           f"{launches['flash_attention_bwd'] / TRAIN_STEPS:g} ({bwd_routes}), its kernels "
           f"{bwd}")
     check(all(launches[k] == 0 for k in ("kv_gather_write", "kv_scatter_read",
-                                          "paged_attention", "ssd_chunk", "sparse_kv_gather")),
+                                          "paged_attention", "ssd_chunk", "ssd_chunk_bwd",
+                                          "sparse_kv_gather")),
           f"(ii) no pool, paged or SSM kernel on the training path: {launches}")
     step_s = sorted(b - a for a, b in zip(stamps, stamps[1:]))
     step_ms = step_s[len(step_s) // 2] * 1e3  # median
@@ -2733,6 +2933,207 @@ def phase_train(cfg) -> dict:
           f"no warmup): loss {[f'{x:.4f}' for x in fit]}, last below first")
     summary["overfit_losses"] = fit
     print("  olmo-1b training path: " + json.dumps(summary))
+    return launches
+
+
+def ssd_flops(cfg, tokens: int) -> tuple[int, int]:
+    """(intra-chunk forward FLOPs, inter-chunk forward FLOPs) of one SSD layer
+    over ``tokens`` tokens in chunks: C.B^T per group and P.x and B^T.(w x)
+    per head on causal pairs; C.prev per head."""
+    ssm = cfg.ssm
+    nh, hp, n, g, lc = (ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state, ssm.n_groups,
+                        ssm.chunk_size)
+    nb, pairs = tokens // lc, lc * (lc + 1) // 2
+    intra = nb * g * 2 * pairs * n + nb * nh * (2 * pairs * hp + 2 * lc * n * hp)
+    return intra, nb * nh * 2 * lc * n * hp
+
+
+def phase_train_ssm(cfg) -> dict:
+    """mamba2-2.7b at full width and depth trained on the card (module
+    docstring, phase 14); returns the launches of (ii)'s steps."""
+    import math
+    import re
+
+    import torch
+
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.experiments import ssd_train_probe as probe
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import ssd_chunk as ssd
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training.optimizer import (OptimizerConfig, init_opt_state, tree_leaves,
+                                                tree_map)
+    from repro_torch.training.train_loop import (TrainLoopConfig, make_train_step,
+                                                 run_train_loop, to_device)
+
+    dev = torch.device("cuda")
+    L, tokens = cfg.n_layers, TRAIN_BATCH * TRAIN_SEQ
+    # (i) float32 weights: the kernel path against the plain path
+    t0 = time.perf_counter()
+    model, plain, params, data, _ = probe.setup("float32")
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    ssm = cfg.ssm
+    print(f"  mamba2-2.7b: {L} layers, d_model {cfg.d_model}, {ssm.n_heads(cfg.d_model)} SSD "
+          f"heads of {ssm.head_dim}, d_state {ssm.d_state}, {ssm.n_groups} group, chunk "
+          f"{ssm.chunk_size}, vocabulary {cfg.vocab_size}; {n_params / 1e9:.3f} B parameters "
+          f"(float32 for (i)) up in {time.perf_counter() - t0:.1f} s; batches of "
+          f"{TRAIN_BATCH} x {TRAIN_SEQ} tokens")
+    batch = to_device(next(data), dev)
+    ops.reset_launch_counts()
+    loss_k, g_k, captured = probe.gradient(model, params, batch, SSM_F64_LAYERS)
+    counts = ops.launch_counts()
+    check(counts["ssd_chunk"] == 2 * L and counts["ssd_chunk_bwd"] == L,
+          f"(i) one float32 gradient: ssd_chunk {counts['ssd_chunk']} = 2 x {L} (remat "
+          f"\"full\"), ssd_chunk_bwd {counts['ssd_chunk_bwd']} = {L}")
+    loss_p, g_p, _ = probe.gradient(plain, params, batch)
+    names = [name for name, _ in _named(params)]
+    gaps = probe.leaf_gaps(g_k, g_p)
+    del g_k
+    worst = sorted(zip(gaps, names), reverse=True)
+    loss_gap = abs(loss_k - loss_p)
+    print(f"  (i) loss kernel {loss_k:.6f} vs plain {loss_p:.6f}; gradient leaves furthest "
+          f"apart (relative to the leaf's largest entry): "
+          f"{[(n, f'{x:.3g}') for x, n in worst[:4]]}")
+    check(loss_gap <= SSM_LOSS_TOL, f"(i) loss, kernel vs plain, float32: |diff| "
+          f"{loss_gap:.4g} <= {SSM_LOSS_TOL}")
+    check(worst[0][0] <= SSM_GRAD_TOL, f"(i) every gradient leaf, kernel vs plain, float32: "
+          f"{worst[0][0]:.4g} of its largest entry <= {SSM_GRAD_TOL} ({worst[0][1]})")
+    fault = probe.fault_lib(SSM_FAULT)
+    with probe.backward_lib(fault):
+        loss_f, g_f, _ = probe.gradient(model, params, batch)
+    fault_gap = max(probe.leaf_gaps(g_f, g_p))
+    del g_f, g_p
+    check(fault_gap > SSM_GRAD_TOL, f"(i) the same limit refuses a planted fault (the kernel "
+          f"built without {SSM_FAULT!r}, probe.FAULTS): its furthest leaf {fault_gap:.4g} > "
+          f"{SSM_GRAD_TOL}")
+    layer_f64, fault_f64 = {}, {}
+    for layer, (inputs, outputs) in sorted(captured.items()):
+        errs = probe.f64_errors(inputs, outputs)
+        layer_f64[layer] = errs
+        check(max(errs.values()) <= SSM_F64_TOL,
+              f"(i) layer {layer}'s ssd_chunk_bwd against the float64 backward on its inputs: "
+              f"{ {k: f'{v:.3g}' for k, v in errs.items()} } of each largest entry <= "
+              f"{SSM_F64_TOL}")
+        with probe.backward_lib(fault):
+            bad = ssd.ssd_chunk_bwd(*inputs)
+        fault_f64[layer] = max(probe.f64_errors(inputs, bad).values())
+        del bad
+    check(all(v > SSM_F64_TOL for v in fault_f64.values()),
+          f"(i) the per-layer check refuses the planted fault: "
+          f"{ {k: f'{v:.3g}' for k, v in fault_f64.items()} } > {SSM_F64_TOL}")
+    del model, plain, params, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (ii) bf16: SSM_TRAIN_STEPS steps through run_train_loop, counted, timed
+    model = Model(cfg, runtime=RuntimeConfig(remat="full"))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    data = SyntheticLM(DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                                  vocab_size=cfg.vocab_size))
+    opt = OptimizerConfig()
+    stamps = []
+
+    def on_metrics(step, metrics):
+        stamps.append(time.perf_counter())
+
+    trained = tree_map(torch.clone, params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    stamps.append(time.perf_counter())
+    trained, state, history = run_train_loop(
+        model, opt, TrainLoopConfig(steps=SSM_TRAIN_STEPS, log_every=1), data, params=trained,
+        on_metrics=on_metrics)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in history]
+    norms = [h["grad_norm"] for h in history]
+    check(len(history) == SSM_TRAIN_STEPS and all(map(math.isfinite, losses + norms)),
+          f"(ii) {SSM_TRAIN_STEPS} bf16 steps through run_train_loop: finite losses "
+          f"{[f'{x:.4f}' for x in losses]}, grad norms {[f'{x:.4f}' for x in norms]}")
+    check(launches["ssd_chunk"] == 2 * L * SSM_TRAIN_STEPS
+          and launches["ssd_chunk_bwd"] == L * SSM_TRAIN_STEPS,
+          f"(ii) per step: ssd_chunk {launches['ssd_chunk'] / SSM_TRAIN_STEPS:g} ({L} + {L} "
+          f"recomputed), ssd_chunk_bwd {launches['ssd_chunk_bwd'] / SSM_TRAIN_STEPS:g}")
+    others = ("flash_attention", "flash_attention_bwd", "kv_gather_write", "kv_scatter_read",
+              "paged_attention", "sparse_kv_gather")
+    check(all(launches[k] == 0 for k in others),
+          f"(ii) no flash, pool, paged or sparse kernel on the Mamba-2 training path: "
+          f"{launches}")
+    step_s = sorted(b - a for a, b in zip(stamps, stamps[1:]))
+    step_ms = step_s[len(step_s) // 2] * 1e3  # median
+    intra, inter = ssd_flops(cfg, tokens)
+    model_flops = 6 * n_params * tokens + 3 * (intra + inter) * L  # forward + backward
+    summary = {
+        "step_ms": step_ms, "step_ms_all": [x * 1e3 for x in step_s],
+        "tokens_per_s": tokens / (step_ms * 1e-3),
+        "model_tflop_per_step": model_flops / 1e12,
+        "ssd_tflop_per_step": 3 * (intra + inter) * L / 1e12,
+        "model_flop_share": model_flops / (step_ms * 1e-3) / BF16_FLOP_PER_S,
+        "peak_mem_gib": peak / 2**30, "losses": losses, "grad_norms": norms,
+        "kernel_vs_plain_f32": {"loss": loss_gap, "grad_leaf_rel": worst[0][0],
+                                "fault_grad_leaf_rel": fault_gap},
+        "layer_f64": {str(k): v for k, v in layer_f64.items()},
+        "fault_layer_f64": {str(k): v for k, v in fault_f64.items()},
+    }
+    print(f"  (ii) step {step_ms:.1f} ms (median of {SSM_TRAIN_STEPS}; all "
+          f"{[f'{x * 1e3:.0f}' for x in step_s]}), {summary['tokens_per_s']:.0f} tokens/s, "
+          f"model FLOPs {summary['model_tflop_per_step']:.1f} TFLOP a step (6 x parameters x "
+          f"tokens + 3 x the SSD's forward, {summary['ssd_tflop_per_step']:.2f} TFLOP of it; "
+          f"{summary['model_flop_share']:.1%} of 989 TFLOP/s), peak "
+          f"{summary['peak_mem_gib']:.2f} GiB")
+    # a profiled in-place step: where the step's device time goes
+    batch = to_device(next(data), dev)
+    step = make_train_step(model, opt, in_place=True)
+    torch.cuda.synchronize()
+    with profiled() as prof:
+        t1 = time.perf_counter()
+        step(trained, state, batch)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+    events = prof.key_averages()
+    report_profile("mamba2-2.7b train step", events, 1, wall_ms, top=10)
+    groups = {"ssd_forward": 0.0, "ssd_backward": 0.0, "gemm": 0.0, "other": 0.0}
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        key = ("ssd_forward" if "ssd_chunk_kernel" in e.key
+               else "ssd_backward" if "ssd_bwd_" in e.key
+               else "gemm" if re.search(r"gemm|xmma|cutlass|nvjet|sm90_", e.key, re.I)
+               else "other")
+        groups[key] += e.self_device_time_total / 1e3
+    busy = sum(groups.values())
+    print("  train step's device time by kind (profiled): " + "; ".join(
+        f"{k} {ms:.1f} ms ({ms / busy:.1%})" for k, ms in groups.items())
+        + f"; {busy:.1f} ms busy of {wall_ms:.1f} ms wall")
+    # who launches the elementwise work: aten ops by the device time of the
+    # kernels they launch themselves, and backward nodes with their children
+    host = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    top_ops = sorted((e for e in host if e.key.startswith("aten::")),
+                     key=lambda e: -e.self_device_time_total)[:8]
+    nodes = sorted((e for e in host if e.key.startswith("autograd::engine::evaluate_function")),
+                   key=lambda e: -e.device_time_total)[:8]
+    print("  train step's aten ops by own device time (profiled): " + "; ".join(
+        f"{e.key} {e.self_device_time_total / 1e3:.1f} ms x{e.count}" for e in top_ops))
+    print("  train step's backward nodes by device time with children (profiled): " + "; ".join(
+        f"{e.key.split(': ')[-1]} {e.device_time_total / 1e3:.1f} ms x{e.count}" for e in nodes))
+    summary["profile_ms"] = {**groups, "busy": busy, "wall": wall_ms}
+    summary["profile_top_ops_ms"] = {e.key: e.self_device_time_total / 1e3 for e in top_ops}
+    summary["profile_backward_nodes_ms"] = {e.key.split(": ")[-1]: e.device_time_total / 1e3
+                                            for e in nodes}
+    del trained, state
+
+    # (iii) OVERFIT_STEPS steps on one repeated batch: the loss goes down
+    fast = OptimizerConfig(peak_lr=1e-3, warmup_steps=1)
+    _, _, hist = run_train_loop(model, fast, TrainLoopConfig(steps=OVERFIT_STEPS, log_every=1),
+                                iter([batch] * OVERFIT_STEPS), params=params)
+    fit = [h["loss"] for h in hist]
+    check(fit[-1] < fit[0], f"(iii) {OVERFIT_STEPS} steps on one repeated batch (peak_lr 1e-3, "
+          f"no warmup): loss {[f'{x:.4f}' for x in fit]}, last below first")
+    summary["overfit_losses"] = fit
+    print("  mamba2-2.7b training path: " + json.dumps(summary))
+    del params
     return launches
 
 
@@ -2852,6 +3253,7 @@ def main() -> None:
     paged_build_proof(build)
     ssd_build_proof(build)
     bwd_build_proof(build)
+    ssd_bwd_build_proof(build)
 
     cfg, mamba_cfg = get_config("llama3.1-8b"), get_config("mamba2-2.7b")
     print("[2] kernels vs plain versions", flush=True)
@@ -2909,12 +3311,19 @@ def main() -> None:
     print(f"  phase 12's model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     print("[13] training: olmo-1b full width, all 16 layers, AdamW steps", flush=True)
     train_launches = phase_train(get_config("olmo-1b"))
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 13's model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    print("[14] training: mamba2-2.7b full width, all 64 layers, AdamW steps", flush=True)
+    ssm_train_launches = phase_train_ssm(mamba_cfg)
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
              "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches,
              "qwen3_fp8": qwen3_fp8_launches, "internvl2": internvl_launches,
-             "musicgen": musicgen_launches, "train": train_launches}
+             "musicgen": musicgen_launches, "train": train_launches,
+             "mamba2_train": ssm_train_launches}
     own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse",
-           "paged_attention_e4m3": "qwen3_fp8", "flash_attention_bwd": "train"}
+           "paged_attention_e4m3": "qwen3_fp8", "flash_attention_bwd": "train",
+           "ssd_chunk_bwd": "mamba2_train"}
     for r in rows:
         r["launches"] = paths[own.get(r["name"], "llama")][r["name"]]
         r["launches_by_path"] = {p: n.get(r["name"], 0) for p, n in paths.items()}

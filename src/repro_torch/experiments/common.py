@@ -1,4 +1,5 @@
-"""What the port's experiment twins share: CSV rows and device timing.
+"""What the port's experiment twins share: CSV rows, device timing, and the
+rounding-step measure the kernel checks use.
 
 Rows are ``(name, us, derived)`` as in ``benchmarks/common.py``; a time
 that no device run gave is written "not measured".
@@ -73,3 +74,14 @@ def byte_bound_us(n_bytes: int) -> float:
 
 def device_name(dev: torch.device) -> str:
     return torch.cuda.get_device_name(dev) if dev.type == "cuda" else "cpu"
+
+
+def rounding_steps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over one rounding step of got's dtype at |want| (bf16
+    7 mantissa bits, float32 23) plus 1e-5 of the largest |want|, the floor
+    of float32 sums in another order: at most 1 where got is ``want``
+    rounded once to its dtype."""
+    mant = 7 if got.dtype == torch.bfloat16 else 23
+    w = want.double()
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=1e-30))) - mant)
+    return ((got.double() - w).abs() / (step + 1e-5 * w.abs().max())).max().item()

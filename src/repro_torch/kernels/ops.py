@@ -13,9 +13,10 @@ Under autograd (grad enabled and q, k or v requiring grad) the kernel
 route of ``flash_attention`` goes through ``FlashAttention``, a
 ``torch.autograd.Function`` whose forward is the forward kernel with its
 log-sum-exp and whose backward is ``flash_attention_bwd``; otherwise it is
-one forward launch, as serving runs it. The plain versions train through
-PyTorch's own autograd. ``ssd_chunk`` has no backward kernel yet: under
-autograd on the card it raises (ROADMAP.md queue 1 item 3b).
+one forward launch, as serving runs it. ``ssd_chunk`` likewise: under
+autograd its kernel route goes through ``SsdChunk``, whose forward is the
+forward kernel and whose backward is ``ssd_chunk_bwd``. The plain versions
+train through PyTorch's own autograd.
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ KERNELS = {
     "flash_attention_bwd": _fa.flash_attention_bwd,
     "paged_attention": _pa.paged_attention,
     "ssd_chunk": _ssd.ssd_chunk,
+    "ssd_chunk_bwd": _ssd.ssd_chunk_bwd,
     "sparse_kv_gather": _kv.sparse_kv_gather,
 }
 
@@ -102,6 +104,32 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+class SsdChunk(torch.autograd.Function):
+    """The forward kernel, saving its inputs; the backward kernel for the
+    gradient of y, the states and (with ``return_cum``) the prefix sums.
+    A cotangent that is missing (an output the loss does not read) goes in
+    as zeros, or as no dcum."""
+
+    @staticmethod
+    def forward(ctx, x, a_log, b_mat, c_mat, return_cum: bool):
+        ctx.save_for_backward(x, a_log, b_mat, c_mat)
+        ctx.set_materialize_grads(False)
+        return _ssd.ssd_chunk(x, a_log, b_mat, c_mat, return_cum=return_cum)
+
+    @staticmethod
+    def backward(ctx, dy, dst, dcum=None):
+        x, a_log, b_mat, c_mat = ctx.saved_tensors
+        nb, _, nh, hp = x.shape
+        if dy is None:
+            dy = torch.zeros_like(x)
+        if dst is None:
+            dst = x.new_zeros((nb, nh, b_mat.shape[3], hp))
+        dx, da, db, dc = _ssd.ssd_chunk_bwd(
+            x, a_log, b_mat, c_mat, dy.contiguous(), dst.contiguous(),
+            None if dcum is None else dcum.contiguous())
+        return dx, da, db.to(b_mat.dtype), dc.to(c_mat.dtype), None
+
+
 def flash_attention(q, k, v, *, causal: bool = True, mode: str = "auto"):
     if use_kernel(q, mode):
         if _differentiated(q, k, v):
@@ -166,9 +194,8 @@ def ssd_chunk(x, a_log, b_mat, c_mat, *, return_cum: bool = False, mode: str = "
     With ``return_cum`` also the prefix sums of a_log over each chunk."""
     if use_kernel(x, mode):
         if _differentiated(x, a_log, b_mat, c_mat):
-            raise NotImplementedError(
-                "ssd_chunk has no backward kernel yet (the Mamba-2 / Jamba training path, "
-                "ROADMAP.md queue 1 item 3b): train SSM stacks on the CPU or with "
-                "kernel_mode='ref'")
+            if b_mat.stride(2) == 0 and b_mat.shape[2] > 1:  # heads expanded from one group
+                b_mat, c_mat = b_mat[:, :, :1], c_mat[:, :, :1]
+            return SsdChunk.apply(x, a_log, b_mat, c_mat, return_cum)
         return _ssd.ssd_chunk(x, a_log, b_mat, c_mat, return_cum=return_cum)
     return _ref.ssd_chunk_ref(x, a_log, b_mat, c_mat, return_cum=return_cum)

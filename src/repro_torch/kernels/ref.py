@@ -195,19 +195,79 @@ def ssd_chunk_ref(
     ``ops.py:95`` vmaps it). Head h reads group ``h // (nh // g)`` of B and C.
     Returns (y_intra (nb, Lc, nh, hp) f32, chunk states (nb, nh, n, hp) f32),
     and with ``return_cum`` also cum (nb, Lc, nh) f32, the prefix sums of
-    a_log over each chunk."""
+    a_log over each chunk.
+
+    Departs from the JAX oracle in its gradient only: the decay takes ``exp``
+    of causal pairs alone (the log-decay difference filled with -inf above
+    the diagonal), as the CUDA kernels do. The oracle's
+    ``where(causal, exp(seg), 0)`` gives the same values, but above the
+    diagonal ``seg`` is positive and its ``exp`` overflows to inf once it
+    passes about 88 (a 64-step chunk at a = -2 already does), and its
+    gradient is 0 * inf = NaN there."""
     nb, lc, nh, _ = x.shape
     rep = nh // b_mat.shape[2]
     bh = b_mat.float().repeat_interleave(rep, dim=2)  # (nb, Lc, nh, n)
     ch = c_mat.float().repeat_interleave(rep, dim=2)
     xf = x.float()
     cum = torch.cumsum(a_log.float(), dim=1)  # (nb, Lc, nh)
-    seg = cum[:, :, None, :] - cum[:, None, :, :]  # (nb, Lc, Lc, nh)
-    li = torch.arange(lc, device=x.device)
-    causal = (li[:, None] >= li[None, :])[None, :, :, None]
-    decay = torch.where(causal, torch.exp(seg), torch.zeros((), device=x.device))
+    decay = _causal_decay(cum)
     scores = torch.einsum("zlhn,zmhn->zlmh", ch, bh)
     y = torch.einsum("zlmh,zmhp->zlhp", scores * decay, xf)
     decay_to_end = torch.exp(cum[:, -1:, :] - cum)  # (nb, Lc, nh)
     state = torch.einsum("zlhn,zlh,zlhp->zhnp", bh, decay_to_end, xf)
     return (y, state, cum) if return_cum else (y, state)
+
+
+def _causal_decay(cum: torch.Tensor) -> torch.Tensor:
+    """exp(cum_l - cum_m) on causal pairs m <= l, exactly 0 elsewhere, with
+    a zero gradient there: (nb, Lc, Lc, nh) from cum (nb, Lc, nh)."""
+    lc = cum.shape[1]
+    seg = cum[:, :, None, :] - cum[:, None, :, :]  # (nb, Lc, Lc, nh)
+    li = torch.arange(lc, device=cum.device)
+    causal = (li[:, None] >= li[None, :])[None, :, :, None]
+    return torch.exp(seg.masked_fill(~causal, -math.inf))
+
+
+def ssd_chunk_bwd_ref(x, a_log, b_mat, c_mat, dy, dst, dcum=None):
+    """The gradients of ``ssd_chunk_ref(..., return_cum=True)`` at output
+    cotangents dy (nb, Lc, nh, hp), dst (nb, nh, n, hp) and dcum (nb, Lc, nh)
+    (None: zero), written out as the CUDA backward computes them. With
+    L_lm = exp(cum_l - cum_m) and G_lm = C_l . B_m on causal pairs m <= l,
+    M = G * L, dM_lm = dy_l . x_m and w_m = exp(cum_last - cum_m):
+
+        dx_m = sum_{l >= m} M_lm dy_l + w_m dst^T B_m
+        dC_l = sum_{m <= l} dM_lm L_lm B_m     (over the group's heads)
+        dB_m = sum_{l >= m} dM_lm L_lm C_l + w_m dst x_m   (likewise)
+        u_m = w_m B_m^T dst x_m
+        dcum_j += rowsum_j(dM * M) - colsum_j(dM * M) - u_j + [j = last] sum_m u_m
+        da_k = sum_{l >= k} dcum_l
+
+    Arithmetic in float32, or in x's dtype where that is wider (float64);
+    -> (dx, da, dB, dC), dB and dC group-shaped (nb, Lc, g, n) in that
+    dtype too (the kernel rounds them once to B's dtype)."""
+    ct = torch.promote_types(x.dtype, torch.float32)
+    nb, lc, nh, hp = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    rep = nh // g
+    xf, dyf, dstf = x.to(ct), dy.to(ct), dst.to(ct)
+    bg, cg = b_mat.to(ct), c_mat.to(ct)
+    bh, ch = bg.repeat_interleave(rep, dim=2), cg.repeat_interleave(rep, dim=2)
+    cum = torch.cumsum(a_log.to(ct), dim=1)
+    decay = _causal_decay(cum)  # L, (nb, l, m, nh)
+    m_ = torch.einsum("zlhn,zmhn->zlmh", ch, bh) * decay
+    dm = torch.einsum("zlhp,zmhp->zlmh", dyf, xf)  # used only times L or M
+    dg = (dm * decay).reshape(nb, lc, lc, g, rep).sum(-1)  # summed over each group
+    w = torch.exp(cum[:, -1:, :] - cum)  # (nb, Lc, nh)
+    xs = w[..., None] * torch.einsum("zmhn,zhnp->zmhp", bh, dstf)  # w_m dst^T B_m
+    dx = torch.einsum("zlmh,zlhp->zmhp", m_, dyf) + xs
+    u = (xf * xs).sum(-1)
+    r = dm * m_
+    d = r.sum(2) - r.sum(1) - u
+    d[:, -1] += u.sum(1)
+    if dcum is not None:
+        d = d + dcum.to(ct)
+    da = d.flip(1).cumsum(1).flip(1)
+    dc = torch.einsum("zlmg,zmgn->zlgn", dg, bg)
+    bst = torch.einsum("zmh,zhnp,zmhp->zmhn", w, dstf, xf).reshape(nb, lc, g, rep, n).sum(3)
+    db = torch.einsum("zlmg,zlgn->zmgn", dg, cg) + bst
+    return dx, da, db, dc

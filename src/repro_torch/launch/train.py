@@ -7,9 +7,11 @@ recomputed per layer in the backward (``RuntimeConfig(remat="full")``),
 one JSON line of metrics every 5 steps, and ``--heartbeat-file`` rewritten
 with the time and step at each. ``--accum`` microbatches each step (JAX's
 launcher parses the flag but leaves its loop at one). Random weights from
-seed 0. On ``cuda`` by default (flash attention's forward and backward
-kernels); ``--device cpu`` runs the plain PyTorch versions, ``--smoke``
-the reduced test config.
+seed 0. On ``cuda`` by default: attention stacks through flash
+attention's forward and backward kernels, SSM stacks (``--arch
+mamba2-2.7b``) through ``ssd_chunk`` and its backward kernel
+``ssd_chunk_bwd``; ``--device cpu`` runs the plain PyTorch versions,
+``--smoke`` the reduced test config.
 
 Not ported yet, and refused: ``--mesh`` other than 1x1 (sharding,
 ROADMAP.md queue 1 item 5), ``--checkpoint-dir`` and ``--resume`` (the

@@ -20,6 +20,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.experiments.common import rounding_steps
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import kv_transfer as kv
 from repro_torch.kernels import ops, ref
@@ -187,7 +188,7 @@ def test_dispatch_counts_launches_on_the_card(cuda):
     assert ops.launch_counts() == {
         "kv_gather_write": 1, "kv_scatter_read": 1, "flash_attention": 1,
         "paged_attention": 1, "ssd_chunk": 1, "sparse_kv_gather": 1,
-        "flash_attention_bwd": 0,
+        "flash_attention_bwd": 0, "ssd_chunk_bwd": 0,
     }
     assert ops.flash_routes() == {"wgmma": 0, "cuda_cores": 1}  # float32, d = 16
     ops.reset_launch_counts()
@@ -1147,6 +1148,11 @@ def _rel(a, b) -> float:
     return ((a.float() - b.float()).abs().max() / b.float().abs().max().clamp(min=1e-30)).item()
 
 
+# ssd_chunk_bwd against its plain version, relative to each output's scale:
+# f32 sums in other orders on both sides (chip_smoke.py's SSD_TOL)
+SSD_BWD_TOL = 1e-4
+
+
 @pytest.mark.parametrize("case", BWD_CASES)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_bwd_kernel_matches_plain(cuda, case, dtype):
@@ -1227,13 +1233,33 @@ def test_autograd_through_the_kernels_matches_plain_autograd(cuda, dtype):
 
 
 def test_ssd_chunk_under_autograd_on_the_card_raises(cuda):
-    x = torch.zeros((1, 32, 2, 16), device=cuda, requires_grad=True)
-    a = torch.zeros((1, 32, 2), device=cuda)
-    b = torch.zeros((1, 32, 1, 16), device=cuda)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.ssd_chunk(x, a, b, b)
+    """Under autograd ssd_chunk takes the backward kernel (one forward, one
+    backward launch) and matches plain autograd; without grad it is one
+    forward launch; a cotangent of the wrong shape is refused."""
+    rng = np.random.default_rng(13)
+    base = [_randn(rng, (2, 100, 4, 16), torch.float32, cuda),
+            -torch.rand((2, 100, 4), device=cuda) * 0.5,
+            _randn(rng, (2, 100, 2, 16), torch.float32, cuda),
+            _randn(rng, (2, 100, 2, 16), torch.float32, cuda)]
+    cots = [_randn(rng, s, torch.float32, cuda) for s in ((2, 100, 4, 16), (2, 4, 16, 16),
+                                                          (2, 100, 4))]
+    grads = {}
+    for mode in ("auto", "ref"):
+        leaves = [t.clone().requires_grad_(True) for t in base]
+        ops.reset_launch_counts()
+        y, st, cum = ops.ssd_chunk(*leaves, return_cum=True, mode=mode)
+        sum((o * c).sum() for o, c in zip((y, st, cum), cots)).backward()
+        counts = ops.launch_counts()
+        assert (counts["ssd_chunk"], counts["ssd_chunk_bwd"]) == ((1, 1) if mode == "auto"
+                                                                  else (0, 0))
+        grads[mode] = [t.grad for t in leaves]
+    for a, b in zip(grads["auto"], grads["ref"]):
+        assert _rel(a, b) <= SSD_BWD_TOL
     with torch.no_grad():
-        ops.ssd_chunk(x, a, b, b)
+        ops.ssd_chunk(*base)
+    assert ops.launch_counts()["ssd_chunk_bwd"] == 0
+    with pytest.raises(ValueError, match="dst must be"):
+        ssd.ssd_chunk_bwd(*base, cots[0], cots[0])
 
 
 @pytest.mark.parametrize("arch", ["olmo-1b", "llama3.1-8b", "qwen1.5-0.5b"])
@@ -1371,3 +1397,125 @@ def test_training_step_backward_takes_the_wgmma_route(cuda):
     assert torch.isfinite(loss)
     assert ops.bwd_routes() == {"wgmma": cfg.n_layers, "cuda_cores": 0}
     assert ops.bwd_kernels() == dict.fromkeys(fa.BWD_KERNELS, cfg.n_layers)
+
+
+# ---------------------------------------------------------------------------
+# ssd_chunk_bwd: against ssd_chunk_bwd_ref at the shapes chip_smoke.py's
+# phase 2 takes (smaller batches), bit for bit on a rerun; the Mamba-2 and
+# Jamba training steps on the card against the CPU; the in-place loop; the
+# launcher.
+# ---------------------------------------------------------------------------
+
+SSD_BWD_CASES = [
+    # (nb, lc, nh, hp, g, n, bc dtype, with dcum, decay per step up to)
+    (4, 256, 80, 64, 1, 128, torch.bfloat16, True, 1.6),  # mamba2-2.7b, strong decays
+    (2, 256, 256, 64, 1, 128, torch.bfloat16, True, 1.6),  # Jamba's 256 heads
+    (3, 100, 8, 64, 1, 128, torch.bfloat16, False, 0.5),  # ragged chunk
+    (2, 256, 8, 64, 2, 128, torch.bfloat16, True, 0.5),  # two groups
+    (2, 256, 8, 64, 1, 128, torch.float32, True, 0.5),  # float32 B/C
+    (2, 40, 4, 16, 4, 16, torch.float32, False, 0.5),  # reduced widths, a group per head
+]
+
+
+def ssd_bwd_inputs(rng, nb, lc, nh, hp, g, n, bc_dtype, with_dcum, decay, device):
+    x = _randn(rng, (nb, lc, nh, hp), torch.float32, device) * 0.05
+    a = -torch.from_numpy(rng.random((nb, lc, nh), dtype=np.float32)).to(device) * decay
+    b, c = (_randn(rng, (nb, lc, g, n), torch.float32, device).mul(0.5).to(bc_dtype)
+            for _ in range(2))
+    dy = _randn(rng, (nb, lc, nh, hp), torch.float32, device)
+    dst = _randn(rng, (nb, nh, n, hp), torch.float32, device)
+    dcum = _randn(rng, (nb, lc, nh), torch.float32, device) if with_dcum else None
+    return x, a, b, c, dy, dst, dcum
+
+
+@pytest.mark.parametrize("case", SSD_BWD_CASES)
+def test_ssd_bwd_matches_plain_and_repeats(cuda, case):
+    rng = np.random.default_rng(14)
+    x, a, b, c, dy, dst, dcum = ssd_bwd_inputs(rng, *case, cuda)
+    got = ssd.ssd_chunk_bwd(x, a, b, c, dy, dst, dcum)
+    want = ref.ssd_chunk_bwd_ref(x, a, b, c, dy, dst, dcum)
+    assert got[2].dtype == got[3].dtype == b.dtype and got[2].shape == want[2].shape
+    for name, gv, wv in zip(("dx", "da"), got, want):
+        assert torch.isfinite(gv).all() and _rel(gv, wv) <= SSD_BWD_TOL, name
+    for name, gv, wv in zip(("dB", "dC"), got[2:], want[2:]):
+        assert torch.isfinite(gv).all() and rounding_steps(gv, wv) <= 1.0, name
+    again = ssd.ssd_chunk_bwd(x, a, b, c, dy, dst, dcum)
+    assert all(torch.equal(p, q) for p, q in zip(got, again))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "jamba-1.5-large-398b"])
+def test_reduced_ssm_train_step_card_matches_cpu(cuda, arch):
+    """float32 at chunk 256 over 256 tokens: one SSD call a layer on the
+    card (forward twice under remat "full", backward once), against the
+    plain path on the CPU."""
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.models.transformer import layer_kinds, n_periods
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state, tree_leaves
+    from repro_torch.training.train_loop import make_train_step, value_and_grad
+
+    base = reduced_config(arch)
+    cfg = dataclasses.replace(base, dtype="float32",
+                              ssm=dataclasses.replace(base.ssm, chunk_size=256))
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    on_card = _tree_to(params, cuda)
+    model = Model(cfg, runtime=RuntimeConfig(remat="full"))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 256)))
+    batch = {"tokens": tokens, "labels": tokens}
+    card = {k: v.to(cuda) for k, v in batch.items()}
+    loss_c, _, g_c = value_and_grad(model, params, batch)
+    ops.reset_launch_counts()
+    loss_g, _, g_g = value_and_grad(model, on_card, card)
+    n_ssm = sum(kind.mixer != "attn" for kind in layer_kinds(cfg)) * n_periods(cfg)
+    counts = ops.launch_counts()
+    assert (counts["ssd_chunk"], counts["ssd_chunk_bwd"]) == (2 * n_ssm, n_ssm)
+    assert abs(float(loss_g) - float(loss_c)) <= 1e-4
+    for a, b in zip(tree_leaves(g_g), tree_leaves(g_c)):
+        assert torch.isfinite(a).all() and _rel(a.cpu(), b) <= 1e-4
+    opt = OptimizerConfig()
+    _, _, m_c = make_train_step(model, opt)(params, init_opt_state(opt, params), batch)
+    _, _, m_g = make_train_step(model, opt)(on_card, init_opt_state(opt, on_card), card)
+    assert abs(float(m_g["grad_norm"]) / float(m_c["grad_norm"]) - 1) <= 1e-4
+
+
+def test_ssm_train_loop_in_place_equals_the_pure_step(cuda):
+    """run_train_loop (in place) against make_train_step's pure steps on a
+    reduced mamba2-2.7b in bf16 on the card: weights and moments bit for bit
+    after three steps."""
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training.optimizer import (OptimizerConfig, init_opt_state, tree_leaves,
+                                                tree_map)
+    from repro_torch.training.train_loop import TrainLoopConfig, make_train_step, run_train_loop
+
+    cfg = reduced_config("mamba2-2.7b")
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+    model = Model(cfg, runtime=RuntimeConfig(remat="full"))
+    rng = np.random.default_rng(5)
+    batches = []
+    for _ in range(3):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 96))).to(cuda)
+        batches.append({"tokens": t, "labels": t})
+    opt = OptimizerConfig()
+    ops.reset_launch_counts()
+    loop_p, loop_s, _ = run_train_loop(model, opt, TrainLoopConfig(steps=3), iter(batches),
+                                       params=tree_map(torch.clone, params))
+    assert ops.launch_counts()["ssd_chunk_bwd"] == 3 * cfg.n_layers
+    p, s, step = params, init_opt_state(opt, params), make_train_step(model, opt)
+    for b_ in batches:
+        p, s, _ = step(p, s, b_)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(loop_p), tree_leaves(p)))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(loop_s), tree_leaves(s)))
+
+
+def test_train_launcher_trains_mamba2_on_the_card(cuda):
+    from repro_torch.launch import train
+
+    ops.reset_launch_counts()
+    history = train.main(["--arch", "mamba2-2.7b", "--smoke", "--steps", "6", "--batch", "2",
+                          "--seq-len", "64"])
+    assert [h["step"] for h in history] == [1, 5]
+    assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history)
+    assert ops.launch_counts()["ssd_chunk_bwd"] == 6 * 4  # 4 layers a step

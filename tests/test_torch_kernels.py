@@ -175,7 +175,7 @@ def test_dispatch_takes_plain_version_on_cpu_and_counts_nothing():
     y, st = ops.ssd_chunk(x[None, 0], a, x[None, 0, :, :1], x[None, 0, :, :1])
     assert y.shape == (1, 32, 2, 16) and st.shape == (1, 2, 16, 16)
     assert torch.equal(ops.sparse_kv_gather(x[0], [31, 0]), x[0, [31, 0]])
-    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0) and len(ops.KERNELS) == 7
+    assert ops.launch_counts() == dict.fromkeys(ops.KERNELS, 0) and len(ops.KERNELS) == 8
 
 
 def test_no_silent_fallback_for_cpu_tensors():

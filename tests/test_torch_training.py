@@ -15,8 +15,11 @@ numpy-seeded batches go through both frameworks, float32 reduced configs:
   ``grad_norm``, ``lr`` and the updated weights.
 * The remat policies none, full and dots give the same gradients, and a
   short ``run_train_loop`` follows JAX's history.
-* The refusals of what is not ported yet: a checkpoint directory, a mesh,
-  ``ssd_chunk`` under autograd on the card.
+* The refusals of what is not ported yet: a checkpoint directory, a mesh.
+* ``ssd_chunk``'s kernel route under autograd (``ops.SsdChunk``), its two
+  kernels stood in for by their plain versions: one forward and one
+  backward launch, gradients equal to plain autograd's, and ``mode="kernel"``
+  refused for a tensor on the CPU.
 
 Tolerances: the loss within 1e-5 and each gradient leaf within 1e-4 of its
 largest entry (the largest difference seen was 1.1e-5 of it, in Jamba's MoE
@@ -255,13 +258,52 @@ def test_launcher_trains_the_reduced_config_on_the_cpu(tmp_path):
 
 
 def test_ssd_chunk_under_autograd_on_the_card_raises(monkeypatch):
-    """The kernel route is taken (as for a tensor on the card) and refuses
-    before any launch: ssd_chunk has no backward kernel yet."""
-    monkeypatch.setattr(ops, "use_kernel", lambda t, mode: True)
-    x = torch.zeros((1, 32, 2, 16), requires_grad=True)
-    a, b = torch.zeros((1, 32, 2)), torch.zeros((1, 32, 1, 16))
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        ops.ssd_chunk(x, a, b, b)
+    """The kernel route under autograd (as for a tensor on the card) goes
+    through ops.SsdChunk: with the forward and backward kernels stood in for
+    by their plain versions it calls each once, and its gradients, B and C
+    group-shaped or expanded over the heads with stride 0, equal plain
+    autograd's. ``mode="kernel"`` on a CPU tensor still raises: no fallback."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import ssd_chunk as ssd
+
+    calls = {"fwd": 0, "bwd": 0}
+
+    def fwd(*args, **kw):
+        calls["fwd"] += 1
+        return ref.ssd_chunk_ref(*args, **kw)
+
+    def bwd(*args):
+        calls["bwd"] += 1
+        return ref.ssd_chunk_bwd_ref(*args)
+
+    rng = np.random.default_rng(7)
+    x0, a0 = rng.standard_normal((2, 32, 4, 8)), -rng.random((2, 32, 4)) * 0.5
+    b0, c0 = rng.standard_normal((2, 32, 1, 16)), rng.standard_normal((2, 32, 1, 16))
+    dy, dst = rng.standard_normal((2, 32, 4, 8)), rng.standard_normal((2, 4, 16, 8))
+    dcum = rng.standard_normal((2, 32, 4))
+    t = [torch.tensor(v, dtype=torch.float32) for v in (x0, a0, b0, c0, dy, dst, dcum)]
+
+    def grads(route: bool, expand: bool):
+        leaves = [v.clone().requires_grad_(True) for v in t[:4]]
+        b, c = leaves[2:]
+        if expand:
+            b, c = b.expand(-1, -1, 4, -1), c.expand(-1, -1, 4, -1)
+        with monkeypatch.context() as m:
+            if route:
+                m.setattr(ops, "use_kernel", lambda t, mode: True)
+                m.setattr(ssd, "ssd_chunk", fwd)
+                m.setattr(ssd, "ssd_chunk_bwd", bwd)
+            y, st, cum = ops.ssd_chunk(leaves[0], leaves[1], b, c, return_cum=True)
+            ((y * t[4]).sum() + (st * t[5]).sum() + (cum * t[6]).sum()).backward()
+        return [v.grad for v in leaves]
+
+    for expand in (False, True):
+        got, want = grads(True, expand), grads(False, expand)
+        for g_, w_ in zip(got, want):
+            assert float((g_ - w_).abs().max() / w_.abs().max()) <= GRAD_TOL
+    assert calls == {"fwd": 2, "bwd": 2}
+    with pytest.raises(ValueError, match="on the card"):
+        ops.ssd_chunk(t[0].requires_grad_(True), t[1], t[2], t[3], mode="kernel")
 
 
 def test_quickstart_trains_a_step_then_decodes_on_the_cpu():
