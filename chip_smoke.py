@@ -24,7 +24,8 @@ Phases, each a hard check (any failure exits non-zero):
    CUDA-core route's three kernels per dtype (a spill there is printed);
    then ssd_chunk_bwd's three kernels per B/C dtype with their registers,
    spills and shared memory, the main kernel's CTAs per SM, failing if the
-   main kernel spills.
+   main kernel spills or its SASS holds no tensor-core (HMMA) instruction,
+   for either B/C dtype.
 2. kernels: each kernel against its plain PyTorch version on the card, at
    the shapes the paths give it (Llama-3.1-8B: 32 layers, 8 kv heads,
    head_dim 128; 1024-token prompts = 64 pool blocks; max_len 2048; decode
@@ -187,7 +188,8 @@ Phases, each a hard check (any failure exits non-zero):
    strong enough that exp above the diagonal would overflow: dx and da
    within SSD_TOL of their scale, dB and dC within one rounding of the f32
    result, a second call equal bit for bit; timed at the training shape and
-   at Jamba's beside the plain version and the bound.
+   at Jamba's beside the plain version and the bound, the training shape at
+   or under SSD_BWD_TRAIN_MS.
 13. training (phase 12's model freed first): olmo-1b at full width and depth
    (d 2048, 16 / 16 heads at d 128, d_ff 8192, vocabulary 50304, tied
    embeddings, non-parametric norms, 16 layers, 1.18 B parameters, bf16)
@@ -417,6 +419,9 @@ TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, OVERFIT_STEPS = 2048, 4, 8, 5
 # with dcum, largest decay per step; None: the model's dt * A draws of
 # ssd_inputs). Decays of up to 2 a step make cum fall past -100 within a
 # chunk, where exp above the diagonal overflows
+# the tensor-core backward at the training shape: half of the 3.80 ms the
+# CUDA-core kernel it replaced took there (H100 80GB HBM3, 700 W)
+SSD_BWD_TRAIN_MS = 1.9
 SSD_BWD_SHAPES = {"mamba2_2.7b_train": (32, 256, 80, 64, 1, 128, "bfloat16", True, None),
                   "jamba": (4, 256, 256, 64, 1, 128, "bfloat16", True, None),
                   "ragged_lc100": (8, 100, 80, 64, 1, 128, "bfloat16", True, 2.0),
@@ -853,6 +858,9 @@ def ssd_bwd_row(cfg, jamba_cfg, g) -> dict:
                                                                       dcum), iters=3),
                      bound_ms=bound, bound_by=by, library_ms=None)
             r["tflops"] = flops / (r["ms"] * 1e-3) / 1e12
+            if label == "mamba2_2.7b_train":
+                check(r["ms"] <= SSD_BWD_TRAIN_MS, f"ssd_chunk_bwd at {label}: {r['ms']:.4f} ms "
+                      f"<= {SSD_BWD_TRAIN_MS} ms")
             print(f"  ssd_chunk_bwd, {label} (x {tuple(x.shape)}): {r['ms']:.4f} ms "
                   f"({r['tflops']:.2f} TFLOP/s of {flops / 1e9:.1f} GFLOP on causal pairs), "
                   f"plain {r['plain_ms']:.4f}, bound {bound:.4f} by {by} (computed for f32 "
@@ -1324,7 +1332,8 @@ def ssd_build_proof(build) -> None:
 def ssd_bwd_build_proof(build) -> None:
     """ssd_chunk_bwd's kernels as ptxas built them, by B/C dtype: registers,
     spills and shared memory; the main kernel's dynamic shared memory and
-    CTAs per SM. A spill in the main kernel fails."""
+    CTAs per SM. A spill in the main kernel fails, and so does an
+    instantiation of it whose SASS holds no tensor-core instruction."""
     import re
 
     import torch
@@ -1354,6 +1363,15 @@ def ssd_bwd_build_proof(build) -> None:
     check(sorted(seen) == sorted([("main", "bfloat16"), ("main", "float32"), ("bc", "bfloat16"),
                                   ("bc", "float32"), ("da", "-")]),
           f"ptxas built ssd_chunk_bwd's kernels for both B/C dtypes: {sorted(seen)}")
+    counts = {}
+    for fn, body in re.findall(r"Function : (\S*ssd_bwd_main_kernel\S*)(.*?)(?=Function : |\Z)",
+                               build.sass("ssd_chunk_bwd"), flags=re.S):
+        dtype = "bfloat16" if "nv_bfloat16" in fn else "float32"
+        counts[dtype] = {op: len(re.findall(rf"\b{op}\b", body)) for op in SSD_SASS}
+    check(set(counts) == {"bfloat16", "float32"}
+          and all(sum(c.values()) > 0 for c in counts.values()),
+          f"ssd_chunk_bwd's main kernel SASS holds tensor-core instructions for both B/C "
+          f"dtypes: {counts}")
 
 
 def bwd_build_proof(build) -> None:

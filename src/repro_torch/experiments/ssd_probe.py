@@ -53,11 +53,15 @@ VARIANTS = {
     "no_state": [("const int n_k8 = min(8, (lc - c * kT + 7) / 8);", "const int n_k8 = 0;", 1)],
     "no_restage": [(_X_STAGE, "    if (s < 2)\n" + _X_STAGE, 1),
                    (_B_STAGE, "    if (s < 2)\n" + _B_STAGE, 1)],
+    # split lives in ssd_common.cuh: the copy calls a cvt.rna split of its own
     "cvt_rna_split": [
-        ("  big = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;\n"
-         "  small = __float_as_uint(v - __uint_as_float(big));",
+        ("using namespace ssd_common;\n",
+         "using namespace ssd_common;\n"
+         "__device__ __forceinline__ void split_rna(float v, uint32_t& big, uint32_t& small) {\n"
          "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(big) : \"f\"(v));\n"
-         "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(small) : \"f\"(v - __uint_as_float(big)));", 1)],
+         "  asm(\"cvt.rna.tf32.f32 %0, %1;\" : \"=r\"(small) : \"f\"(v - __uint_as_float(big)));\n"
+         "}\n"
+         "#define split split_rna\n", 1)],
     "accurate_exp": [("__expf(", "expf(", 3)],
 }
 STAMPS = 10  # per CTA: start, up to 5 step starts, loop end, end, (unused), SM id

@@ -49,7 +49,7 @@ F64_TILES = 8  # chunk tiles per float64 reference call (about 3 GB each)
 # wrong backwards the checks must refuse: the kernel with one term cut out
 FAULTS = {
     # dcum without -u_j on the tile's own rows (the state's pull on the decay)
-    "no_u": (("rowd[tid] - colacc - us[tid]", "rowd[tid] - colacc", 1),),
+    "no_u": (("rowd - colacc - us[tid]", "rowd - colacc", 1),),
     # dB and dC without the first head block's partial (16 of 80 heads)
     "drop_block": (("for (int hb = hb0; hb < hb1; ++hb) {",
                     "for (int hb = hb0 + 1; hb < hb1; ++hb) {", 1),),

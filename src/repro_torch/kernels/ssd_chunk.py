@@ -17,10 +17,12 @@ Raises outside that. Counts its launches in ``ssd_chunk.launches``.
 ``ssd_chunk_bwd`` wraps ``csrc/ssd_chunk_bwd.cu``, the gradient of the
 three outputs (y, the states, the prefix sums), which no Pallas kernel has
 (JAX differentiates its jnp chunked SSD): a CTA per (chunk tile, block of a
-group's heads, 64-token column tile) on the float32 CUDA cores, then two
-small kernels that sum the CTAs' partials in a fixed order (``bwd_plan``
-says which); no atomics, so two calls give the same bits. It counts its
-calls in ``ssd_chunk_bwd.launches`` (three kernels each).
+group's heads, 64-token column tile) with its products on the tensor cores
+as split TF32 passes (bf16 C.B^T in one pass), G^T and the head block's dG^T
+kept in shared memory, then two small kernels that sum the CTAs' partials
+in a fixed order (``bwd_plan`` says which); no atomics, so two calls give
+the same bits. It counts its calls in ``ssd_chunk_bwd.launches`` (three
+kernels each).
 """
 
 from __future__ import annotations
@@ -40,7 +42,7 @@ SIGNATURES = {
     "ssd_chunk_info": ([_I, _I, ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
 }
 BWD_SIGNATURES = {
-    "ssd_chunk_bwd": ([_P] * 16 + [_I] * 8 + [_LL, _LL, _LL, _P], ctypes.c_int),
+    "ssd_chunk_bwd": ([_P] * 15 + [_I] * 8 + [_LL, _LL, _LL, _P], ctypes.c_int),
     "ssd_chunk_bwd_info": ([_I, _I, ctypes.POINTER(ctypes.c_int)], ctypes.c_int),
 }
 _BC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -83,17 +85,16 @@ def pair_index(c: int, r: int, n_lt: int) -> int:
 def bwd_plan(nb: int, lc: int, nh: int, g: int) -> dict:
     """The backward's plan: head block, tile counts (the main kernel's grid
     is nb * head blocks by column tiles) and its scratch shapes, float32:
-    G per tile pair, dB's partial per column tile and dC's per tile pair
-    (64 x 128 each, per chunk and head block), the row sums of dM * M
-    per column tile (with the column sums and u of its own rows folded in),
-    and the sums of u."""
+    dB's partial per column tile and dC's per tile pair (64 x 128 each, per
+    chunk and head block), the row sums of dM * M per column tile (with the
+    column sums and u of its own rows folded in), and the sums of u. G per
+    tile pair stays in the CTA's shared memory."""
     hblk = head_block(nh, g)
     nhb, n_lt = nh // hblk, -(-lc // TILE)
     npairs = n_lt * (n_lt + 1) // 2
     return {
         "head_block": hblk, "head_blocks": nhb, "n_lt": n_lt, "pairs": npairs,
         "scratch": {
-            "gscr": (nb, nhb, npairs, TILE, TILE),
             "dbpart": (nb, nhb, n_lt, TILE, MAX_N),
             "dcpart": (nb, nhb, npairs, TILE, MAX_N),
             "rowpart": (nb, n_lt, n_lt * TILE, nh),
@@ -222,7 +223,7 @@ def ssd_chunk_bwd(
             x.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(), dy.data_ptr(),
             dst.data_ptr(), None if dcum is None else dcum.data_ptr(), dx.data_ptr(),
             da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-            *(scratch[k].data_ptr() for k in ("gscr", "dbpart", "dcpart", "rowpart", "usum")),
+            *(scratch[k].data_ptr() for k in ("dbpart", "dcpart", "rowpart", "usum")),
             _BC_DTYPES[b_mat.dtype], nb, lc, nh, hp, n, g, plan["head_block"],
             *b_mat.stride()[:3], stream,
         )

@@ -21,9 +21,10 @@ kernels do, and its gradient stays finite: a difference by design
   256 over 256 tokens: the port's ``Model.loss_fn`` gradients are finite.
 * (d) the repaired plain forward is bit for bit the oracle-shaped one.
 * (e) the CUDA backward's plan (``ssd_chunk.bwd_plan``: CTAs per chunk,
-  head block and column tile, partials summed in a fixed order), emulated
-  in float64 torch tile by tile with every scratch slot the kernel does not
-  write filled with NaN, equals ``ssd_chunk_bwd_ref`` within 1e-12.
+  head block and column tile, G per pair kept in the CTA, partials summed
+  in a fixed order), emulated in float64 torch tile by tile with every
+  scratch slot the kernel does not write filled with NaN, equals
+  ``ssd_chunk_bwd_ref`` within 1e-12.
 * (f) under autograd the kernel route (``ops.SsdChunk``, its two kernels
   stood in for by their plain versions) launches the forward twice and the
   backward once per layer under remat "full" and "dots", once each under
@@ -230,8 +231,7 @@ def emulated_bwd(x, a, b, c, dy, dst, dcum):
                 cs = slice(ct * T, ct * T + T)
                 bc_ = bp[z, cs, grp]
                 pairs = [(rt, ssd.pair_index(ct, rt, n_lt)) for rt in range(ct, n_lt)]
-                for rt, pi in pairs:
-                    sc["gscr"][z, hb, pi] = cp[z, rt * T:rt * T + T, grp] @ bc_.T
+                gts = [cp[z, rt * T:rt * T + T, grp] @ bc_.T for rt, _ in pairs]  # in the CTA
                 dgs = torch.zeros((len(pairs), T, T), dtype=f64)
                 dbacc = torch.zeros((T, n), dtype=f64)
                 for h in range(hb * hblk, hb * hblk + hblk):
@@ -242,7 +242,7 @@ def emulated_bwd(x, a, b, c, dy, dst, dcum):
                     dbacc += w[:, None] * (xs @ dst[z, h].double().T)
                     u = (xs * dxa).sum(1)
                     colacc = torch.zeros(T, dtype=f64)
-                    for k, (rt, pi) in enumerate(pairs):
+                    for k, (rt, _) in enumerate(pairs):
                         dys = dyp[z, rt * T:rt * T + T, h]
                         seg = ch_[rt * T:rt * T + T, None] - ch_[None, cs]
                         if k == 0:
@@ -250,7 +250,7 @@ def emulated_bwd(x, a, b, c, dy, dst, dcum):
                                                   -math.inf)
                         L = torch.exp(seg)
                         dm = dys @ xs.T
-                        m_ = sc["gscr"][z, hb, pi] * L
+                        m_ = gts[k] * L
                         r_ = dm * m_
                         dgs[k] += dm * L
                         colacc += r_.sum(0)
