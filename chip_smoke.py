@@ -95,7 +95,11 @@ Phases, each a hard check (any failure exits non-zero):
    olmo-1b and Llama-3.1-8B (``make_train_step``, AdamW, remat "full") on the
    card (the forward kernel with its log-sum-exp twice a layer, the backward
    kernels once) and on the CPU from the same weights and batch: loss, grad
-   norm, every gradient leaf and the updated weights within SMALL_TOL.
+   norm, every gradient leaf and the updated weights within SMALL_TOL. Then
+   a reduced float32 mamba2-2.7b resumed on the card: 4 steps through
+   ``run_train_loop`` saving a checkpoint (``checkpoint/checkpointer.py``),
+   a restore into fresh tensors and 4 more steps (``ssd_chunk`` and
+   ``ssd_chunk_bwd`` launched), equal to an unbroken 8 bit for bit.
 4. main path: full-width Llama-3.1-8B (random weights from a seed, bf16)
    served through ``RealEngine`` (kernels for tensors on the card): two cold
    prompts, two that hit a 512-token shared prefix, two full repeats. Checks
@@ -211,7 +215,19 @@ Phases, each a hard check (any failure exits non-zero):
    backward kernel (wgmma), no pool, paged or SSM kernel; step time,
    tokens/s, the model-FLOP share of 989 TFLOP/s and peak memory; the same
    8 steps as pure steps: weights and moments equal bit for bit, the pure
-   step's peak printed beside the loop's; a profiled step; (iii) 5 steps
+   step's peak printed beside the loop's; (iv) the same run killed and
+   resumed: from a clone of the same weights and a fresh ``SyntheticLM``,
+   ``run_train_loop`` to step RESUME_AT saving a checkpoint there (the
+   Checkpointer's sync save, timed), the tensors dropped, the checkpoint
+   restored into fresh tensors with the data state (timed) and run on to
+   step 8: weights, both moments and step equal (ii)'s and the losses and
+   grad norms of steps 5-8 equal (ii)'s, bit for bit; then an async save
+   of that state, ASYNC_STEPS steps in place while its thread writes (the
+   median step beside (ii)'s), and the saved step restored in place equal
+   to (ii)'s state again; the bytes on disk, save and restore GB/s, the
+   save's blocking time and wall time, the disk's free space and the peak
+   printed; one checkpoint on disk at a time, in a ``tempfile.mkdtemp()``
+   directory removed at the phase's end; a profiled step; (iii) 5 steps
    on one repeated batch at peak_lr 1e-3 (no warmup): the last loss below
    the first.
 14. Mamba-2 training (phase 13's model freed first): mamba2-2.7b at full
@@ -253,8 +269,10 @@ import dataclasses
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -411,6 +429,10 @@ BWD_SHAPES = {"olmo_1b_train": (4, 2048, 2048, 16, 16, 128, True, "bfloat16"),
 BWD_TRAIN_MS = 1.5
 # phase 13: olmo-1b at full width and depth, trained on SyntheticLM batches
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, OVERFIT_STEPS = 2048, 4, 8, 5
+# phase 13 (iv): the run is saved at RESUME_AT, restored, and taken on to
+# TRAIN_STEPS; then ASYNC_STEPS steps while an async save of step
+# TRAIN_STEPS writes
+RESUME_AT, ASYNC_STEPS = 4, 4
 # phase 2's SSD backward against ssd_chunk_bwd_ref on the same inputs: dx and
 # da within SSD_TOL of each output's scale (f32 sums in other orders on both
 # sides: readings 1.1e-6 to 2.7e-6 in the first chip run), dB and dC (in B's
@@ -1579,6 +1601,7 @@ def phase_small() -> None:
     small_model("llama3.1-8b", fp8=True)
     small_train("olmo-1b")
     small_train("llama3.1-8b")
+    small_resume("mamba2-2.7b")
 
 
 def small_train(arch: str) -> None:
@@ -1627,6 +1650,62 @@ def small_train(arch: str) -> None:
           f"reduced fp32 {arch} train step, card vs CPU: loss {loss_gap:.3g}, grad norm "
           f"(relative) {norm_gap:.3g}, gradient leaves (relative) {grad_gap:.3g}, updated "
           f"weights {param_gap:.3g}, all <= {SMALL_TOL}")
+
+
+def small_resume(arch: str) -> None:
+    """A reduced float32 stack trained on the card: 4 steps through
+    ``run_train_loop`` with a checkpoint, a restore into fresh tensors, 4
+    more; weights, moments, step and every metric equal an unbroken 8 bit
+    for bit, and the resumed steps launch ``ssd_chunk`` twice a layer (the
+    recompute) and ``ssd_chunk_bwd`` once."""
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import ops
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training.optimizer import (OptimizerConfig, init_opt_state, tree_leaves,
+                                                tree_map)
+    from repro_torch.training.train_loop import TrainLoopConfig, run_train_loop
+
+    cfg = dataclasses.replace(reduced_config(arch), dtype="float32")
+    model = Model(cfg, runtime=RuntimeConfig(remat="full"))
+    opt = OptimizerConfig(warmup_steps=2, total_steps=8)
+    data_cfg = DataConfig(seq_len=96, global_batch=2, vocab_size=cfg.vocab_size)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+    p8, s8, h8 = run_train_loop(model, opt, TrainLoopConfig(steps=8, log_every=1),
+                                SyntheticLM(data_cfg), params=tree_map(torch.clone, params))
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        _, _, h4 = run_train_loop(model, opt, TrainLoopConfig(
+            steps=4, log_every=1, checkpoint_every=4, checkpoint_dir=ckdir),
+            SyntheticLM(data_cfg), params=params)
+        del params  # the crash
+        ck = Checkpointer(ckdir)
+        fresh = init_params(cfg, torch.Generator(device="cuda").manual_seed(1), "cuda")
+        tree = ck.restore(4, {"params": fresh, "opt_state": init_opt_state(opt, fresh)})
+        data = SyntheticLM(data_cfg)
+        data.load_state_dict(ck.load_extra(4)["data_state"])
+        ops.reset_launch_counts()
+        p, s, h = run_train_loop(model, opt, TrainLoopConfig(steps=8, log_every=1), data,
+                                 params=tree["params"], opt_state=tree["opt_state"],
+                                 start_step=4)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+    finally:
+        shutil.rmtree(ckdir)
+    L = cfg.n_layers
+    check(launches["ssd_chunk"] == 4 * 2 * L and launches["ssd_chunk_bwd"] == 4 * L,
+          f"reduced fp32 {arch} resumed for 4 steps: ssd_chunk {launches['ssd_chunk']} "
+          f"(== {8 * L}), ssd_chunk_bwd {launches['ssd_chunk_bwd']} (== {4 * L})")
+    check(all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(p8)))
+          and all(torch.equal(a, b) for a, b in zip(tree_leaves(s), tree_leaves(s8)))
+          and h4 + h == h8,
+          f"reduced fp32 {arch}: 4 steps, a checkpoint, a restore into fresh tensors and 4 "
+          f"more equal an unbroken 8 bit for bit (weights, moments, step {int(s['step'])}, "
+          f"losses {[round(x['loss'], 6) for x in h]})")
 
 
 def small_engine(arch: str, cfg=None) -> None:
@@ -2919,7 +2998,10 @@ def phase_train(cfg) -> dict:
     print(f"  (ii) peak memory: the in-place loop {summary['peak_mem_gib']:.2f} GiB, the pure "
           f"step {summary['pure_step_peak_mem_gib']:.2f} GiB")
     summary["layer_f64"] = layer_f64
-    del trained, state, p_pure, s_pure
+    del p_pure, s_pure
+    gc.collect()
+    summary["resume"] = train_resume(model, opt, cfg, params, trained, state, history, step_ms)
+    del trained, state
     batch = to_device(next(data), dev)
     step = make_train_step(model, opt)
     opt_state = init_opt_state(opt, params)
@@ -2952,6 +3034,116 @@ def phase_train(cfg) -> dict:
     summary["overfit_losses"] = fit
     print("  olmo-1b training path: " + json.dumps(summary))
     return launches
+
+
+def train_resume(model, opt, cfg, params, trained, state, history, step_ms) -> dict:
+    """Phase 13 (iv), module docstring: (ii)'s run killed at RESUME_AT and
+    resumed bit for bit, then an async save timed under training; one
+    checkpoint on disk at a time, in a directory removed at the end."""
+    import torch
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import init_params
+    from repro_torch.training.optimizer import init_opt_state, tree_leaves, tree_map
+    from repro_torch.training.train_loop import TrainLoopConfig, run_train_loop
+
+    dev = torch.device("cuda")
+    data_cfg = DataConfig(seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH, vocab_size=cfg.vocab_size)
+    n_bytes = sum(t.numel() * t.element_size() for t in tree_leaves(trained) + tree_leaves(state))
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    free = shutil.disk_usage(ckdir).free
+    print(f"  (iv) {n_bytes / 1e9:.2f} GB of weights and moments; {free / 1e9:.1f} GB free "
+          f"where {ckdir} lies")
+    out = {"state_gb": n_bytes / 1e9, "disk_free_gb": free / 1e9}
+    try:
+        # (ii)'s run from its start (batch 0 went to (i)), saved at RESUME_AT
+        data = SyntheticLM(data_cfg)
+        data.load_state_dict({"step": 1})
+        stamps = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        first, first_state, first_hist = run_train_loop(
+            model, opt, TrainLoopConfig(steps=RESUME_AT, log_every=1, checkpoint_every=RESUME_AT,
+                                        checkpoint_dir=ckdir, keep_checkpoints=1),
+            data, params=tree_map(torch.clone, params),
+            on_metrics=lambda step, m: stamps.append(time.perf_counter()))
+        save_s = time.perf_counter() - stamps[-1]  # the loop saves after step RESUME_AT's metrics
+        check(first_hist == history[:RESUME_AT], f"(iv) steps 1-{RESUME_AT} of the run to be "
+              "killed repeat (ii)'s metrics")
+        ck = Checkpointer(ckdir)
+        check(ck.latest_step() == RESUME_AT, f"(iv) latest committed step {ck.latest_step()} "
+              f"== {RESUME_AT}")
+        on_disk = sum(os.path.getsize(os.path.join(ck.step_dir(RESUME_AT), f))
+                      for f in os.listdir(ck.step_dir(RESUME_AT)))
+        del first, first_state  # the crash
+        gc.collect()
+        fresh = init_params(cfg, torch.Generator(device=dev).manual_seed(1), dev)
+        target = {"params": fresh, "opt_state": init_opt_state(opt, fresh)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tree = ck.restore(RESUME_AT, target)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        del target, fresh
+        data = SyntheticLM(data_cfg)
+        data.load_state_dict(ck.load_extra(RESUME_AT)["data_state"])
+        check(data.step == RESUME_AT + 1, f"(iv) the restored data state is at batch "
+              f"{data.step}, (ii)'s was at {RESUME_AT + 1}")
+        p, s, hist = run_train_loop(model, opt, TrainLoopConfig(steps=TRAIN_STEPS, log_every=1),
+                                    data, params=tree["params"], opt_state=tree["opt_state"],
+                                    start_step=RESUME_AT)
+        peak = torch.cuda.max_memory_allocated()
+        check(all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(trained)))
+              and all(torch.equal(a, b) for a, b in zip(tree_leaves(s), tree_leaves(state))),
+              f"(iv) killed after step {RESUME_AT}, restored and run to {TRAIN_STEPS}: weights, "
+              f"both moments and step ({int(s['step'])}) equal (ii)'s, bit for bit")
+        check(hist == history[RESUME_AT:], f"(iv) the losses of steps {RESUME_AT + 1}-{TRAIN_STEPS} "
+              f"{[h['loss'] for h in hist]} and their grad norms equal (ii)'s")
+        shutil.rmtree(ck.step_dir(RESUME_AT))  # one checkpoint on disk at a time
+
+        # an async save of step TRAIN_STEPS, then ASYNC_STEPS steps in place while it writes
+        ack = Checkpointer(ckdir, keep=1, async_save=True)
+        stamps = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ack.save(TRAIN_STEPS, {"params": p, "opt_state": s},
+                 extra={"data_state": data.state_dict()})
+        block_s = time.perf_counter() - t0
+        stamps.append(time.perf_counter())
+        run_train_loop(model, opt, TrainLoopConfig(steps=TRAIN_STEPS + ASYNC_STEPS, log_every=1),
+                       data, params=p, opt_state=s, start_step=TRAIN_STEPS,
+                       on_metrics=lambda step, m: stamps.append(time.perf_counter()))
+        ack.wait()
+        wall_s = time.perf_counter() - t0
+        async_ms = sorted(b - a for a, b in zip(stamps, stamps[1:]))[ASYNC_STEPS // 2] * 1e3
+        # what the thread wrote is step TRAIN_STEPS, not the steps taken since
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ack.restore(TRAIN_STEPS, {"params": p, "opt_state": s}, in_place=True)
+        torch.cuda.synchronize()
+        restore_in_place_s = time.perf_counter() - t0
+        check(all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(trained)))
+              and all(torch.equal(a, b) for a, b in zip(tree_leaves(s), tree_leaves(state))),
+              f"(iv) the async save of step {TRAIN_STEPS}, written while {ASYNC_STEPS} more "
+              "steps changed the same tensors in place, restores (in place) to (ii)'s state, "
+              "bit for bit")
+        del p, s, tree
+    finally:
+        shutil.rmtree(ckdir)
+    out.update({
+        "bytes_on_disk": on_disk, "save_s": save_s, "save_gb_per_s": on_disk / save_s / 1e9,
+        "restore_s": restore_s, "restore_gb_per_s": on_disk / restore_s / 1e9,
+        "restore_in_place_s": restore_in_place_s, "async_blocking_ms": block_s * 1e3,
+        "async_wall_s": wall_s, "step_ms_during_async_save": async_ms,
+        "step_ms_ii": step_ms, "peak_mem_gib": peak / 2**30})
+    print(f"  (iv) {on_disk / 1e9:.3f} GB on disk; sync save {save_s:.2f} s "
+          f"({out['save_gb_per_s']:.2f} GB/s); restore into new tensors {restore_s:.2f} s "
+          f"({out['restore_gb_per_s']:.2f} GB/s), in place {restore_in_place_s:.2f} s; async "
+          f"save blocks {block_s * 1e3:.0f} ms, done after {wall_s:.2f} s; a step while it "
+          f"writes {async_ms:.1f} ms (median of {ASYNC_STEPS}; (ii)'s {step_ms:.1f}); peak "
+          f"{peak / 2**30:.2f} GiB")
+    return out
 
 
 def ssd_flops(cfg, tokens: int) -> tuple[int, int]:

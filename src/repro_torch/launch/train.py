@@ -13,20 +13,27 @@ mamba2-2.7b``) through ``ssd_chunk`` and its backward kernel
 ``ssd_chunk_bwd``; ``--device cpu`` runs the plain PyTorch versions,
 ``--smoke`` the reduced test config.
 
+``--checkpoint-dir`` saves the weights, moments and data state every
+``--checkpoint-every`` steps (``checkpoint/checkpointer.py``, JAX's
+format, so either framework resumes the other's run); with ``--resume``
+the latest committed step is restored into the tensors of freshly made
+weights and moments (no second copy of the state is held), the data
+iterator is put back, ``resumed from step N`` and the peak memory are
+printed, and training goes on from step N; with no committed step, or no
+``--checkpoint-dir``, it says so and starts at 0, as JAX's does.
+
 Not ported yet, and refused: ``--mesh`` other than 1x1 (sharding,
-ROADMAP.md queue 1 item 5), ``--checkpoint-dir`` and ``--resume`` (the
-checkpointer, ROADMAP.md queue 1 item 4).
+ROADMAP.md queue 1 item 5).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import resource
 import time
 
 MESH_TODO = "a mesh other than 1x1 needs sharding, not ported yet (ROADMAP.md queue 1 item 5)"
-RESUME_TODO = ("--checkpoint-dir and --resume need the checkpointer, not ported yet "
-               "(ROADMAP.md queue 1 item 4)")
 
 
 def main(argv: list[str] | None = None) -> list[dict]:
@@ -49,17 +56,16 @@ def main(argv: list[str] | None = None) -> list[dict]:
     d, m = (int(x) for x in args.mesh.split("x"))
     if d * m != 1:
         raise SystemExit(MESH_TODO)
-    if args.checkpoint_dir or args.resume:
-        raise SystemExit(RESUME_TODO)
 
     import torch
 
     from repro_torch import resolve_device
+    from repro_torch.checkpoint.checkpointer import Checkpointer
     from repro_torch.configs.base import RuntimeConfig
     from repro_torch.configs.registry import get_config, reduced_config
     from repro_torch.data.pipeline import DataConfig, make_dataset
     from repro_torch.models.model import Model, init_params
-    from repro_torch.training.optimizer import OptimizerConfig
+    from repro_torch.training.optimizer import OptimizerConfig, init_opt_state
     from repro_torch.training.train_loop import (TrainLoopConfig, make_train_step,
                                                  run_train_loop)
 
@@ -70,6 +76,25 @@ def main(argv: list[str] | None = None) -> list[dict]:
     data = make_dataset(DataConfig(seq_len=args.seq_len, global_batch=args.batch,
                                    vocab_size=cfg.vocab_size, dp_size=1))
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev)
+    opt_state = init_opt_state(opt_cfg, params)
+    start_step = 0
+    if args.resume:
+        step = None
+        if args.checkpoint_dir:
+            ck = Checkpointer(args.checkpoint_dir)
+            step = ck.latest_step()
+        if step is None:
+            print(f"nothing to resume in --checkpoint-dir {args.checkpoint_dir}: "
+                  "starting at step 0")
+        else:
+            ck.restore(step, {"params": params, "opt_state": opt_state}, in_place=True)
+            data.load_state_dict(ck.load_extra(step)["data_state"])
+            start_step = step
+            if dev.type == "cuda":
+                peak = f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB on the device"
+            else:  # ru_maxrss is in KiB on Linux
+                peak = f"{resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 2**20:.2f} GiB max RSS"
+            print(f"resumed from step {step} (peak memory {peak})")
 
     hb = args.heartbeat_file
 
@@ -81,9 +106,10 @@ def main(argv: list[str] | None = None) -> list[dict]:
 
     _, _, history = run_train_loop(
         model, opt_cfg,
-        TrainLoopConfig(steps=args.steps, log_every=5, checkpoint_every=args.checkpoint_every),
-        iter(data), params=params, step_fn=make_train_step(model, opt_cfg, args.accum,
-                                                           in_place=True),
+        TrainLoopConfig(steps=args.steps, log_every=5, checkpoint_every=args.checkpoint_every,
+                        checkpoint_dir=args.checkpoint_dir),
+        iter(data), params=params, opt_state=opt_state, start_step=start_step,
+        step_fn=make_train_step(model, opt_cfg, args.accum, in_place=True),
         on_metrics=on_metrics,
     )
     return history

@@ -22,7 +22,9 @@ parameters and state it is given are left as they were. With ``in_place``
 it writes the new weights and moments into the tensors it was given, in
 the same f32 arithmetic, so one copy of each is held instead of two (the
 twin of JAX's ``donate_argnums=(0, 1)``, ``repro/training/train_loop.py:122``).
-``run_train_loop`` steps in place.
+``run_train_loop`` steps in place, and with ``checkpoint_dir`` set saves
+``{"params", "opt_state"}`` and the data iterator's state every
+``checkpoint_every`` steps (``checkpoint/checkpointer.py``, JAX's format).
 """
 
 from __future__ import annotations
@@ -33,13 +35,11 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.checkpoint.checkpointer import Checkpointer
 from repro_torch.models.model import Model
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.optimizer import (OptimizerConfig, tree_leaves, tree_map,
                                             tree_unflatten)
-
-CHECKPOINT_TODO = ("the checkpointer is not ported yet (ROADMAP.md queue 1 item 4): "
-                   "run without a checkpoint directory")
 
 
 def value_and_grad(model: Model, params: dict, batch: dict):
@@ -134,11 +134,20 @@ def run_train_loop(
     The default step updates the weights and moments in place
     (``make_train_step(..., in_place=True)``): the loop steps the very
     tensors it is given, as JAX's donates them, and holds no copy. A caller
-    that needs its weights afterwards passes a copy."""
+    that needs its weights afterwards passes a copy.
+
+    With ``loop_cfg.checkpoint_dir`` set, after every ``checkpoint_every``
+    steps the loop saves step ``step + 1``: the weights and moments as they
+    stand, and ``extra={"data_state": data_iter.state_dict()}``, as JAX's
+    loop does; a resumed run restores them and passes ``start_step``."""
     if params is None:
         raise ValueError("run_train_loop needs params (models.model.init_params makes them)")
+    ckpt = None
     if loop_cfg.checkpoint_dir:
-        raise NotImplementedError(CHECKPOINT_TODO)
+        if not hasattr(data_iter, "state_dict"):
+            raise TypeError("a checkpointed loop needs a data iterator with state_dict() "
+                            "(data.pipeline's datasets have one)")
+        ckpt = Checkpointer(loop_cfg.checkpoint_dir, keep=loop_cfg.keep_checkpoints)
     if opt_state is None:
         opt_state = opt_lib.init_opt_state(opt_cfg, params)
     if step_fn is None:
@@ -154,4 +163,7 @@ def run_train_loop(
             history.append({"step": step + 1, **m})
             if on_metrics:
                 on_metrics(step + 1, m)
+        if ckpt and (step + 1) % loop_cfg.checkpoint_every == 0:
+            ckpt.save(step + 1, {"params": params, "opt_state": opt_state},
+                      extra={"data_state": data_iter.state_dict()})
     return params, opt_state, history

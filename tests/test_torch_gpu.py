@@ -1519,3 +1519,55 @@ def test_train_launcher_trains_mamba2_on_the_card(cuda):
     assert [h["step"] for h in history] == [1, 5]
     assert all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"]) for h in history)
     assert ops.launch_counts()["ssd_chunk_bwd"] == 6 * 4  # 4 layers a step
+
+
+def test_reduced_resume_on_the_card_is_bit_for_bit(cuda, tmp_path):
+    """Reduced olmo-1b in bf16 on the card: 3 steps of run_train_loop saving
+    a checkpoint, a restore into fresh tensors on the card, then an async
+    save of the restored state (its pinned snapshot) while 3 more steps
+    change the same tensors in place: weights, moments, step and metrics
+    equal an unbroken 6 under torch.equal, and the async files equal the
+    unbroken run's step-3 files."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.models.model import Model, init_params
+    from repro_torch.training.optimizer import (OptimizerConfig, init_opt_state, tree_leaves,
+                                                tree_map)
+    from repro_torch.training.train_loop import TrainLoopConfig, run_train_loop
+
+    cfg = reduced_config("olmo-1b")
+    model = Model(cfg, runtime=RuntimeConfig(remat="full"))
+    opt = OptimizerConfig(warmup_steps=2, total_steps=6)
+    data_cfg = DataConfig(seq_len=64, global_batch=2, vocab_size=cfg.vocab_size)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0), cuda)
+
+    def loop(steps, ckdir=None):
+        return TrainLoopConfig(steps=steps, log_every=1, checkpoint_every=3,
+                               checkpoint_dir=ckdir and str(tmp_path / ckdir))
+
+    p6, s6, h6 = run_train_loop(model, opt, loop(6, "unbroken"), SyntheticLM(data_cfg),
+                                params=tree_map(torch.clone, params))
+    _, _, h3 = run_train_loop(model, opt, loop(3, "killed"), SyntheticLM(data_cfg),
+                              params=params)
+    del params
+    ck = Checkpointer(str(tmp_path / "killed"))
+    fresh = init_params(cfg, torch.Generator(device=cuda).manual_seed(1), cuda)
+    tree = ck.restore(3, {"params": fresh, "opt_state": init_opt_state(opt, fresh)})
+    assert all(t.device.type == cuda.type for t in tree_leaves(tree))
+    data = SyntheticLM(data_cfg)
+    data.load_state_dict(ck.load_extra(3)["data_state"])
+    ack = Checkpointer(str(tmp_path / "async"), async_save=True)
+    ack.save(3, tree, extra={"data_state": data.state_dict()})
+    p, s, h = run_train_loop(model, opt, loop(6), data, params=tree["params"],
+                             opt_state=tree["opt_state"], start_step=3)
+    ack.wait()
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(p), tree_leaves(p6)))
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(s), tree_leaves(s6)))
+    assert h3 + h == h6
+    unbroken = Checkpointer(str(tmp_path / "unbroken"))
+    with np.load(f"{unbroken.step_dir(3)}/proc_0.npz") as want, \
+            np.load(f"{ack.step_dir(3)}/proc_0.npz") as got:
+        assert sorted(got.files) == sorted(want.files)
+        assert all(np.array_equal(got[k], want[k]) for k in want.files)

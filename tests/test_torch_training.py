@@ -15,7 +15,9 @@ numpy-seeded batches go through both frameworks, float32 reduced configs:
   ``grad_norm``, ``lr`` and the updated weights.
 * The remat policies none, full and dots give the same gradients, and a
   short ``run_train_loop`` follows JAX's history.
-* The refusals of what is not ported yet: a checkpoint directory, a mesh.
+* The refusal of what is not ported yet, a mesh; the launcher's checkpoint
+  flags, which are now taken, and the loop's refusal of a checkpoint
+  directory with a data iterator that has no state to save.
 * ``ssd_chunk``'s kernel route under autograd (``ops.SsdChunk``), its two
   kernels stood in for by their plain versions: one forward and one
   backward launch, gradients equal to plain autograd's, and ``mode="kernel"``
@@ -37,6 +39,7 @@ moment by that much (readings up to 1.6e-3).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -224,26 +227,44 @@ def test_run_train_loop_follows_jax_history():
 
 
 def test_loop_refuses_a_checkpoint_directory_and_missing_params(tmp_path):
+    """A checkpoint directory is refused only with a data iterator that has
+    no state to save (the checkpointer itself: tests/test_torch_checkpoint.py)."""
     _, _, tmodel, tparams = _setup("olmo-1b")
     cfg = topt.OptimizerConfig()
     data = iter(tpipe.SyntheticLM(tpipe.DataConfig(seq_len=8, global_batch=2, vocab_size=256)))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
+    with pytest.raises(TypeError, match="state_dict"):
         tloop.run_train_loop(tmodel, cfg, tloop.TrainLoopConfig(
-            steps=1, checkpoint_dir=str(tmp_path)), data, params=tparams)
+            steps=1, checkpoint_dir=str(tmp_path)), map(dict, [next(data)]), params=tparams)
     with pytest.raises(ValueError, match="params"):
         tloop.run_train_loop(tmodel, cfg, tloop.TrainLoopConfig(steps=1), data)
 
 
 @pytest.mark.parametrize("argv,item", [
     (["--mesh", "2x4"], "item 5"),
-    (["--checkpoint-dir", "ckpt"], "item 4"),
-    (["--resume"], "item 4"),
 ])
 def test_launcher_refuses_what_is_not_ported(argv, item):
     from repro_torch.launch import train
 
     with pytest.raises(SystemExit, match=item):
         train.main(["--smoke", "--device", "cpu", *argv])
+
+
+@pytest.mark.parametrize("flags,said", [
+    (["--checkpoint-dir"], ""),
+    (["--resume", "--checkpoint-dir"], "nothing to resume"),
+])
+def test_launcher_takes_the_checkpoint_flags(tmp_path, capsys, flags, said):
+    """Once refused naming queue 1 item 4: --checkpoint-dir saves every
+    --checkpoint-every steps (keeping 2), --resume over an empty directory
+    says so and starts at step 0, as JAX's launcher does."""
+    from repro_torch.launch import train
+
+    history = train.main(["--smoke", "--device", "cpu", "--steps", "4", "--batch", "2",
+                          "--seq-len", "16", "--checkpoint-every", "1", *flags,
+                          str(tmp_path)])
+    assert [h["step"] for h in history] == [1]
+    assert sorted(os.listdir(tmp_path)) == ["step_000000003", "step_000000004"]
+    assert said in capsys.readouterr().out
 
 
 def test_launcher_trains_the_reduced_config_on_the_cpu(tmp_path):
