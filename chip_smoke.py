@@ -252,6 +252,25 @@ Phases, each a hard check (any failure exits non-zero):
    the first. The pure step is not run at this size (a second 30 GB of
    weights and moments); its equality with the in-place loop is phase 13's
    check and a ``gpu`` test's on a reduced mamba2.
+15. the model under a device mesh (phase 14's model freed first;
+   ``experiments/mesh_probe.py``): each run's single-device reference on the
+   same weights first, kept on the host and freed; then ONE world of 4
+   gloo ranks on the card (``distributed.world.run_world``), every rank on
+   its shards: the collectives on CUDA tensors against CPU tensors; (i)
+   Llama-3.1-8B, all 32 layers, mesh 1x4, a 1024-token prompt and 16 greedy
+   steps through ``launch.generate.mesh_generate`` with the
+   pool-interleaved KV decode (flash on 8 q / 2 kv heads a rank, the paged
+   kernel with its lse on a quarter of the sequence, merged by
+   log-sum-exp); (ii) the same at 4 of 32 layers on mesh 2x2, 2 prompts
+   (FSDP gathers and the batch over data); (iii) arctic-480b, 1 of 35
+   layers, mesh 1x4, the a2a dispatch (32 experts a rank), a 1024-token
+   prefill at capacity 8.0 (nothing dropped) and at the published 1.25
+   (dropped pairs printed); (iv) mamba2-2.7b, 8 of 64 layers, mesh 1x4,
+   20 SSD heads a rank through ``ssd_chunk``, 1000 tokens and 16 steps,
+   against one device on the tp-4 layout (vocab 50304). Logits, greedy
+   tokens and arctic's outputs at the tokens routed alike within limits
+   set from readings; each rank's launches as the path says; per-rank
+   peaks and the phase's wall time printed.
 
 Prints the kernel table as one JSON line (the e4m3 paged instantiation as
 a row of its own, ``paged_attention_e4m3``, and the attention backward as
@@ -315,6 +334,12 @@ FP8_SMALL_TOL = 2e-3
 LOGIT_TOL = 0.5
 PROMPT, SHARED, MAX_LEN, POOL_BLOCKS, MAX_NEW = 1024, 512, 2048, 512, 16
 DECODE_CTX = 1040  # a 1024-token prompt and 16 decode steps
+# phase 15 (i): Llama's 1088-position cache (1024 + 17 rounded up to whole
+# blocks of 16 on each of 4 shards) is 272 positions a rank
+MESH_SHARD = 272
+# paged_attention's lse against the plain version's, absolute on values of
+# 1-10: f32 sums in other orders (tests/test_torch_gpu.py)
+PAGED_LSE_TOL = 1e-4
 # the wgmma route against the plain version beside the main path's shape:
 # (b, sq, skv, hq, hkv, d, causal); d 64 and 128, several K/V tiles, ragged
 # lengths, sq != skv under the causal mask, non-causal, b 2, groups 1, 4, 8
@@ -450,6 +475,25 @@ SSD_BWD_SHAPES = {"mamba2_2.7b_train": (32, 256, 80, 64, 1, 128, "bfloat16", Tru
                   "groups2": (8, 256, 80, 64, 2, 128, "bfloat16", True, 2.0),
                   "float32_bc": (8, 256, 80, 64, 1, 128, "float32", True, 2.0),
                   "no_dcum": (32, 256, 80, 64, 1, 128, "bfloat16", False, 2.0)}
+# phase 15: the weights' seed, the world's clock, and the limits on each
+# run's largest |logit| gap against one device over every step, about twice
+# the largest reading of experiments/mesh_probe.py over seeds 0-2 (NVIDIA
+# H100 80GB HBM3, 700.00 W; chiprun_out/pr30_call2_probe.log): Llama 1x4,
+# 32 layers, 0.3281 / 0.3394 / 0.3438 at logit std 1.28 (bf16 roundings of
+# the residual stream at other points: f32 partial sums over model, each
+# shard's attention rounded before the merge, and the paged kernel's
+# splits of a shorter context, compounded through 32 layers); 2x2, 4
+# layers, 0.1016 / 0.1016 / 0.0977; arctic's prefill logits 0.0469 /
+# 0.0625 / 0.0469 and its layer outputs at the tokens routed alike 0.1875
+# at each seed (one bf16 step at |x| 16-32; output std 3.44); mamba2, 8
+# layers, 0.0625 / 0.0586 / 0.0625. Logits of an unrelated context differ
+# by about 8 (the first readings, before the ranks decoded the reference's
+# tokens)
+MESH_SEED = 0
+MESH_TIMEOUT_S = 600.0
+MESH_LOGIT_TOL = {"llama_1x4": 0.7, "llama_2x2": 0.2, "arctic_1x4": 0.125,
+                  "mamba2_1x4": 0.125}
+MESH_HIDDEN_TOL = 0.375
 # phase 14: mamba2-2.7b at full width and depth trained on phase 13's
 # SyntheticLM batches; its SSD backward checked per layer at these layers
 SSM_TRAIN_STEPS, SSM_F64_LAYERS = 8, (0, 31, 63)
@@ -610,10 +654,56 @@ def paged_row(cfg, randn) -> dict:
         library_ms=cycled_ms(lambda i: F.scaled_dot_product_attention(
             qs[i], ks[i], vs[i], enable_gqa=True), range(L)),
     )
+    row["lse"] = paged_lse_shape(kc, vc, q)
     del kc, vc, q, qs, ks, vs
     row["shapes"] = {label: paged_shape(label, hq_, hkv_, hd_, max_len, ctx_len, randn)
                      for label, (_, hq_, hkv_, hd_, max_len, ctx_len) in ATTN_SHAPES.items()}
     return row
+
+
+def paged_lse_shape(kc, vc, q) -> dict:
+    """paged_attention with its log-sum-exp output at one rank's shape of
+    phase 15 (i): all 32 q heads over the rank's shard of Llama-3.1-8B's
+    sequence (MESH_SHARD of 4 x MESH_SHARD positions, a full shard), each
+    layer's shard cut from phase 2's caches. The output and the lse against
+    the plain version's; timed with the lse and without it on the same
+    inputs, cycling over the layers."""
+    import torch
+
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import ref
+
+    dev, bt, L = torch.device("cuda"), 16, kc.shape[0]
+    ks = kc[:, :, :MESH_SHARD].contiguous()
+    vs = vc[:, :, :MESH_SHARD].contiguous()
+    n_blk = MESH_SHARD // bt
+    table = pa.make_block_table([list(range(n_blk))], n_blk, dev)
+    ctx = torch.tensor([MESH_SHARD], dtype=torch.int32, device=dev)
+
+    def call(i, lse=True):
+        return pa.paged_attention(q[i], pa.dense_blocks(ks[i], bt), pa.dense_blocks(vs[i], bt),
+                                  table, ctx, return_lse=lse)
+
+    before = pa.paged_attention.launches_with_lse
+    got = [call(i) for i in range(L)]
+    want = [ref.paged_attention_ref(q[i], pa.dense_blocks(ks[i], bt),
+                                    pa.dense_blocks(vs[i], bt), table, ctx, return_lse=True)
+            for i in range(L)]
+    err, tol = bf16_check(torch.stack([g[0] for g in got]), torch.stack([w[0] for w in want]))
+    lse_err = max(float((g[1] - w[1]).abs().max()) for g, w in zip(got, want))
+    same = all(torch.equal(g[0], call(i, lse=False)) for i, g in enumerate(got))
+    check(err <= tol and lse_err <= PAGED_LSE_TOL and same
+          and pa.paged_attention.launches_with_lse == before + L,
+          f"paged_attention with its lse at a phase 15 shard ({MESH_SHARD} positions, 32 / 8 "
+          f"heads, d 128) over {L} layers: out max |err| {err:.3g} <= {tol:.3g}, lse max "
+          f"|err| {lse_err:.3g} <= {PAGED_LSE_TOL}; the output equal with the lse null")
+    r = dict(max_abs_err=err, lse_max_abs_err=lse_err, positions=MESH_SHARD,
+             ms=cycled_ms(call, range(L)), ms_lse_null=cycled_ms(lambda i: call(i, False),
+                                                                 range(L)))
+    print(f"  paged_attention at a phase 15 shard: {r['ms']:.4f} ms with the lse, "
+          f"{r['ms_lse_null']:.4f} without")
+    del ks, vs
+    return r
 
 
 def paged_shape(label: str, hq: int, hkv: int, hd: int, max_len: int, ctx_len: int,
@@ -3437,6 +3527,88 @@ def phase_sparse(llama_pool) -> dict:
     return launches
 
 
+def phase_mesh() -> dict:
+    """Phase 15: the model under a device mesh, every run at full width
+    (``experiments/mesh_probe.py``). Each run's single-device reference is
+    computed here first, on the same weights, its results kept on the host
+    and the model freed; then ONE world of 4 gloo ranks on the card runs
+    the four runs in turn (the collectives first checked on CUDA tensors).
+    Every rank runs the kernels on its shards; nothing falls back."""
+    import torch
+
+    from repro_torch.distributed.world import run_world
+    from repro_torch.experiments import mesh_probe as mp
+
+    t0 = time.perf_counter()
+    for name, run in mp.RUNS.items():
+        cut = (f"{run['layers']} of {mp.get_layers(run['arch'])} layers" if run["layers"]
+               else "all layers")
+        print(f"  {name}: {run['arch']} full width, {cut}, mesh {run['mesh'][0]}x"
+              f"{run['mesh'][1]}, {run['batch']} x {run['prompt']} prompt tokens, "
+              f"{run['gen'] - 1} decode steps, dispatch {run['dispatch']}")
+    refs = {name: mp.reference(run, MESH_SEED) for name, run in mp.RUNS.items()}
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  references done in {time.perf_counter() - t0:.1f} s; the parent holds "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB before the ranks start", flush=True)
+    # the ranks decode the reference's greedy tokens: every step compares
+    # the logits of one context
+    forced = {name: ref["tokens"] for name, ref in refs.items() if "hidden" not in ref}
+    t1 = time.perf_counter()
+    got = run_world(mp.rank_program, 4, (mp.RUNS, MESH_SEED, forced), timeout_s=MESH_TIMEOUT_S)
+    world_s = time.perf_counter() - t1
+    for mesh in ("1x4", "2x2"):
+        check(got[f"collectives_{mesh}"] == [],
+              f"mesh {mesh}: all_reduce (sum, max), all_gather (dims 0, 2) and all_to_all "
+              "over model, data and both, float32 / bfloat16 / int64, CUDA equal to CPU")
+    out = {"world_s": world_s}
+    launches = {}
+    for name, run in mp.RUNS.items():
+        r = mp.readings(name, refs[name], got[name])
+        out[name] = r
+        layers = run["layers"] or mp.get_layers(run["arch"])
+        steps = run["gen"] - 1
+        for rank, n in enumerate(r["launches"]):
+            want = {"flash_attention": layers if run["arch"] != "mamba2-2.7b" else 0,
+                    "paged_attention": layers * steps if run["arch"] != "mamba2-2.7b" else 0,
+                    "ssd_chunk": layers if run["arch"] == "mamba2-2.7b" else 0}
+            lse = r["paged_with_lse"][rank]
+            check(all(n[k] == v for k, v in want.items()) and lse == want["paged_attention"],
+                  f"{name} rank {rank}: launches {want} (paged with its lse {lse}) as the path "
+                  "says")
+        for k, v in got[name]["ranks"][0]["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+        gap = max(r["max_dlogit_per_step"])
+        check(gap <= MESH_LOGIT_TOL[name],
+              f"{name}: logits against one device, max |dlogit| {gap:.4g} <= "
+              f"{MESH_LOGIT_TOL[name]} over {len(r['max_dlogit_per_step'])} steps (logit std "
+              f"{r['logit_std']:.3g})")
+        if "token_flips" in r:
+            # an argmax can differ only where the reference's top two are
+            # closer than twice the step's gap; anywhere else is a fault
+            ties = r["token_flips"]
+            check(all(m <= 2 * g for _, _, m, g in ties),
+                  f"{name}: greedy tokens equal at every step but {len(ties)} near-ties "
+                  f"(reference top-2 margin within twice the step's gap: "
+                  f"{[(st, round(m, 4)) for st, _, m, _ in ties]})")
+        if "flips" in r:
+            check(r["max_dhidden_alike"] <= MESH_HIDDEN_TOL and max(r["dropped"]) == 0,
+                  f"{name}: the layer's outputs at the tokens routed alike, max |d| "
+                  f"{r['max_dhidden_alike']:.4g} <= {MESH_HIDDEN_TOL} (output std "
+                  f"{r['hidden_std']:.3g}); {r['flips']} of {mp.RUNS[name]['prompt']} tokens "
+                  f"routed otherwise; no pair dropped at capacity {run['capacity']}; "
+                  f"{r['dropped_published']} pairs dropped at the published "
+                  f"{mp.PUBLISHED_CAPACITY}")
+        print(f"  {name}: wall {r['wall_s']:.1f} s, peak per rank "
+              f"{[round(x, 2) for x in r['peak_gib']]} GiB")
+    wall = time.perf_counter() - t0
+    print(f"  mesh phase: {wall:.1f} s wall ({world_s:.1f} s the world); collectives are gloo "
+          "through host memory on one card, not a multi-GPU time")
+    out["wall_s"] = wall
+    print(f"  mesh path: {json.dumps(out)}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3526,11 +3698,17 @@ def main() -> None:
     print(f"  phase 13's model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     print("[14] training: mamba2-2.7b full width, all 64 layers, AdamW steps", flush=True)
     ssm_train_launches = phase_train_ssm(mamba_cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"  phase 14's model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
+    print("[15] the model under a device mesh: 4 gloo ranks on the card, full width",
+          flush=True)
+    mesh_launches = phase_mesh()
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
              "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches,
              "qwen3_fp8": qwen3_fp8_launches, "internvl2": internvl_launches,
              "musicgen": musicgen_launches, "train": train_launches,
-             "mamba2_train": ssm_train_launches}
+             "mamba2_train": ssm_train_launches, "mesh": mesh_launches}
     own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse",
            "paged_attention_e4m3": "qwen3_fp8", "flash_attention_bwd": "train",
            "ssd_chunk_bwd": "mamba2_train"}

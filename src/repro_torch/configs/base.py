@@ -105,7 +105,22 @@ class ModelConfig:
     @property
     def padded_vocab(self) -> int:
         """Vocab rounded up to a multiple of 8, as the JAX tree pads it at tp=1."""
-        return -(-self.vocab_size // 8) * 8
+        return self.padded_vocab_tp(1)
+
+    def padded_vocab_tp(self, tp: int) -> int:
+        """Vocab rounded up to a multiple of 8 tp (JAX's ``padded_vocab(tp)``):
+        the vocab dim is sharded over ``model`` in shards of whole 8s."""
+        return _round_up(self.vocab_size, tp * 8)
+
+    def padded_heads(self, tp: int) -> int:
+        """Query heads rounded up to a multiple of tp. The padded heads are
+        real, randomly drawn heads, as in JAX: a padded model is another
+        model."""
+        return _round_up(self.n_heads, tp)
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
 
 
 @dataclass(frozen=True)
@@ -133,5 +148,12 @@ class RuntimeConfig:
     # checkpoint policy of a training forward, per period of the stack:
     # none | full (recompute everything) | dots (save matmul outputs)
     remat: str = "full"
+    # decode KV under a mesh: "pool_interleaved" (the KV sequence spread
+    # over `model`, partial attentions merged by log-sum-exp: Beluga O9) or
+    # "replicated" (every rank holds the whole sequence); one device ignores it
+    decode_kv: str = "pool_interleaved"
     moe_dispatch: str = "einsum"  # einsum | ragged | a2a (ragged on one device)
+    # row-parallel products: each rank's partial cast to the activation
+    # dtype before the sum over `model` (else the f32 partials are summed)
+    rowp_bf16_psum: bool = False
     use_fp8_kv: bool = False  # attention K/V caches in float8_e4m3fn

@@ -6,6 +6,11 @@ and returns the port's tree of tensors. bfloat16 and float8_e4m3fn (an fp8
 KV cache) arrive as ``ml_dtypes`` types, which torch cannot read directly;
 their bits move as uint16 or uint8 and are viewed as ``torch.bfloat16`` or
 ``torch.float8_e4m3fn`` again, so no value is rounded.
+
+Under a mesh (``rules``) it takes JAX's tree in the tp-padded layout of
+``rules.tp`` (a JAX ``Model`` with those rules draws it) and returns this
+rank's shards of it: each leaf is cut on the host before it moves. This is
+how JAX's weights reach a world of ranks.
 """
 
 from __future__ import annotations
@@ -14,7 +19,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.model import param_shapes
+from repro_torch.distributed.sharding import local_shape, local_slice
+from repro_torch.models.model import param_specs
 
 
 # ml_dtypes' name -> (the integer type its bits move as, the torch dtype)
@@ -30,8 +36,12 @@ def tensor_from_numpy(arr: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(arr).to(device)
 
 
-def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
-    """Checks names, shapes and each leaf's own dtype against ``param_shapes(cfg)``."""
+def params_from_numpy(tree: dict, cfg: ModelConfig, device, rules=None,
+                      tp: int | None = None) -> dict:
+    """Checks names, shapes and each leaf's own dtype against
+    ``param_specs(cfg, tp)`` (tp: the rules' TP degree, else ``tp`` or 1);
+    under ``rules`` returns this rank's shards."""
+    tp = rules.tp if rules is not None else (tp or 1)
 
     def walk(got: dict, spec: dict, path: str) -> dict:
         if set(got) != set(spec):
@@ -41,11 +51,16 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, device) -> dict:
             if isinstance(s, dict):
                 out[k] = walk(got[k], s, f"{path}/{k}")
                 continue
-            t = tensor_from_numpy(np.asarray(got[k]), device)
-            shape, _, dtype = s
-            if tuple(t.shape) != shape or t.dtype != dtype:
-                raise ValueError(f"{path}/{k}: {tuple(t.shape)} {t.dtype}, want {shape} {dtype}")
+            arr = np.asarray(got[k])
+            if rules is not None and tuple(arr.shape) == s.shape:
+                arr = local_slice(arr, rules.spec(s.logical_axes), rules.mesh, f"{path}/{k}")
+            t = tensor_from_numpy(arr, device)
+            want = (s.shape if rules is None else
+                    local_shape(s.shape, rules.spec(s.logical_axes), rules.mesh, f"{path}/{k}"))
+            if tuple(t.shape) != want or t.dtype != s.dtype:
+                raise ValueError(f"{path}/{k}: {tuple(np.shape(got[k]))} {t.dtype}, "
+                                 f"want {s.shape} {s.dtype}")
             out[k] = t
         return out
 
-    return walk(tree, param_shapes(cfg), "")
+    return walk(tree, param_specs(cfg, tp), "")

@@ -86,8 +86,9 @@ TIMELINE = [  # on the bf16 (tensor-core) kernel, which every probed shape runs
      "  STAMP(4, __float_as_int(ca[0]))\n  if (s_act == 1) {\n", 1),
     ("  cluster.sync();  // the pushes are visible",
      "  STAMP(5, 0)\n  cluster.sync();  // the pushes are visible", 1),
-    ("    out[idx] = Tr::from_f(num / fmaxf(den, 1e-30f));\n  }\n}\n",
-     "    out[idx] = Tr::from_f(num / fmaxf(den, 1e-30f));\n  }\n  STAMP(6, 0)\n}\n", 1),
+    ("    if (kLse && idx % D == 0) lse[gi] = (mx + log2f(den)) * kLn2;\n  }\n}\n",
+     "    if (kLse && idx % D == 0) lse[gi] = (mx + log2f(den)) * kLn2;\n  }\n"
+     "  STAMP(6, 0)\n}\n", 1),
     ("extern \"C\" int paged_attention_fwd(",
      "extern \"C\" int paged_probe_stamps(void* dst, int bytes, int reset) {\n"
      "  if (reset) {\n"

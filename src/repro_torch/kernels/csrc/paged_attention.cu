@@ -6,7 +6,13 @@
 // (b, max_blocks) int32, an entry of -1 read as block 0; only the first
 // context_lens[b] tokens attend (the table covers at most max_blocks * bt);
 // softmax with running max, sum and accumulator in f32; a row with context
-// 0 gives zeros. Query head h reads kv head h / (hq / hkv).
+// 0 gives zeros. Query head h reads kv head h / (hq / hkv). Optionally
+// (lse not null) each head's log-sum-exp of its scaled scores, f32, natural
+// log, -inf at context 0: what a caller needs to merge partial attentions
+// over several shards of one sequence. The merges below already keep it;
+// storing it adds a store, not a pass. It is a template flag (kLse), so
+// serving's instantiations (lse null) are the code they were without it,
+// and the occupancy queries below read those.
 // q * (1 / sqrt(d)) is rounded to the input dtype before the dot products,
 // as the plain version (ref.py) and the JAX oracle do.
 //
@@ -115,6 +121,7 @@ constexpr int kRingBytes = 65536;  // the K/V stages' budget
 constexpr int kMaxCluster = 16;    // splits: one thread-block cluster per (row, kv head)
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // The C entry's dtype codes: q (and output) type and K/V storage type.
 constexpr int kF32 = 0;       // q, K, V float32: the CUDA-core kernel
@@ -175,6 +182,7 @@ struct Args {
   const int* table;        // (b, max_blocks)
   const int* ctx_lens;     // (b,)
   void* o;                 // (b, hq, d)
+  float* lse;              // (b, hq) natural log-sum-exp of the scores, or null
   int b, hq, hkv, bt, max_blocks, splits;
   float scale;
 };
@@ -259,11 +267,11 @@ __device__ __forceinline__ void cluster_wait() {
 // partial of the outputs [s * per, (s + 1) * per) into CTA s's shared
 // memory (remote stores, no round trip), one cluster barrier makes them
 // visible, and CTA s merges them from its own shared memory in split order.
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool kLse>
 __device__ __forceinline__ void merge_partials(const unsigned char* ring, int warp_bytes,
                                                float (*s_wm)[G], float (*s_wl)[G], float* s_cm,
-                                               float* s_cl, T* out, int g, int S, int s_act,
-                                               int split, int tid) {
+                                               float* s_cl, T* out, float* lse, int g, int S,
+                                               int s_act, int split, int tid) {
   using Tr = Traits<T>;
   constexpr int kOut = (G * D + kThreads - 1) / kThreads;  // merged outputs a thread owns
   __shared__ float s_in[G * D + kMaxCluster];  // the splits' partials of this CTA's outputs
@@ -293,6 +301,10 @@ __device__ __forceinline__ void merge_partials(const unsigned char* ring, int wa
     for (int r = 0; r < kOut; ++r) {
       const int idx = tid + r * kThreads;
       if (idx < g * D) out[idx] = Tr::from_f(ca[r] / fmaxf(cl[r], 1e-30f));
+      // the maxima and sums are in log2 units (log2 e folded into the scores)
+      if (kLse && idx < g * D && idx % D == 0) {
+        lse[idx / D] = (cm[r] + log2f(cl[r])) * kLn2;
+      }
     }
     return;
   }
@@ -343,10 +355,11 @@ __device__ __forceinline__ void merge_partials(const unsigned char* ring, int wa
       }
     }
     out[idx] = Tr::from_f(num / fmaxf(den, 1e-30f));
+    if (kLse && idx % D == 0) lse[gi] = (mx + log2f(den)) * kLn2;
   }
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool kLse>
 __global__ void __launch_bounds__(kThreads, G >= 8 ? 1 : 2) paged_attention_kernel(Args args) {
   using Sh = Shape<T, D, G>;
   using Tr = Traits<T>;
@@ -375,9 +388,11 @@ __global__ void __launch_bounds__(kThreads, G >= 8 ? 1 : 2) paged_attention_kern
   }
   const int ctx = max(0, min(args.ctx_lens[bi], args.max_blocks * bt));
   T* out = static_cast<T*>(args.o) + ((long long)bi * hq + head0) * D;
-  if (ctx == 0) {  // zeros, as the Pallas kernel gives; written by split 0 alone
+  float* lse = kLse ? args.lse + (long long)bi * hq + head0 : nullptr;
+  if (ctx == 0) {  // zeros and an lse of -inf: written by split 0 alone
     if (split == 0) {
       for (int idx = tid; idx < g * D; idx += kThreads) out[idx] = Tr::from_f(0.f);
+      if (kLse && tid < g) lse[tid] = __int_as_float(0xff800000);  // -inf
     }
     return;
   }
@@ -564,8 +579,8 @@ __global__ void __launch_bounds__(kThreads, G >= 8 ? 1 : 2) paged_attention_kern
     }
   }
   __syncthreads();
-  merge_partials<T, D, G>(ring, kWS * Sh::kStageBytes, s_wm, s_wl, s_cm, s_cl, out, g, S,
-                          s_act, split, tid);
+  merge_partials<T, D, G, kLse>(ring, kWS * Sh::kStageBytes, s_wm, s_wl, s_cm, s_cl, out, lse, g,
+                          S, s_act, split, tid);
 }
 
 // bf16: the tensor cores. A warp takes its tiles of 16 keys as mma.sync
@@ -697,7 +712,7 @@ __device__ __forceinline__ float2 to_f2(const __nv_bfloat162& x) {
 
 // Code: kBf16 (q, K, V bf16), kF32E4m3 or kBf16E4m3 (q float32 or bf16 and
 // the output in q's type; K/V e4m3, widened to bf16 in shared memory)
-template <int Code, int D>
+template <int Code, int D, bool kLse>
 __global__ void __launch_bounds__(kThreads, 2) paged_mma_kernel(Args args) {
   using Sh = MmaShape<D>;
   using T = typename Kinds<Code>::Q;
@@ -734,9 +749,11 @@ __global__ void __launch_bounds__(kThreads, 2) paged_mma_kernel(Args args) {
   }
   const int ctx = max(0, min(ctx_in, args.max_blocks * bt));
   T* out = static_cast<T*>(args.o) + ((long long)bi * hq + head0) * D;
-  if (ctx == 0) {  // zeros, as the Pallas kernel gives; written by split 0 alone
+  float* lse = kLse ? args.lse + (long long)bi * hq + head0 : nullptr;
+  if (ctx == 0) {  // zeros and an lse of -inf: written by split 0 alone
     if (split == 0) {
       for (int idx = tid; idx < g * D; idx += kThreads) out[idx] = Tr::from_f(0.f);
+      if (kLse && tid < g) lse[tid] = __int_as_float(0xff800000);  // -inf
     }
     return;
   }
@@ -927,21 +944,21 @@ __global__ void __launch_bounds__(kThreads, 2) paged_mma_kernel(Args args) {
     }
   }
   __syncthreads();
-  merge_partials<T, D, G>(ring, kWS * Sh::kStageBytes, s_wm, s_wl, s_cm, s_cl, out, g, S,
-                          s_act, split, tid);
+  merge_partials<T, D, G, kLse>(ring, kWS * Sh::kStageBytes, s_wm, s_wl, s_cm, s_cl, out, lse, g,
+                          S, s_act, split, tid);
 }
 
 // The kernel that takes (Code, D, G) and its dynamic shared memory: bf16
 // and every e4m3 cache on the tensor cores, float32 on the CUDA cores; a
 // whole group a CTA in both.
-template <int Code, int D, int G>
+template <int Code, int D, int G, bool kLse>
 struct Kernel {
   static constexpr bool kMma = Code != kF32;
   static void (*fn())(Args) {
     if constexpr (kMma) {
-      return paged_mma_kernel<Code, D>;
+      return paged_mma_kernel<Code, D, kLse>;
     } else {
-      return paged_attention_kernel<float, D, G>;
+      return paged_attention_kernel<float, D, G, kLse>;
     }
   }
   static constexpr int smem() {
@@ -954,14 +971,14 @@ struct Kernel {
   static constexpr int kSmem = smem();
 };
 
-template <int Code, int D, int G>
+template <int Code, int D, int G, bool kLse>
 cudaError_t prepare() {  // once: the dynamic shared-memory cap, clusters of up to 16
   static cudaError_t err = [] {
-    cudaError_t e = cudaFuncSetAttribute(Kernel<Code, D, G>::fn(),
+    cudaError_t e = cudaFuncSetAttribute(Kernel<Code, D, G, kLse>::fn(),
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         Kernel<Code, D, G>::kSmem);
+                                         Kernel<Code, D, G, kLse>::kSmem);
     if (e != cudaSuccess) return e;
-    return cudaFuncSetAttribute(Kernel<Code, D, G>::fn(),
+    return cudaFuncSetAttribute(Kernel<Code, D, G, kLse>::fn(),
                                 cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   }();
   return err;
@@ -969,10 +986,10 @@ cudaError_t prepare() {  // once: the dynamic shared-memory cap, clusters of up 
 
 // op 0: launch; op 1: *out = resident CTAs per SM; op 2: *out = dynamic
 // shared memory; op 3: *out = clusters of args.splits CTAs resident at once
-template <int Code, int D, int G>
+template <int Code, int D, int G, bool kLse>
 int run(const Args& args, int op, int* out, cudaStream_t stream) {
-  using K = Kernel<Code, D, G>;
-  cudaError_t err = prepare<Code, D, G>();
+  using K = Kernel<Code, D, G, kLse>;
+  cudaError_t err = prepare<Code, D, G, kLse>();
   if (err != cudaSuccess) return static_cast<int>(err);
   if (op == 2) {
     *out = K::kSmem;
@@ -1004,37 +1021,44 @@ int run(const Args& args, int op, int* out, cudaStream_t stream) {
 
 // g: the group. The tensor-core kernel takes every group in one
 // instantiation; float32 in the least power of two that holds it
-template <int Code, int D>
+template <int Code, int D, bool kLse>
 int run_g(const Args& args, int g, int op, int* out, cudaStream_t s) {
   if constexpr (Code != kF32) {
-    return run<Code, D, kMmaHeads>(args, op, out, s);
+    return run<Code, D, kMmaHeads, kLse>(args, op, out, s);
   } else {
-    if (g <= 1) return run<Code, D, 1>(args, op, out, s);
-    if (g <= 2) return run<Code, D, 2>(args, op, out, s);
-    if (g <= 4) return run<Code, D, 4>(args, op, out, s);
-    return run<Code, D, 8>(args, op, out, s);
+    if (g <= 1) return run<Code, D, 1, kLse>(args, op, out, s);
+    if (g <= 2) return run<Code, D, 2, kLse>(args, op, out, s);
+    if (g <= 4) return run<Code, D, 4, kLse>(args, op, out, s);
+    return run<Code, D, 8, kLse>(args, op, out, s);
   }
 }
 
-template <int Code>
+// kLse: the instantiation that stores the lse; serving's (lse null) is
+// the same code as before the lse existed
+template <int Code, bool kLse>
 int run_d(const Args& args, int d, int g, int op, int* out, cudaStream_t s) {
   switch (d) {
-    case 16: return run_g<Code, 16>(args, g, op, out, s);
-    case 32: return run_g<Code, 32>(args, g, op, out, s);
-    case 64: return run_g<Code, 64>(args, g, op, out, s);
-    case 80: return run_g<Code, 80>(args, g, op, out, s);
-    case 128: return run_g<Code, 128>(args, g, op, out, s);
+    case 16: return run_g<Code, 16, kLse>(args, g, op, out, s);
+    case 32: return run_g<Code, 32, kLse>(args, g, op, out, s);
+    case 64: return run_g<Code, 64, kLse>(args, g, op, out, s);
+    case 80: return run_g<Code, 80, kLse>(args, g, op, out, s);
+    case 128: return run_g<Code, 128, kLse>(args, g, op, out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 int dispatch(const Args& args, int dtype, int d, int g, int op, int* out, cudaStream_t s) {
   if (g < 1 || g > 8) return static_cast<int>(cudaErrorInvalidValue);
+  const bool lse = args.lse != nullptr;
   switch (dtype) {
-    case kF32: return run_d<kF32>(args, d, g, op, out, s);
-    case kBf16: return run_d<kBf16>(args, d, g, op, out, s);
-    case kF32E4m3: return run_d<kF32E4m3>(args, d, g, op, out, s);
-    case kBf16E4m3: return run_d<kBf16E4m3>(args, d, g, op, out, s);
+    case kF32: return lse ? run_d<kF32, true>(args, d, g, op, out, s)
+                          : run_d<kF32, false>(args, d, g, op, out, s);
+    case kBf16: return lse ? run_d<kBf16, true>(args, d, g, op, out, s)
+                           : run_d<kBf16, false>(args, d, g, op, out, s);
+    case kF32E4m3: return lse ? run_d<kF32E4m3, true>(args, d, g, op, out, s)
+                              : run_d<kF32E4m3, false>(args, d, g, op, out, s);
+    case kBf16E4m3: return lse ? run_d<kBf16E4m3, true>(args, d, g, op, out, s)
+                               : run_d<kBf16E4m3, false>(args, d, g, op, out, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1044,13 +1068,15 @@ int dispatch(const Args& args, int dtype, int d, int g, int op, int* out, cudaSt
 // dtype: 0 = float32, 1 = bfloat16 (q, K, V alike); 2 = q float32 and K/V
 // e4m3, 3 = q bfloat16 and K/V e4m3 (the output in q's type); d in {16,
 // 32, 64, 80, 128}; hq / hkv <= 8.
-// block_stride in elements. splits: CTAs per (row, kv head), 1 to 16, one
+// block_stride in elements. lse: null, or (b, hq) float32 that receives
+// each head's natural log-sum-exp of its scaled scores (-inf at context 0).
+// splits: CTAs per (row, kv head), 1 to 16, one
 // thread-block cluster. Launches ONE kernel on `stream`, allocates nothing;
 // returns a cudaError_t.
 extern "C" int paged_attention_fwd(const void* q, const void* k, const void* v,
                                    long long block_stride, const void* table,
-                                   const void* ctx, void* o, int dtype, int b, int hq,
-                                   int hkv, int d, int bt, int max_blocks, int splits,
+                                   const void* ctx, void* o, void* lse, int dtype, int b,
+                                   int hq, int hkv, int d, int bt, int max_blocks, int splits,
                                    float scale, void* stream) {
   if ((d != 16 && d != 32 && d != 64 && d != 80 && d != 128) || hkv <= 0 || hq % hkv != 0 ||
       hq / hkv > 8 || bt <= 0 || max_blocks <= 0 || splits <= 0 ||
@@ -1059,7 +1085,8 @@ extern "C" int paged_attention_fwd(const void* q, const void* k, const void* v,
   }
   if (b == 0) return 0;
   const Args args{q, k, v, block_stride, static_cast<const int*>(table),
-                  static_cast<const int*>(ctx), o, b, hq, hkv, bt, max_blocks, splits, scale};
+                  static_cast<const int*>(ctx), o, static_cast<float*>(lse), b, hq, hkv, bt,
+                  max_blocks, splits, scale};
   return dispatch(args, dtype, d, hq / hkv, 0, nullptr, static_cast<cudaStream_t>(stream));
 }
 

@@ -169,8 +169,10 @@ def sparse_kv_gather(kv, token_ids, *, mode: str = "auto"):
     return _ref.sparse_kv_gather_ref(kv, token_ids)
 
 
-def paged_attention(q, k_blocks, v_blocks, block_table, context_lens, *, mode: str = "auto"):
-    """q (b, hq, d) over (n_blocks, bt, hkv, d) K/V blocks -> (b, hq, d).
+def paged_attention(q, k_blocks, v_blocks, block_table, context_lens, *, mode: str = "auto",
+                    return_lse: bool = False):
+    """q (b, hq, d) over (n_blocks, bt, hkv, d) K/V blocks -> (b, hq, d);
+    with ``return_lse`` also each head's log-sum-exp, (b, hq) f32.
 
     K/V in q's dtype, or in ``float8_e4m3fn`` (an fp8 cache) under a
     float32 or bf16 q: the kernel's e4m3 instantiation on the card, the
@@ -185,8 +187,10 @@ def paged_attention(q, k_blocks, v_blocks, block_table, context_lens, *, mode: s
                          "paged_attention.make_block_table")
     context_lens = context_lens.to(device=q.device, dtype=torch.int32)
     if use_kernel(q, mode):
-        return _pa.paged_attention(q, k_blocks, v_blocks, block_table, context_lens)
-    return _ref.paged_attention_ref(q, k_blocks, v_blocks, block_table, context_lens)
+        return _pa.paged_attention(q, k_blocks, v_blocks, block_table, context_lens,
+                                   return_lse=return_lse)
+    return _ref.paged_attention_ref(q, k_blocks, v_blocks, block_table, context_lens,
+                                    return_lse=return_lse)
 
 
 def ssd_chunk(x, a_log, b_mat, c_mat, *, return_cum: bool = False, mode: str = "auto"):

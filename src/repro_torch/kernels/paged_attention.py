@@ -42,7 +42,13 @@ Takes (q, K/V) in (float32, float32), (bfloat16, bfloat16), (float32,
 float8_e4m3fn) or (bfloat16, float8_e4m3fn), head_dim 16, 32, 64, 80 or
 128, at most 8 query heads per kv head; raises on anything else (e5m2
 included). Counts its launches in ``paged_attention.launches``, one per
-kernel launched, and by K/V dtype in ``paged_attention.launches_by_kv``.
+kernel launched, by K/V dtype in ``paged_attention.launches_by_kv``, and
+those that stored the log-sum-exp in ``paged_attention.launches_with_lse``.
+
+With ``return_lse`` the kernel also stores each head's log-sum-exp of its
+scaled scores, (b, hq) f32 (-inf at context 0): a sequence sharded over
+ranks (the pool-interleaved decode, ``models/attention.py``) is attended
+shard by shard and the partials merged by it.
 """
 
 from __future__ import annotations
@@ -58,7 +64,7 @@ from repro_torch.kernels import build
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "paged_attention_fwd": (
-        [_P, _P, _P, _LL, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
+        [_P, _P, _P, _LL, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, ctypes.c_float, _P],
         ctypes.c_int,
     ),
     "paged_attention_ctas_per_sm": ([_I, _I, _I, ctypes.POINTER(_I)], ctypes.c_int),
@@ -189,7 +195,12 @@ def paged_attention(
     v_blocks: torch.Tensor,
     block_table: torch.Tensor,  # (b, max_blocks) int32 on the card
     context_lens: torch.Tensor,  # (b,) int32 on the card
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
+    """-> out (b, hq, d) in q's dtype; with ``return_lse``, (out, lse (b,
+    hq) f32): each head's natural log-sum-exp of its scaled scores, -inf
+    where the context is 0. The same launch either way; serving passes no
+    lse and the kernel stores none."""
     code = kind(q.dtype, k_blocks.dtype)
     for t in (q, k_blocks, v_blocks, block_table, context_lens):
         if t.device != q.device or t.device.type != "cuda":
@@ -218,8 +229,9 @@ def paged_attention(
     if context_lens.dtype != torch.int32 or tuple(context_lens.shape) != (b,):
         raise ValueError(f"context_lens must be ({b},) int32")
     out = torch.empty_like(q)
+    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device) if return_lse else None
     if b == 0:
-        return out
+        return (out, lse) if return_lse else out
     max_blocks = block_table.shape[1]
     g = hq // hkv
     splits, _ = plan(q.device, q.dtype, d, g, b, hkv, max_blocks, k_blocks.dtype)
@@ -229,17 +241,21 @@ def paged_attention(
         rc = lib.paged_attention_fwd(
             q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(), k_blocks.stride(0),
             block_table.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            code, b, hq, hkv, d, bt, max_blocks, splits, 1.0 / math.sqrt(d), stream,
+            lse.data_ptr() if return_lse else None, code, b, hq, hkv, d, bt, max_blocks, splits, 1.0 / math.sqrt(d), stream,
         )
     if rc:
         raise RuntimeError(f"paged_attention launch failed: cudaError_t {rc}")
     paged_attention.launches += 1
     paged_attention.launches_by_kv[KV_NAMES[k_blocks.dtype]] += 1
+    if return_lse:
+        paged_attention.launches_with_lse += 1
+        return out, lse
     return out
 
 
 def reset_launch_counts() -> None:
     paged_attention.launches = 0
+    paged_attention.launches_with_lse = 0
     paged_attention.launches_by_kv = dict.fromkeys(KV_NAMES.values(), 0)
 
 

@@ -122,7 +122,8 @@ def paged_attention_ref(
     v_blocks: torch.Tensor,
     block_table: torch.Tensor,  # (b, max_blocks) int, -1 padded
     context_lens: torch.Tensor,  # (b,) int
-) -> torch.Tensor:
+    return_lse: bool = False,
+):
     """Decode attention through a block table (``ref.py:53-78``).
 
     The JAX pool ``kv_pool`` (n, 2, bt, hkv, d) is ``k_blocks = kv_pool[:, 0]``,
@@ -136,6 +137,10 @@ def paged_attention_ref(
     dtype: K and V in bf16, q * scale formed in q's dtype and rounded to
     bf16 once, P rounded to bf16 before P.V; f32 accumulation, the output
     in q's dtype.
+
+    With ``return_lse``, also each head's natural log-sum-exp of its scaled
+    scores, (b, hq) f32, and -inf where the context is 0, so that such a
+    row weighs exactly 0 in a merge of shards.
     """
     b, hq, d = q.shape
     _, bt, hkv, _ = k_blocks.shape
@@ -158,8 +163,12 @@ def paged_attention_ref(
     if fp8:
         p = p.to(torch.bfloat16).float()
     o = torch.einsum("bhgk,bkhd->bhgd", p, v.float())
-    o = o.masked_fill((context_lens.to(q.device) <= 0).reshape(b, 1, 1, 1), 0.0)
-    return o.reshape(b, hq, d).to(q.dtype)
+    empty = (context_lens.to(q.device) <= 0).reshape(b, 1, 1, 1)
+    o = o.masked_fill(empty, 0.0).reshape(b, hq, d).to(q.dtype)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1).masked_fill(empty[..., 0], -math.inf)
+    return o, lse.reshape(b, hq)
 
 
 NAN_DTYPES = (torch.float32, torch.bfloat16, torch.float16)

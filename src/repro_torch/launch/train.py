@@ -22,8 +22,9 @@ iterator is put back, ``resumed from step N`` and the peak memory are
 printed, and training goes on from step N; with no committed step, or no
 ``--checkpoint-dir``, it says so and starts at 0, as JAX's does.
 
-Not ported yet, and refused: ``--mesh`` other than 1x1 (sharding,
-ROADMAP.md queue 1 item 5).
+Not ported yet, and refused: ``--mesh`` other than 1x1 (training under a
+mesh, ROADMAP.md queue 1 item 5b; the model's forward under a mesh is
+``launch/generate.py --mesh``).
 """
 
 from __future__ import annotations
@@ -33,7 +34,8 @@ import json
 import resource
 import time
 
-MESH_TODO = "a mesh other than 1x1 needs sharding, not ported yet (ROADMAP.md queue 1 item 5)"
+MESH_TODO = ("a mesh other than 1x1 needs training under a mesh, not ported yet (ROADMAP.md "
+             "queue 1 item 5b); the forward under a mesh is launch/generate.py --mesh")
 
 
 def main(argv: list[str] | None = None) -> list[dict]:

@@ -6,9 +6,18 @@ GShard one-hot einsum dispatch (``"einsum"``, the JAX default) and the
 scatter-based ragged dispatch (``"ragged"``), and Arctic's dense residual MLP
 beside the experts. ``"a2a"`` behaves as JAX's does without a device mesh
 (``rules=None``): its condition (``moe.py:56-61``) fails and the ragged path
-runs (``:75-78``); the shard_map all-to-all itself waits for the distributed
-port. The expert products are batched matrix products that JAX computes
-outside any Pallas kernel, so they stay ``torch.bmm`` here.
+runs (``:75-78``). The expert products are batched matrix products that
+JAX computes outside any Pallas kernel, so they stay ``torch.bmm`` here.
+
+Under a mesh (``rules`` given) the experts are sharded over ``model`` and
+the router is whole on every rank. The einsum and ragged dispatches take
+each (token, k) pair's capacity slot over the global batch (the choices
+gathered over ``data``), run the rank's local experts on its own tokens'
+pairs and sum the partial outputs over ``model``. ``"a2a"`` under JAX's
+condition is ``_a2a_dispatch`` (``moe.py:142-276``): the tokens are
+sequence-sharded over ``model``, each rank routes its share, packs the
+pairs per destination rank up to ``cap_pair`` and per local expert up to
+``cap_e``, and two all-to-alls carry the rows out and back.
 
 Casts follow JAX point for point: the router runs on ``x`` in float32, the
 softmax and the top-k renormalisation stay float32, the combine weights are
@@ -23,24 +32,25 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import act_fn, mlp_apply, mlp_param_shapes
+from repro_torch.distributed import collectives as coll
+from repro_torch.distributed.sharding import ParamSpec
+from repro_torch.models.layers import act_fn, mlp_apply, mlp_param_specs
 
 DISPATCHES = ("einsum", "ragged", "a2a")
 
 
-def moe_param_shapes(cfg: ModelConfig, lead: tuple[int, ...], dtype: torch.dtype) -> dict:
-    """(shape, init, dtype) leaves of one MoE FFN (``moe.py:23-34``), each
-    shape prefixed by ``lead``: the router in float32, the experts' stacked
-    SwiGLU weights in the model dtype, and Arctic's dense residual MLP."""
+def moe_param_specs(cfg: ModelConfig, dtype: torch.dtype) -> dict:
+    """One MoE FFN (``moe.py:23-34``): the router in float32, the experts'
+    stacked SwiGLU weights in the model dtype, and Arctic's dense residual MLP."""
     d, f, e = cfg.d_model, cfg.d_ff, cfg.moe.n_experts
     p = {
-        "router": ((*lead, d, e), "normal", torch.float32),
-        "wi_gate": ((*lead, e, d, f), "normal", dtype),
-        "wi_up": ((*lead, e, d, f), "normal", dtype),
-        "wo": ((*lead, e, f, d), "normal", dtype),
+        "router": ParamSpec((d, e), torch.float32, ("embed", "experts")),
+        "wi_gate": ParamSpec((e, d, f), dtype, ("experts", "embed", "expert_mlp")),
+        "wi_up": ParamSpec((e, d, f), dtype, ("experts", "embed", "expert_mlp")),
+        "wo": ParamSpec((e, f, d), dtype, ("experts", "expert_mlp", "embed")),
     }
     if cfg.moe.dense_residual:
-        p["dense"] = mlp_param_shapes(cfg, cfg.moe.dense_residual_ff, lead, dtype)
+        p["dense"] = mlp_param_specs(cfg, cfg.moe.dense_residual_ff, dtype)
     return p
 
 
@@ -64,7 +74,8 @@ def route(router: torch.Tensor, xt: torch.Tensor, top_k: int):
     return probs, top_w, top_e, ranked
 
 
-def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, dispatch: str = "einsum"):
+def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, dispatch: str = "einsum",
+              rules=None, batch_axes: tuple[str, ...] | None = None):
     """x (b, s, d) -> (out (b, s, d) in x's dtype, aux) (``moe.py:43-90``).
 
     aux holds tensors on x's device, none read back to the host:
@@ -74,9 +85,19 @@ def moe_apply(p: dict, x: torch.Tensor, cfg: ModelConfig, dispatch: str = "einsu
     k-th and (k+1)-th router probability (0 when k is all experts); the
     router's ``probs`` (t, e), its choices ``top_e`` (t, k) and which of
     them kept a slot, ``kept`` (t, k).
+
+    Under ``rules`` x holds this rank's batch rows (replicated over
+    ``model``), its batch sharded over ``batch_axes`` (default: the rules'
+    batch axes; () when every rank holds the whole batch); the aux stats
+    are of the global batch, except ``margin``, ``probs``, ``top_e`` and
+    ``kept``, which are of the rank's rows.
     """
     if dispatch not in DISPATCHES:
         raise ValueError(f"moe_dispatch {dispatch!r} not in {DISPATCHES}")
+    if rules is not None:
+        if batch_axes is None:
+            batch_axes = rules.batch_axes
+        return _moe_sharded(p, x, cfg, dispatch, rules, tuple(batch_axes))
     b, s, d = x.shape
     moe = cfg.moe
     t, k, e = b * s, moe.top_k, moe.n_experts
@@ -157,3 +178,173 @@ def _ragged_dispatch(p, xt, top_w, top_e, cfg):
     for j in range(k):
         out = out + picked[:, j]
     return out, keep.reshape(t, k)
+
+
+# ---------------------------------------------------------------------------
+# Under a mesh
+# ---------------------------------------------------------------------------
+
+
+def _a2a_applies(b: int, s: int, rules) -> bool:
+    """JAX's condition for the all-to-all dispatch (``moe.py:56-61``), on
+    the global batch b: enough tokens per shard to fill the buffers."""
+    dp, tp = max(rules.dp, 1), rules.tp
+    return s % tp == 0 and (b // dp if b >= dp else b) * (s // tp) >= 16
+
+
+def _moe_sharded(p, x, cfg, dispatch, rules, batch_axes):
+    b_loc, s, d = x.shape
+    moe, mesh = cfg.moe, rules.mesh
+    k, e = moe.top_k, moe.n_experts
+    b = b_loc * mesh.axis_size(batch_axes)
+    router = coll.all_gather(p["router"], 1, mesh, "model")  # whole on every rank
+    if dispatch == "a2a" and _a2a_applies(b, s, rules):
+        out, aux = _a2a_dispatch(p, x, router, cfg, rules, batch_axes)
+    else:
+        xt = x.reshape(b_loc * s, d)
+        probs, top_w, top_e, ranked = route(router, xt, k)
+        out, kept = _local_experts(p, xt, top_w, top_e, cfg, rules, batch_axes,
+                                   einsum=dispatch == "einsum")
+        out = out.reshape(b_loc, s, d).to(x.dtype)
+        t = b * s
+        me = coll.all_reduce(probs.sum(0), mesh, batch_axes) / t
+        ce = coll.all_reduce(torch.zeros_like(me).index_add_(
+            0, top_e.reshape(-1), torch.ones(top_e.numel(), dtype=torch.float32,
+                                             device=x.device)), mesh, batch_axes) / (t * k)
+        dropped = coll.all_reduce((~kept).sum().float(), mesh, batch_axes)
+        margin = (ranked[:, k - 1] - ranked[:, k]).min() if k < e else probs.new_zeros(())
+        aux = {"load_balance_loss": e * torch.sum(me * ce), "dropped": dropped,
+               "margin": margin, "probs": probs, "top_e": top_e, "kept": kept}
+    if moe.dense_residual:
+        out = out + mlp_apply(p["dense"], x, cfg, rules)
+    return out, aux
+
+
+def _local_experts(p, xt, top_w, top_e, cfg, rules, batch_axes, einsum: bool):
+    """The einsum (GShard) or ragged dispatch on this rank's experts ->
+    (the rank's tokens' outputs (t_loc, d) in the expert dtype, summed over
+    ``model``; kept (t_loc, k)). Each pair's slot in its expert's capacity
+    counts the pairs before it in the global batch, as on one device."""
+    mesh = rules.mesh
+    t_loc, d = xt.shape
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    all_e = coll.all_gather(top_e, 0, mesh, batch_axes)  # (t, k), global token order
+    t = all_e.shape[0]
+    cap = capacity(t, cfg)
+    onehot = F.one_hot(all_e.reshape(-1), e)  # (t*k, e)
+    pos = ((onehot.cumsum(0) - 1) * onehot).sum(-1).reshape(t, k)
+    first = mesh.axis_index(batch_axes) * t_loc if batch_axes else 0
+    pos = pos[first: first + t_loc]  # this rank's tokens
+    keep = pos < cap
+    e_loc = p["wi_gate"].shape[0]
+    e0 = mesh.axis_index("model") * e_loc
+    local = keep & (top_e >= e0) & (top_e < e0 + e_loc)
+    le = (top_e - e0).clamp(0, e_loc - 1)
+    w = torch.where(local, top_w, 0.0)
+    if einsum:
+        e_hot = F.one_hot(le, e_loc).float() * local[..., None]
+        c_hot = F.one_hot(torch.where(local, pos, 0), cap).float() * local[..., None]
+        disp = torch.einsum("tke,tkc->tec", e_hot, c_hot)
+        comb = torch.einsum("tke,tkc->tec", F.one_hot(le, e_loc).float() * w[..., None], c_hot)
+        xin = torch.einsum("tec,td->ecd", disp.to(xt.dtype), xt)
+        eo = _experts(p, xin, cfg)
+        part = torch.einsum("tec,ecd->td", comb.to(eo.dtype).float(), eo.float())
+    else:
+        flat_le, flat_pos = le.reshape(-1), torch.where(local, pos, cap - 1).reshape(-1)
+        flat_tok = torch.arange(t_loc, device=xt.device).repeat_interleave(k)
+        xin = torch.zeros((e_loc, cap, d), dtype=xt.dtype, device=xt.device)
+        xin.index_put_((flat_le, flat_pos),
+                       xt[flat_tok] * local.reshape(-1, 1).to(xt.dtype), accumulate=True)
+        eo = _experts(p, xin, cfg)
+        picked = eo[flat_le, flat_pos] * w.reshape(-1, 1).to(eo.dtype)
+        part = picked.float().reshape(t_loc, k, d).sum(1)
+    out = coll.all_reduce(part, mesh, "model").to(eo.dtype)
+    return out, keep
+
+
+def _round4(x: int) -> int:
+    return max(4, -(-x // 4) * 4)
+
+
+def a2a_capacities(b: int, s: int, cfg: ModelConfig, rules) -> tuple[int, int]:
+    """(cap_pair, cap_e): the rows a rank sends each destination, and the
+    rows each local expert takes (``moe.py:173-186``), for a global batch
+    of b sequences of s tokens."""
+    moe, tp, dp = cfg.moe, rules.tp, rules.dp
+    e_loc = moe.n_experts // tp
+    t_shard = (b // dp if b >= dp else b) * (s // tp)
+    cap_pair = _round4(int(moe.capacity_factor * moe.top_k * max(t_shard, 1) / tp))
+    rows = tp * cap_pair
+    return cap_pair, rows if e_loc == 1 else _round4(int(1.25 * rows / e_loc))
+
+
+def _a2a_dispatch(p, x, router, cfg, rules, batch_axes):
+    """The all-to-all expert parallelism of ``moe.py:142-276`` on this rank:
+    its batch rows' sequence shard of tokens is routed, packed per
+    destination and per local expert, sent out, computed and sent back;
+    -> (out (b_loc, s, d) in x's dtype, its sequence gathered over
+    ``model``; aux)."""
+    mesh, tp, moe = rules.mesh, rules.tp, cfg.moe
+    e, k, d = moe.n_experts, moe.top_k, cfg.d_model
+    e_loc = e // tp
+    b_loc, s, _ = x.shape
+    b = b_loc * mesh.axis_size(batch_axes)
+    cap_pair, cap_e = a2a_capacities(b, s, cfg, rules)
+    sl = s // tp
+    x_loc = x[:, mesh.axis_index("model") * sl:][:, :sl]
+    tl = b_loc * sl
+    xt = x_loc.reshape(tl, d)
+    probs, top_w, top_e, _ = route(router, xt, k)
+
+    flat_e, flat_w = top_e.reshape(-1), top_w.reshape(-1)
+    flat_tok = torch.arange(tl, device=x.device).repeat_interleave(k)
+    dest, leid = flat_e // e_loc, flat_e % e_loc
+    onehot_d = F.one_hot(dest, tp)
+    pos = ((onehot_d.cumsum(0) - 1) * onehot_d).sum(-1)
+    keep = pos < cap_pair
+    pos = torch.where(keep, pos, cap_pair - 1)
+    w = torch.where(keep, flat_w, 0.0)
+    send_x = torch.zeros((tp, cap_pair, d), dtype=x.dtype, device=x.device)
+    send_x.index_put_((dest, pos), xt[flat_tok] * keep[:, None].to(xt.dtype), accumulate=True)
+    # a dropped pair shares the last slot with the pair that kept it: the
+    # kept pair's expert id wins (JAX's .set leaves the order unspecified)
+    send_eid = torch.full((tp * cap_pair,), e_loc, dtype=torch.int64, device=x.device)
+    send_eid.scatter_reduce_(0, dest * cap_pair + pos, torch.where(keep, leid, e_loc), "amin")
+    send_eid = send_eid.reshape(tp, cap_pair)
+
+    # the forward all-to-all over model
+    rows_x = coll.all_to_all(send_x, mesh).reshape(tp * cap_pair, d)
+    rows_e = coll.all_to_all(send_eid, mesh).reshape(tp * cap_pair)
+    valid = rows_e < e_loc
+
+    # pack the rows by local expert
+    onehot_e = F.one_hot(torch.where(valid, rows_e, e_loc), e_loc + 1)[:, :e_loc]
+    pos_e = ((onehot_e.cumsum(0) - 1) * onehot_e).sum(-1)
+    keep_e = valid & (pos_e < cap_e)
+    pos_e = torch.where(keep_e, pos_e, cap_e - 1)
+    eidx = torch.where(valid, rows_e, 0)
+    xin = torch.zeros((e_loc, cap_e, d), dtype=rows_x.dtype, device=x.device)
+    xin.index_put_((eidx, pos_e), rows_x * keep_e[:, None].to(rows_x.dtype), accumulate=True)
+    eo = _experts(p, xin, cfg)
+    y_send = (eo[eidx, pos_e] * keep_e[:, None].to(eo.dtype)).reshape(tp, cap_pair, d)
+
+    # the return all-to-all
+    y_recv = coll.all_to_all(y_send, mesh)
+    picked = (y_recv[dest, pos] * w[:, None].to(y_recv.dtype)).reshape(tl, k, d)
+    out = torch.zeros((tl, d), dtype=y_recv.dtype, device=x.device)
+    for j in range(k):  # .at[flat_tok].add, in (token, k) order
+        out = out + picked[:, j]
+    out = out.reshape(b_loc, sl, d).to(x.dtype)
+
+    me = probs.mean(0)
+    ce = torch.zeros((e,), dtype=torch.float32, device=x.device).index_add_(
+        0, flat_e, torch.ones_like(flat_w)) / max(tl * k, 1)
+    lb_axes = tuple(batch_axes) + ("model",)
+    lb = coll.all_reduce(e * torch.sum(me * ce), mesh, lb_axes) / mesh.axis_size(lb_axes)
+    dropped = coll.all_reduce(((~keep).sum() + (valid & ~keep_e).sum()).float(), mesh,
+                              lb_axes)
+    # every token's choices in the rank's batch order: (b_loc, s, k)
+    top_e_all = coll.all_gather(top_e.reshape(b_loc, sl, k), 1, mesh, "model")
+    aux = {"load_balance_loss": lb, "dropped": dropped,
+           "top_e": top_e_all.reshape(b_loc * s, k)}
+    return coll.all_gather(out, 1, mesh, "model"), aux

@@ -167,3 +167,22 @@ def apply_updates(cfg: OptimizerConfig, params: dict, grads: dict, state: dict,
 def _nth(tree: dict, i: int) -> dict:
     """A tree of tuples -> the tree of their i-th items."""
     return {k: _nth(v, i) if isinstance(v, dict) else v[i] for k, v in tree.items()}
+
+
+def opt_state_specs(cfg: OptimizerConfig, param_specs: dict) -> dict:
+    """The optimizer state as ParamSpec leaves (``repro/training/
+    optimizer.py:78-91``): ``step`` a scalar int32, and per moment the
+    parameters' shapes and logical axes in float32, at zeros. Specs only:
+    the sharded state itself comes with training under a mesh."""
+    from repro_torch.distributed.sharding import ParamSpec, tree_map
+
+    def f32(p):
+        return ParamSpec(p.shape, torch.float32, p.logical_axes, init="zeros")
+
+    state = {"step": ParamSpec((), torch.int32, (), init="zeros")}
+    if cfg.name == "adamw":
+        state["m"] = tree_map(f32, param_specs)
+        state["v"] = tree_map(f32, param_specs)
+    elif cfg.name == "lion":
+        state["m"] = tree_map(f32, param_specs)
+    return state

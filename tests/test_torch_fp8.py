@@ -277,8 +277,9 @@ def test_runtime_and_shape_configs_copy_the_reference():
     from repro_torch.configs.base import ShapeConfig
 
     port, jax_rt = RuntimeConfig(), JaxRuntimeConfig()
-    assert [f.name for f in dataclasses.fields(port)] == ["kernel_mode", "remat",
-                                                          "moe_dispatch", "use_fp8_kv"]
+    assert [f.name for f in dataclasses.fields(port)] == ["kernel_mode", "remat", "decode_kv",
+                                                          "moe_dispatch", "rowp_bf16_psum",
+                                                          "use_fp8_kv"]
     for f in dataclasses.fields(port):
         assert getattr(port, f.name) == getattr(jax_rt, f.name), f.name
     assert ([f.name for f in dataclasses.fields(ShapeConfig)]

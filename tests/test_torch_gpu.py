@@ -1571,3 +1571,91 @@ def test_reduced_resume_on_the_card_is_bit_for_bit(cuda, tmp_path):
             np.load(f"{ack.step_dir(3)}/proc_0.npz") as got:
         assert sorted(got.files) == sorted(want.files)
         assert all(np.array_equal(got[k], want[k]) for k in want.files)
+
+
+# ---------------------------------------------------------------------------
+# The paged kernel's log-sum-exp output, and a world of ranks on the card
+# ---------------------------------------------------------------------------
+
+# the kernel's lse against the plain version's, absolute on values of order
+# 1-10: f32 sums in other orders (the kernel in log2 units, merged over its
+# warps and splits); a bf16 or e4m3 q is rounded alike on both sides
+PAGED_LSE_TOL = 1e-4
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "e4m3"])
+def test_paged_kernel_lse_matches_plain(cuda, case, kind):
+    from repro_torch.models.attention import to_e4m3
+
+    b, hq, hkv, d, bt, mb, nb = case
+    rng = np.random.default_rng(sum(case) + 1)
+    dtype = torch.float32 if kind == "float32" else torch.bfloat16
+    q = _randn(rng, (b, hq, d), dtype, cuda)
+    pool = _randn(rng, (nb, 2, bt, hkv, d), dtype, cuda)
+    if kind == "e4m3":
+        pool = to_e4m3(pool)
+    table, ctx = _table_and_ctx(rng, b, mb, bt, nb)
+    ctx[-1] = 0  # an empty shard: zeros and -inf
+    tbl = pa.make_block_table(table, nb, cuda)
+    ctx = ctx.to(cuda, torch.int32)
+    before = pa.paged_attention.launches_with_lse
+    out, lse = pa.paged_attention(q, pool[:, 0], pool[:, 1], tbl, ctx, return_lse=True)
+    plain_out = pa.paged_attention(q, pool[:, 0], pool[:, 1], tbl, ctx)
+    want, want_lse = ref.paged_attention_ref(q, pool[:, 0], pool[:, 1], tbl, ctx,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    assert pa.paged_attention.launches_with_lse == before + 1
+    assert torch.equal(out, plain_out)  # the lse store changes nothing else
+    assert bool((out[-1] == 0).all()) and bool(torch.isneginf(lse[-1]).all())
+    torch.testing.assert_close(lse[:-1], want_lse[:-1], atol=PAGED_LSE_TOL, rtol=0)
+    tol = PAGED_TOL[dtype]
+    torch.testing.assert_close(out.float(), want.float(), atol=tol, rtol=tol)
+
+
+def _two_rank_program(rank: int, n: int) -> dict:
+    """A 1x2 mesh on the card: reduced command-r-35b in float32 through the
+    kernels and through the plain versions on the same shards; the paged
+    kernel's lse on this rank's sequence shard against the plain one."""
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.distributed.sharding import AxisRules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(reduced_config("command-r-35b"), dtype="float32")
+    rules = AxisRules.create(make_mesh((1, 2), ("data", "model"), device=dev))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 30), generator=torch.Generator()
+                           .manual_seed(4)).to(dev)
+    out = {}
+    for mode in ("kernel", "ref"):
+        model = Model(cfg, runtime=RuntimeConfig(kernel_mode=mode), rules=rules)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        ops.reset_launch_counts()
+        logits, cache = model.prefill_fn(params, tokens[:, :24], max_len=64)
+        steps = [logits[:, 0]]
+        for t in range(6):
+            pos = torch.full((2,), 24 + t, device=dev)
+            steps.append(model.decode_fn(params, cache, tokens[:, 24 + t], pos))
+        out[mode] = {"logits": torch.stack(steps), "launches": ops.launch_counts(),
+                     "with_lse": pa.paged_attention.launches_with_lse}
+    return out
+
+
+def test_two_ranks_on_the_card_kernels_match_plain(cuda, tmp_path):
+    from repro_torch.distributed.world import run_world
+
+    got = run_world(_two_rank_program, 2, (), timeout_s=600, workdir=str(tmp_path))
+    k, p = got["kernel"], got["ref"]
+    layers = reduced_config_layers("command-r-35b")
+    assert k["launches"]["flash_attention"] == layers
+    assert k["launches"]["paged_attention"] == k["with_lse"] == 6 * layers
+    assert p["launches"]["paged_attention"] == 0
+    torch.testing.assert_close(k["logits"], p["logits"], atol=1e-4, rtol=1e-4)
+
+
+def reduced_config_layers(arch: str) -> int:
+    from repro_torch.configs.registry import reduced_config
+
+    return reduced_config(arch).n_layers

@@ -84,5 +84,6 @@ def test_the_call_needs_no_scratch_in_device_memory():
     workspace and passes the kernel no scratch pointer."""
     argtypes, _ = pa.SIGNATURES["paged_attention_fwd"]
     pointers = [t for t in argtypes if t is pa._P]
-    assert len(pointers) == 7  # q, k, v, table, context, out and the stream
+    # q, k, v, table, context, out, the optional lse output and the stream
+    assert len(pointers) == 8
     assert not hasattr(pa, "workspace")
