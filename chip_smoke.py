@@ -39,12 +39,14 @@ Phases, each a hard check (any failure exits non-zero):
    sparse gather (its NaN fill and negative-id wrap included) must be
    bit-exact; flash attention within bf16 2e-2 (tests/test_kernels.py), its wgmma route at
    the main path's shape and at the ragged, GQA and non-causal shapes of
-   FLASH_SHAPES, and its CUDA-core route on the main path's inputs;
+   FLASH_SHAPES (phase 16's head shards of olmo-1b among them), and its
+   CUDA-core route on the main path's inputs;
    paged attention within two bf16 steps at its largest output (also at
    contexts {0, 17, 1040} in one batch, 1 and the full table, with its
    split plan checked: every CTA has work and every cluster is resident,
    and one device kernel per call under torch.profiler), ssd_chunk
-   within 1e-4 of its output's scale at 1024 and 4096 tokens (both sides
+   within 1e-4 of its output's scale at 1024 and 4096 tokens, and at the
+   training call whole and as a phase 16 rank's 20 of its 80 heads (both sides
    get the same inputs, so the limits sit a few times above the readings)
    and its prefix sums within 1e-6 of torch.cumsum's; its bound is the
    larger of its bytes and its operations at the tensor-core peak of their
@@ -187,12 +189,13 @@ Phases, each a hard check (any failure exits non-zero):
    audio frame embeddings, then 16 decode steps, as phase 11.
     The SSD backward ``ssd_chunk_bwd`` against ``ssd_chunk_bwd_ref`` at
    SSD_BWD_SHAPES: mamba2-2.7b's training call (32 chunk tiles of 256, 80
-   heads of 64, d_state 128, one bf16 group), Jamba's 256 heads, a ragged
+   heads of 64, d_state 128, one bf16 group) and a phase 16 rank's 20 of
+   its heads, Jamba's 256 heads, a ragged
    chunk of 100, two groups, float32 B/C, with and without dcum, decays
    strong enough that exp above the diagonal would overflow: dx and da
    within SSD_TOL of their scale, dB and dC within one rounding of the f32
-   result, a second call equal bit for bit; timed at the training shape and
-   at Jamba's beside the plain version and the bound, the training shape at
+   result, a second call equal bit for bit; timed at the training shape, its
+   shard and Jamba's beside the plain version and the bound, the training shape at
    or under SSD_BWD_TRAIN_MS.
 13. training (phase 12's model freed first): olmo-1b at full width and depth
    (d 2048, 16 / 16 heads at d 128, d_ff 8192, vocabulary 50304, tied
@@ -271,12 +274,36 @@ Phases, each a hard check (any failure exits non-zero):
    tokens and arctic's outputs at the tokens routed alike within limits
    set from readings; each rank's launches as the path says; per-rank
    peaks and the phase's wall time printed.
+16. training under a device mesh (phase 15's world ended first;
+   ``experiments/mesh_train_probe.py``): each run's one-device reference
+   on the same weights and phase 13's batches (4 x 2048 tokens from batch
+   1 on), ``OptimizerConfig()``, remat "full" (olmo-1b's is phase 13's
+   run: its 4 losses must equal phase 13 (ii)'s, bit for bit), its weights
+   parked on disk; then ONE world of 4 gloo ranks on the card, every rank on
+   its shards: the collectives' forwards and backwards on CUDA tensors
+   against CPU tensors; (i) olmo-1b, all 16 layers, mesh 1x4 (4 heads a
+   rank), 4 AdamW steps; (ii) olmo-1b, 4 of 16 layers, mesh 2x2 (FSDP over
+   data, 2 rows a rank), 4 steps, then a checkpoint written by the 4 ranks
+   (one proc_<rank>.npz of shards each), restored here on one device equal
+   to every rank's shards bit for bit (sha1 of each), its save and restore
+   GB/s printed as disk and host I/O of 4 processes on one machine; (iii)
+   mamba2-2.7b, 8 of 64 layers, mesh 1x4 (20 SSD heads a rank), 2 steps.
+   Every rank reports the same losses and grad norms; each step's loss and
+   grad norm, and each rank's f32 AdamW moments m and v after the last step
+   (relative to each leaf's largest entry: they carry every step's gradient
+   at full precision, where a bf16 weight after four steps at lrs of 1.2e-5
+   or less is one rounding step off whatever the gradient), within limits
+   set from readings over 3 seeds; each rank's launches a
+   step as the path says (flash 32 on wgmma, its backward 16; ssd_chunk 16,
+   ssd_chunk_bwd 8), nothing else; per-rank peaks, the steps' and the
+   world's wall times printed (gloo through host memory with 4 CUDA
+   contexts on one card: no multi-GPU time and no tokens/s).
 
 Prints the kernel table as one JSON line (the e4m3 paged instantiation as
 a row of its own, ``paged_attention_e4m3``, and the attention backward as
 ``flash_attention_bwd``, its launches from phase 13, and the SSD backward
 as ``ssd_chunk_bwd``, its launches from phase 14; each row's launches by
-path),
+path, ``mesh_train`` among them: rank 0's in phase 16),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Without a GPU it exits non-zero before doing anything.
 """
@@ -353,6 +380,9 @@ FLASH_SHAPES = (
     # d 80: five 32-byte TMA boxes a tile
     (1, 129, 129, 16, 2, 80, True), (2, 200, 200, 16, 2, 80, False),
     (1, 37, 80, 8, 1, 80, True),
+    # phase 16's shards of olmo-1b's training call: 4 heads a rank at 1x4,
+    # 8 heads and 2 rows a rank at 2x2 (forward and backward)
+    (4, 2048, 2048, 4, 4, 128, True), (2, 2048, 2048, 8, 8, 128, True),
 )
 # the flash library's SASS must hold tensor-core and TMA instructions
 FLASH_SASS = ("HGMMA", "UTMALDG")
@@ -474,7 +504,11 @@ SSD_BWD_SHAPES = {"mamba2_2.7b_train": (32, 256, 80, 64, 1, 128, "bfloat16", Tru
                   "ragged_lc100": (8, 100, 80, 64, 1, 128, "bfloat16", True, 2.0),
                   "groups2": (8, 256, 80, 64, 2, 128, "bfloat16", True, 2.0),
                   "float32_bc": (8, 256, 80, 64, 1, 128, "float32", True, 2.0),
-                  "no_dcum": (32, 256, 80, 64, 1, 128, "bfloat16", False, 2.0)}
+                  "no_dcum": (32, 256, 80, 64, 1, 128, "bfloat16", False, 2.0),
+                  # phase 16: a rank's 20 of the 80 heads at 1x4 (two blocks of 10)
+                  "mamba2_2.7b_shard": (32, 256, 20, 64, 1, 128, "bfloat16", True, None)}
+# phase 16's SSD heads a rank: mamba2-2.7b's 80 over 4 ranks
+MESH_SSD_HEADS = 20
 # phase 15: the weights' seed, the world's clock, and the limits on each
 # run's largest |logit| gap against one device over every step, about twice
 # the largest reading of experiments/mesh_probe.py over seeds 0-2 (NVIDIA
@@ -494,6 +528,30 @@ MESH_TIMEOUT_S = 600.0
 MESH_LOGIT_TOL = {"llama_1x4": 0.7, "llama_2x2": 0.2, "arctic_1x4": 0.125,
                   "mamba2_1x4": 0.125}
 MESH_HIDDEN_TOL = 0.375
+# phase 16: training under a mesh (experiments/mesh_train_probe.py), each
+# run against one device on the same weights and phase 13's batches: the
+# weights' seed and, per run, the limits on each step's loss and grad norm
+# relative to the reference's, and on each rank's f32 AdamW moments m and v
+# after the last step against its slices of the reference's, relative to
+# each leaf's largest entry, about twice the largest reading of
+# experiments/mesh_train_probe.py over seeds 0-2 (NVIDIA H100 80GB HBM3,
+# 700.00 W). The gaps are bf16 roundings at other points than one device's
+# (the f32 partial sums over model, the bf16 gradient sum over data; phase
+# 13's kernel-vs-plain gradient leaves read 4.1e-2 of their largest entry).
+# olmo_1x4, 16 layers: loss 4.753e-5 / 1.811e-5 / 5.43e-5, grad norm
+# 1.396e-4 / 3.201e-4 / 1.352e-4, m 4.254e-2 / 4.325e-2 / 5.166e-2, v
+# 4.910e-2 / 4.289e-2 / 5.361e-2; mamba2_1x4, 8 layers: loss 3.423e-5 /
+# 1.371e-5 / 4.963e-6, grad norm 6.347e-5 / 2.84e-5 / 4.942e-5, m 2.558e-2 /
+# 2.916e-2 / 2.391e-2, v 2.962e-2 / 3.351e-2 / 2.744e-2; olmo_2x2, 4 layers:
+# loss 1.716e-5 / 2.645e-5 / 1.418e-5, grad norm 7.149e-5 / 8.305e-5 /
+# 9.22e-5, m 1.928e-2 / 1.923e-2 / 1.956e-2, v 2.589e-2 / 3.094e-2 /
+# 2.520e-2. The weights are not held: four steps at lrs of 1.2e-5 or less
+# move a bf16 weight near 0.01 by less than one bf16 step (2**-14, 5 lr),
+# so their gap is one rounding step whatever the gradient was
+MESH_TRAIN_SEED = 0
+MESH_TRAIN_LOSS_TOL = {"olmo_1x4": 1.1e-4, "olmo_2x2": 5.5e-5, "mamba2_1x4": 7e-5}
+MESH_TRAIN_NORM_TOL = {"olmo_1x4": 6.4e-4, "olmo_2x2": 1.9e-4, "mamba2_1x4": 1.3e-4}
+MESH_TRAIN_MOMENT_TOL = {"olmo_1x4": 0.11, "olmo_2x2": 0.062, "mamba2_1x4": 0.067}
 # phase 14: mamba2-2.7b at full width and depth trained on phase 13's
 # SyntheticLM batches; its SSD backward checked per layer at these layers
 SSM_TRAIN_STEPS, SSM_F64_LAYERS = 8, (0, 31, 63)
@@ -817,13 +875,14 @@ def bf16_check(got, want) -> tuple[float, float]:
     return (got.float() - want.float()).abs().max().item(), PAGED_ULPS * step
 
 
-def ssd_inputs(cfg, seq: int, g):
+def ssd_inputs(cfg, seq: int, g, heads: int | None = None):
     """ssd_chunk's inputs as one layer of a seq-token Mamba-2 prefill gives
-    them: x and a f32, B and C bf16 slices of one projection, one group."""
+    them: x and a f32, B and C bf16 slices of one projection, one group;
+    with ``heads``, that many of its heads (a rank's shard under a mesh)."""
     import torch
 
     ssm = cfg.ssm
-    nh, hp, n, lc = ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state, ssm.chunk_size
+    nh, hp, n, lc = heads or ssm.n_heads(cfg.d_model), ssm.head_dim, ssm.d_state, ssm.chunk_size
     nb = seq // lc
     dev = torch.device("cuda")
     x = torch.randn((nb, lc, nh, hp), generator=g, device=dev) * 0.05
@@ -844,9 +903,12 @@ def ssd_row(cfg, jamba_cfg, g) -> dict:
     from repro_torch.kernels import ssd_chunk as ssd
 
     rows = {}
-    for key, c_, seq in ((1024, cfg, 1024), (4096, cfg, 4096), ("jamba", jamba_cfg, 1024),
-                         ("mamba2_2.7b_train", cfg, TRAIN_BATCH * TRAIN_SEQ)):
-        x, a, b, c = ssd_inputs(c_, seq, g)
+    for key, c_, seq, heads in ((1024, cfg, 1024, None), (4096, cfg, 4096, None),
+                                ("jamba", jamba_cfg, 1024, None),
+                                ("mamba2_2.7b_train", cfg, TRAIN_BATCH * TRAIN_SEQ, None),
+                                ("mamba2_2.7b_shard", cfg, TRAIN_BATCH * TRAIN_SEQ,
+                                 MESH_SSD_HEADS)):
+        x, a, b, c = ssd_inputs(c_, seq, g, heads)
         y, st, cum = ssd.ssd_chunk(x, a, b, c, return_cum=True)
         yr, sr = ref.ssd_chunk_ref(x, a, b, c)
         err = max((y - yr).abs().max().item(), (st - sr).abs().max().item())
@@ -890,7 +952,7 @@ def ssd_row(cfg, jamba_cfg, g) -> dict:
     row["max_abs_err_4096"] = rows[4096]["max_abs_err"]
     row["shapes"] = {key: {k: rows[key][k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")}
-        for key in ("jamba", "mamba2_2.7b_train")}
+        for key in ("jamba", "mamba2_2.7b_train", "mamba2_2.7b_shard")}
     return row
 
 
@@ -929,7 +991,8 @@ def ssd_bwd_row(cfg, jamba_cfg, g) -> dict:
     row, shapes = None, {}
     for label, (nb, lc, nh, hp, ng, n, bc, with_dcum, decay) in SSD_BWD_SHAPES.items():
         if decay is None:  # the model's draws, at this many tokens of one sequence
-            x, a, b, c = ssd_inputs(jamba_cfg if label == "jamba" else cfg, nb * lc, g)
+            x, a, b, c = ssd_inputs(jamba_cfg if label == "jamba" else cfg, nb * lc, g,
+                                    nh if label == "mamba2_2.7b_shard" else None)
             check(tuple(x.shape) == (nb, lc, nh, hp) and tuple(b.shape) == (nb, lc, ng, n),
                   f"{label}: the config gives x {tuple(x.shape)}, B {tuple(b.shape)}")
         else:
@@ -962,7 +1025,7 @@ def ssd_bwd_row(cfg, jamba_cfg, g) -> dict:
                                 for p, q in zip(got, want)),
              "max_rel_err": max(rel.values()), "max_round_steps": max(ulp.values())}
         del got, want, again
-        if label in ("mamba2_2.7b_train", "jamba"):
+        if label in ("mamba2_2.7b_train", "jamba", "mamba2_2.7b_shard"):
             bound, by, flops = ssd_bwd_bound(nb, lc, nh, hp, ng, n, bc, with_dcum)
             r.update(ms=device_ms(lambda: ssd.ssd_chunk_bwd(x, a, b, c, dy, dst, dcum),
                                   iters=10),
@@ -3123,7 +3186,7 @@ def phase_train(cfg) -> dict:
           f"no warmup): loss {[f'{x:.4f}' for x in fit]}, last below first")
     summary["overfit_losses"] = fit
     print("  olmo-1b training path: " + json.dumps(summary))
-    return launches
+    return launches, losses
 
 
 def train_resume(model, opt, cfg, params, trained, state, history, step_ms) -> dict:
@@ -3609,6 +3672,90 @@ def phase_mesh() -> dict:
     return launches
 
 
+def phase_mesh_train(phase13_losses: list) -> dict:
+    """Phase 16: training under a device mesh, every run at full width
+    (``experiments/mesh_train_probe.py``). Each run's one-device reference
+    first (olmo-1b's is phase 13's run: its losses must equal phase 13
+    (ii)'s, bit for bit), its weights parked on disk and the model freed;
+    then ONE world of 4 gloo ranks on the card trains the three runs in
+    turn and saves the 2x2 run's checkpoint, which is restored here on one
+    device. Every rank runs the kernels on its shards; nothing falls back."""
+    from repro_torch.experiments import mesh_train_probe as mp
+
+    t0 = time.perf_counter()
+    for name, run in mp.RUNS.items():
+        cut = (f"{run['layers']} of {mp.get_layers(run['arch'])} layers" if run["layers"]
+               else "all layers")
+        print(f"  {name}: {run['arch']} full width, {cut}, mesh {run['mesh'][0]}x"
+              f"{run['mesh'][1]}, {run['steps']} AdamW steps on {mp.BATCH} x {mp.SEQ} tokens"
+              f"{', then a checkpoint' if run.get('checkpoint') else ''}")
+    got = mp.run(seeds=(MESH_TRAIN_SEED,))[MESH_TRAIN_SEED]
+    for mesh in ("1x4", "2x2"):
+        check(got[f"collectives_{mesh}"] == [],
+              f"mesh {mesh}: all_reduce (sum, max), all_gather, all_gather_flat and "
+              "all_to_all over model, data and both, float32 / bfloat16, forward and "
+              "backward, CUDA equal to CPU")
+    olmo = got["olmo_1x4"]
+    steps = mp.RUNS["olmo_1x4"]["steps"]
+    check(olmo["ref_losses"] == phase13_losses[:steps],
+          f"olmo-1b's one-device reference is phase 13's run: losses {olmo['ref_losses']} "
+          f"equal phase 13 (ii)'s first {steps}, bit for bit")
+    launches = {}
+    for name, run in mp.RUNS.items():
+        r = got[name]
+        n, layers = run["steps"], run["layers"] or mp.get_layers(run["arch"])
+        attn = run["arch"] != "mamba2-2.7b"
+        want = {"flash_attention": 2 * layers * n if attn else 0,
+                "flash_attention_bwd": layers * n if attn else 0,
+                "ssd_chunk": 0 if attn else 2 * layers * n,
+                "ssd_chunk_bwd": 0 if attn else layers * n,
+                "kv_gather_write": 0, "kv_scatter_read": 0, "paged_attention": 0,
+                "sparse_kv_gather": 0}
+        for rank, (got_n, routes, bwd) in enumerate(zip(r["launches"], r["flash_routes"],
+                                                         r["bwd_routes"])):
+            per_step = {k: v / n for k, v in got_n.items() if v}
+            check(got_n == want and routes["wgmma"] == want["flash_attention"]
+                  and bwd["wgmma"] == want["flash_attention_bwd"],
+                  f"{name} rank {rank}: launches a step {per_step} (flash on wgmma "
+                  f"{routes['wgmma'] / n:g}, its backward {bwd['wgmma'] / n:g}), nothing "
+                  f"else: as {layers} layers with their recompute say")
+        for k, v in r["launches"][0].items():
+            launches[k] = launches.get(k, 0) + v
+        check(r["ranks_agree"], f"{name}: every rank reports the same loss and grad norm "
+              "at every step")
+        check(max(r["loss_rel"]) <= MESH_TRAIN_LOSS_TOL[name],
+              f"{name}: loss against one device at each step, relative "
+              f"{[f'{x:.4g}' for x in r['loss_rel']]} <= {MESH_TRAIN_LOSS_TOL[name]} (losses "
+              f"{[f'{x:.5f}' for x in r['losses']]})")
+        check(max(r["grad_norm_rel"]) <= MESH_TRAIN_NORM_TOL[name],
+              f"{name}: grad norm against one device at each step, relative "
+              f"{[f'{x:.4g}' for x in r['grad_norm_rel']]} <= {MESH_TRAIN_NORM_TOL[name]}")
+        check(max(r["moment_gap"].values()) <= MESH_TRAIN_MOMENT_TOL[name],
+              f"{name}: each rank's AdamW moments after step {n} against its slices of one "
+              f"device's, relative to each leaf's largest entry: m "
+              f"{r['moment_gap']['m']:.4g}, v {r['moment_gap']['v']:.4g} <= "
+              f"{MESH_TRAIN_MOMENT_TOL[name]}")
+        print(f"  {name}: wall {r['wall_s']:.1f} s; steps "
+              f"{[f'{x:.2f}' for x in r['step_s']]} s; peak per rank "
+              f"{[round(x, 2) for x in r['peak_gib']]} GiB")
+    ck = got["checkpoint"]
+    check(ck["shards_differ"] == [] and ck["nprocs"] == 4,
+          f"olmo_2x2's checkpoint (step {ck['step']}, {ck['nprocs']} processes' files, "
+          f"{ck['bytes'] / 1e9:.3f} GB) restored on one device equals every rank's shards, "
+          "bit for bit (sha1 of each shard)")
+    save_s = got["olmo_2x2"]["save_s"]
+    print(f"  checkpoint: save {ck['bytes'] / 1e9 / save_s:.2f} GB/s ({save_s:.1f} s, 4 ranks "
+          f"writing), restore on one device {ck['bytes'] / 1e9 / ck['restore_s']:.2f} GB/s "
+          f"({ck['restore_s']:.1f} s): disk and host I/O of 4 processes on one machine")
+    wall = time.perf_counter() - t0
+    print(f"  mesh training phase: {wall:.1f} s wall ({got['world_s']:.1f} s the world); "
+          "collectives are gloo through host memory with 4 CUDA contexts on one card, "
+          "not a multi-GPU time, and no tokens/s is claimed for them")
+    got["wall_s"] = wall
+    print(f"  mesh training path: {json.dumps(got)}")
+    return launches
+
+
 def main() -> None:
     import torch
 
@@ -3692,7 +3839,7 @@ def main() -> None:
     torch.cuda.empty_cache()
     print(f"  phase 12's model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
     print("[13] training: olmo-1b full width, all 16 layers, AdamW steps", flush=True)
-    train_launches = phase_train(get_config("olmo-1b"))
+    train_launches, train_losses = phase_train(get_config("olmo-1b"))
     gc.collect()
     torch.cuda.empty_cache()
     print(f"  phase 13's model freed: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated")
@@ -3704,11 +3851,17 @@ def main() -> None:
     print("[15] the model under a device mesh: 4 gloo ranks on the card, full width",
           flush=True)
     mesh_launches = phase_mesh()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[16] training under a device mesh: 4 gloo ranks on the card, full width",
+          flush=True)
+    mesh_train_launches = phase_mesh_train(train_losses)
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
              "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches,
              "qwen3_fp8": qwen3_fp8_launches, "internvl2": internvl_launches,
              "musicgen": musicgen_launches, "train": train_launches,
-             "mamba2_train": ssm_train_launches, "mesh": mesh_launches}
+             "mamba2_train": ssm_train_launches, "mesh": mesh_launches,
+             "mesh_train": mesh_train_launches}
     own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse",
            "paged_attention_e4m3": "qwen3_fp8", "flash_attention_bwd": "train",
            "ssd_chunk_bwd": "mamba2_train"}

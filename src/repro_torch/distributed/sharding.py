@@ -21,7 +21,8 @@ in the single-device order and keeps the rank's slice, so every rank holds
 its shard of the same global tree (JAX's ``jit(init, out_shardings=...)``).
 What compute needs whole, the FSDP dims over ``data``, ``gather_tree``
 gathers at use, a layer at a time; the dims over ``model`` stay sharded
-(tensor parallelism).
+(tensor parallelism). A gradient of a rank's shards is made whole by
+``reduce_replicated`` (``distributed/collectives.py`` says why).
 """
 
 from __future__ import annotations
@@ -167,8 +168,9 @@ def tree_specs(param_tree, rules: AxisRules):
 # ---------------------------------------------------------------------------
 
 
-def _shard(mesh, entry, size: int, name: str, dim: int) -> tuple[int, int]:
-    """(start, length) of this rank's shard of a dim of ``size``."""
+def shard_bounds(mesh, entry, size: int, name: str = "", dim: int = 0) -> tuple[int, int]:
+    """(start, length) of this rank's shard of a dim of ``size`` cut over
+    the mesh axes ``entry`` (a PartitionSpec entry)."""
     n = mesh.axis_size(entry)
     if size % n:
         raise ValueError(f"{name or 'leaf'}: dim {dim} of {size} does not divide over mesh "
@@ -177,15 +179,22 @@ def _shard(mesh, entry, size: int, name: str, dim: int) -> tuple[int, int]:
     return mesh.axis_index(entry) * per, per
 
 
+def shard_box(shape, spec: tuple, mesh, name: str = "") -> tuple[slice, ...]:
+    """This rank's shard of a leaf of global ``shape`` under PartitionSpec
+    ``spec``: a slice of the whole leaf per dim."""
+    return tuple(slice(lo, lo + n) for lo, n in (
+        shard_bounds(mesh, e, s, name, i) for i, (s, e) in enumerate(zip(shape, spec))))
+
+
 def local_shape(shape, spec: tuple, mesh, name: str = "") -> tuple[int, ...]:
-    return tuple(_shard(mesh, e, s, name, i)[1] for i, (s, e) in enumerate(zip(shape, spec)))
+    return tuple(shard_bounds(mesh, e, s, name, i)[1] for i, (s, e) in enumerate(zip(shape, spec)))
 
 
 def local_slice(t: torch.Tensor, spec: tuple, mesh, name: str = "") -> torch.Tensor:
     """This rank's shard of a full tensor (or numpy array), a view."""
     for i, e in enumerate(spec):
         if e is not None:
-            lo, n = _shard(mesh, e, t.shape[i], name, i)
+            lo, n = shard_bounds(mesh, e, t.shape[i], name, i)
             t = t[(slice(None),) * i + (slice(lo, lo + n),)]
     return t
 
@@ -250,7 +259,7 @@ def init_tree(param_tree, generator: torch.Generator, device, rules: AxisRules |
         lead = _drawn_dims(spec)
         ranges = []  # per leading dim: (start, length) of the kept shard
         for i in range(lead):
-            ranges.append(_shard(mesh, pspec[i], spec.shape[i], path, i) if pspec[i] is not None
+            ranges.append(shard_bounds(mesh, pspec[i], spec.shape[i], path, i) if pspec[i] is not None
                           else (0, spec.shape[i]))
         for idx in itertools.product(*(range(s) for s in spec.shape[:lead])):
             part = _draw(spec.shape[lead:], spec.init, generator, device)
@@ -295,6 +304,48 @@ def gather_tree(tree, specs, mesh):
     for (axes, _), items in todo.items():
         got = coll.all_gather_flat([t for _, t, _ in items], [d for _, _, d in items], mesh, axes)
         leaves.update({path: g for (path, _, _), g in zip(items, got)})
+    return _unflatten(tree, leaves)
+
+
+def replicated_axes(spec: tuple, mesh) -> tuple[str, ...]:
+    """The mesh axes of more than one shard that a leaf of PartitionSpec
+    ``spec`` is replicated along (those no dim of it is sharded over)."""
+    used = {a for e in spec for a in mesh.axes(e)}
+    return tuple(a for a in mesh.axis_names if a not in used and mesh.shape[a] > 1)
+
+
+def sharded_axes(spec: tuple, mesh) -> tuple[str, ...]:
+    """The mesh axes of more than one shard that a leaf of ``spec`` is cut along."""
+    used = {a for e in spec for a in mesh.axes(e)}
+    return tuple(a for a in mesh.axis_names if a in used and mesh.shape[a] > 1)
+
+
+def reduce_replicated(tree, specs, mesh, over=None, wire_dtype: torch.dtype | None = None):
+    """A tree of each rank's partial gradients of its shards (module
+    docstring of ``collectives``) -> the whole gradients: every leaf summed
+    over the mesh axes its spec replicates it along, in one ``all_reduce``
+    per tuple of axes and dtype (a leaf sharded over every axis is already
+    whole). ``over`` keeps only those of the mesh axes (a spec entry; None:
+    all), so that a sum can be taken in stages. With ``wire_dtype`` the
+    leaves summed are cast to it for the sum and back (the bf16 gradient
+    sum of ``grad_compression="bf16"``)."""
+    from repro_torch.distributed import collectives as coll
+
+    keep = mesh.axis_names if over is None else mesh.axes(over)
+    leaves, todo = {}, {}
+    for path, t, spec in _flatten(tree, specs):
+        axes = tuple(a for a in replicated_axes(spec, mesh) if a in keep)
+        if axes:
+            todo.setdefault((axes, wire_dtype or t.dtype), []).append((path, t))
+        else:
+            leaves[path] = t
+    for (axes, dtype), items in todo.items():
+        flat = torch.cat([t.reshape(-1).to(dtype) for _, t in items])
+        flat = coll.all_reduce(flat, mesh, axes)
+        at = 0
+        for path, t in items:
+            leaves[path] = flat[at: at + t.numel()].reshape(t.shape).to(t.dtype)
+            at += t.numel()
     return _unflatten(tree, leaves)
 
 

@@ -162,6 +162,11 @@ class Model:
     def param_specs(self) -> dict:
         return param_specs(self.cfg, self.tp)
 
+    def partition_specs(self) -> dict:
+        """Under ``rules``, the PartitionSpec of every parameter leaf (the
+        tree of ``param_specs``); None on one device."""
+        return self._pspecs
+
     def init(self, generator: torch.Generator, device) -> dict:
         """Random parameters (``init_params``'s values); under ``rules``
         this rank's shards of them."""
@@ -270,7 +275,13 @@ class Model:
         ``training.train_loop`` takes its gradient. Under ``rules`` the
         logits stay vocab-sharded: the log-softmax takes a max and a sum of
         exponentials over ``model``, and the loss is averaged over the
-        global batch (a sum over ``data``)."""
+        global batch (a sum over ``data``); every rank returns the same
+        loss. Its gradient is taken through the collectives' backwards
+        (``distributed/collectives.py``): seeded with 1 / (world size) on
+        every rank, the gradient of each parameter shard comes out as this
+        rank's partial, and is whole once summed over the mesh axes its spec
+        replicates it along (``training.train_loop.value_and_grad`` does
+        both)."""
         cfg = self.cfg
         b = next(iter(batch.values())).shape[0]
         ctx = self.mesh_context(b) if self.rules is not None else None

@@ -78,14 +78,31 @@ def lr_schedule(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
     return torch.where(step < cfg.warmup_steps, warm, cos)
 
 
-def global_norm(tree: dict) -> torch.Tensor:
-    leaves = tree_leaves(tree)
-    total = sum(torch.sum(torch.square(x.to(torch.float32))) for x in leaves)
-    return torch.sqrt(total)
+def global_norm(tree: dict, specs: dict | None = None, mesh=None) -> torch.Tensor:
+    """The L2 norm over every leaf. Under a mesh (``specs``: the leaves'
+    PartitionSpecs) ``tree`` holds this rank's whole-gradient shards: each
+    leaf's sum of squares is summed over the axes it is sharded along (one
+    ``all_reduce`` per tuple of axes), so no replica counts twice, and the
+    leaves' sums are added in JAX's leaf order on every rank alike."""
+    squares = [torch.sum(torch.square(x.to(torch.float32))) for x in tree_leaves(tree)]
+    if mesh is not None:
+        from repro_torch.distributed import collectives as coll
+        from repro_torch.distributed.sharding import sharded_axes
+
+        groups: dict[tuple, list[int]] = {}
+        for i, spec in enumerate(tree_leaves(specs)):
+            groups.setdefault(sharded_axes(spec, mesh), []).append(i)
+        for axes, idx in groups.items():
+            if axes:
+                summed = coll.all_reduce(torch.stack([squares[i] for i in idx]), mesh, axes)
+                for j, i in enumerate(idx):
+                    squares[i] = summed[j]
+    return torch.sqrt(sum(squares))
 
 
-def clip_by_global_norm(grads: dict, max_norm: float) -> tuple[dict, torch.Tensor]:
-    norm = global_norm(grads)
+def clip_by_global_norm(grads: dict, max_norm: float, specs: dict | None = None,
+                        mesh=None) -> tuple[dict, torch.Tensor]:
+    norm = global_norm(grads, specs, mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: (g.to(torch.float32) * scale).to(g.dtype), grads), norm
 
@@ -172,8 +189,9 @@ def _nth(tree: dict, i: int) -> dict:
 def opt_state_specs(cfg: OptimizerConfig, param_specs: dict) -> dict:
     """The optimizer state as ParamSpec leaves (``repro/training/
     optimizer.py:78-91``): ``step`` a scalar int32, and per moment the
-    parameters' shapes and logical axes in float32, at zeros. Specs only:
-    the sharded state itself comes with training under a mesh."""
+    parameters' shapes and logical axes in float32, at zeros. Under a mesh
+    each rank's moments are its shards of these (``init_opt_state`` of its
+    parameter shards), and a world's checkpoint is keyed and cut by them."""
     from repro_torch.distributed.sharding import ParamSpec, tree_map
 
     def f32(p):

@@ -17,6 +17,18 @@ where JAX's ``jax.value_and_grad(loss_fn)`` is PyTorch autograd through
   * metrics ``loss``, ``grad_norm``, ``lr`` (of the new step) and ``aux/*``
     as 0-dim tensors on the parameters' device.
 
+Under a mesh (``Model(rules=...)``, each rank of the world stepping its
+shards) the step is the same function of the global batch, taken as
+``distributed/collectives.py`` says: each rank seeds the backward with
+1 / (world size); each gradient leaf is summed over the mesh axes its
+spec replicates it along: over ``model`` in f32 for each microbatch, before
+the compression rounds it once, as JAX rounds each microbatch's whole
+gradient; over ``data`` once a step, after the microbatches are summed
+locally, in bf16 with ``grad_compression="bf16"`` (JAX's DP reduction); the
+global norm sums each leaf's squares over the axes it is sharded along;
+the optimizer steps each rank's shards. The loss and metrics are the
+global ones, equal on every rank.
+
 The step is eager PyTorch: nothing is jitted. By default it is pure: the
 parameters and state it is given are left as they were. With ``in_place``
 it writes the new weights and moments into the tensors it was given, in
@@ -24,7 +36,8 @@ the same f32 arithmetic, so one copy of each is held instead of two (the
 twin of JAX's ``donate_argnums=(0, 1)``, ``repro/training/train_loop.py:122``).
 ``run_train_loop`` steps in place, and with ``checkpoint_dir`` set saves
 ``{"params", "opt_state"}`` and the data iterator's state every
-``checkpoint_every`` steps (``checkpoint/checkpointer.py``, JAX's format).
+``checkpoint_every`` steps (``checkpoint/checkpointer.py``, JAX's format;
+under a mesh every rank writes its shards).
 """
 
 from __future__ import annotations
@@ -36,22 +49,31 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint.checkpointer import Checkpointer
+from repro_torch.distributed.sharding import reduce_replicated
 from repro_torch.models.model import Model
 from repro_torch.training import optimizer as opt_lib
 from repro_torch.training.optimizer import (OptimizerConfig, tree_leaves, tree_map,
                                             tree_unflatten)
 
 
-def value_and_grad(model: Model, params: dict, batch: dict):
+def value_and_grad(model: Model, params: dict, batch: dict, reduce: bool = True):
     """(loss, aux, gradient tree) of ``model.loss_fn`` at ``params``; a leaf
-    the loss does not read gets zeros, as from ``jax.grad``."""
+    the loss does not read gets zeros, as from ``jax.grad``. Under a mesh
+    the tree is this rank's shards of the gradient: whole, or with
+    ``reduce=False`` the rank's partials before ``reduce_replicated``."""
     live = tree_map(lambda p: p.detach().requires_grad_(True), params)
     with torch.enable_grad():
         loss, aux = model.loss_fn(live, batch)
-        grads = torch.autograd.grad(loss, tree_leaves(live), allow_unused=True,
-                                    materialize_grads=True)
+        seed = None
+        if model.rules is not None:  # the loss is replicated over the whole world
+            seed = torch.full_like(loss, 1.0 / model.mesh.size)
+        grads = torch.autograd.grad(loss, tree_leaves(live), grad_outputs=seed,
+                                    allow_unused=True, materialize_grads=True)
     aux = {k: v.detach() for k, v in aux.items()}
-    return loss.detach(), aux, tree_unflatten(params, grads)
+    grads = tree_unflatten(params, grads)
+    if model.rules is not None and reduce:
+        grads = reduce_replicated(grads, model.partition_specs(), model.mesh)
+    return loss.detach(), aux, grads
 
 
 def make_train_step(model: Model, opt_cfg: OptimizerConfig, accum_steps: int = 1,
@@ -61,10 +83,25 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, accum_steps: int = 1
             return tree_map(lambda x: x.to(torch.bfloat16), g)
         return g
 
+    mesh = model.mesh
+    specs = model.partition_specs()
+    if mesh is not None:
+        dp = mesh.axes(model.rules.rules["batch"])
+        others = tuple(a for a in mesh.axis_names if a not in dp)
+        wire = torch.bfloat16 if opt_cfg.grad_compression == "bf16" else None
+
+    def grad(params: dict, batch: dict):
+        """(loss, aux, gradient) of a (micro)batch, compressed. Under a mesh
+        the ranks' partials are summed over the axes other than the batch's
+        first, in f32, so that the gradient is rounded once, as JAX's."""
+        loss, aux, g = value_and_grad(model, params, batch, reduce=False)
+        if mesh is not None:
+            g = reduce_replicated(g, specs, mesh, over=others)
+        return loss, aux, compress(g)
+
     def train_step(params: dict, opt_state: dict, batch: dict):
         if accum_steps == 1:
-            loss, aux, grads = value_and_grad(model, params, batch)
-            grads = compress(grads)
+            loss, aux, grads = grad(params, batch)
         else:
             def micro(x, i):
                 b = x.shape[0]
@@ -78,14 +115,15 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, accum_steps: int = 1
             loss = 0.0
             for i in range(accum_steps):
                 mb = {k: micro(v, i) for k, v in batch.items()}
-                l, aux, g = value_and_grad(model, params, mb)
-                g = compress(g)
+                l, aux, g = grad(params, mb)
                 grads = tree_map(lambda a, b_: a + b_.to(a.dtype), grads, g)
                 loss = loss + l
             grads = tree_map(lambda g: g / accum_steps, grads)
             loss = loss / accum_steps
+        if mesh is not None:  # JAX's DP reduction, once a step
+            grads = reduce_replicated(grads, specs, mesh, over=dp, wire_dtype=wire)
 
-        grads, gnorm = opt_lib.clip_by_global_norm(grads, opt_cfg.grad_clip)
+        grads, gnorm = opt_lib.clip_by_global_norm(grads, opt_cfg.grad_clip, specs, mesh)
         params, opt_state = opt_lib.apply_updates(opt_cfg, params, grads, opt_state,
                                                   in_place=in_place)
         metrics = {
@@ -97,6 +135,13 @@ def make_train_step(model: Model, opt_cfg: OptimizerConfig, accum_steps: int = 1
         return params, opt_state, metrics
 
     return train_step
+
+
+def state_specs(model: Model, opt_cfg: OptimizerConfig) -> dict:
+    """The training state ``{"params", "opt_state"}`` as ParamSpec leaves:
+    what a world's checkpoint keys and cuts its shards by."""
+    specs = model.param_specs()
+    return {"params": specs, "opt_state": opt_lib.opt_state_specs(opt_cfg, specs)}
 
 
 @dataclass
@@ -147,7 +192,8 @@ def run_train_loop(
         if not hasattr(data_iter, "state_dict"):
             raise TypeError("a checkpointed loop needs a data iterator with state_dict() "
                             "(data.pipeline's datasets have one)")
-        ckpt = Checkpointer(loop_cfg.checkpoint_dir, keep=loop_cfg.keep_checkpoints)
+        ckpt = Checkpointer(loop_cfg.checkpoint_dir, keep=loop_cfg.keep_checkpoints,
+                            rules=model.rules)
     if opt_state is None:
         opt_state = opt_lib.init_opt_state(opt_cfg, params)
     if step_fn is None:
@@ -165,5 +211,6 @@ def run_train_loop(
                 on_metrics(step + 1, m)
         if ckpt and (step + 1) % loop_cfg.checkpoint_every == 0:
             ckpt.save(step + 1, {"params": params, "opt_state": opt_state},
-                      extra={"data_state": data_iter.state_dict()})
+                      extra={"data_state": data_iter.state_dict()},
+                      specs=state_specs(model, opt_cfg))
     return params, opt_state, history

@@ -1659,3 +1659,60 @@ def reduced_config_layers(arch: str) -> int:
     from repro_torch.configs.registry import reduced_config
 
     return reduced_config(arch).n_layers
+
+
+def _mesh_train_program(rank: int, n: int) -> dict:
+    """A 1x2 mesh on the card: reduced olmo-1b in float32, the gradient of
+    loss_fn (remat "full") through the kernels and through the plain
+    versions on the same shards."""
+    from repro_torch.configs.base import RuntimeConfig
+    from repro_torch.configs.registry import reduced_config
+    from repro_torch.distributed.sharding import AxisRules
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.model import Model
+    from repro_torch.training.train_loop import value_and_grad
+
+    dev = torch.device("cuda")
+    cfg = dataclasses.replace(reduced_config("olmo-1b"), dtype="float32")
+    rules = AxisRules.create(make_mesh((1, 2), ("data", "model"), device=dev))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=torch.Generator()
+                           .manual_seed(4)).to(dev)
+    out = {}
+    for mode in ("kernel", "ref"):
+        model = Model(cfg, runtime=RuntimeConfig(kernel_mode=mode, remat="full"), rules=rules)
+        params = model.init(torch.Generator(device=dev).manual_seed(0), dev)
+        ops.reset_launch_counts()
+        loss, _, grads = value_and_grad(model, params, {"tokens": tokens, "labels": tokens})
+        out[mode] = {"loss": float(loss), "grads": grads, "launches": ops.launch_counts()}
+    return out
+
+
+def test_two_ranks_train_on_the_card_kernels_match_plain(cuda, tmp_path):
+    from repro_torch.distributed.world import run_world
+    from repro_torch.training.optimizer import tree_leaves
+
+    got = run_world(_mesh_train_program, 2, (), timeout_s=600, workdir=str(tmp_path))
+    k, p = got["kernel"], got["ref"]
+    layers = reduced_config_layers("olmo-1b")
+    assert k["launches"]["flash_attention"] == 2 * layers  # and the recompute
+    assert k["launches"]["flash_attention_bwd"] == layers
+    assert p["launches"]["flash_attention"] == p["launches"]["flash_attention_bwd"] == 0
+    assert abs(k["loss"] - p["loss"]) <= 1e-5
+    for a, b in zip(tree_leaves(k["grads"]), tree_leaves(p["grads"])):
+        assert float((a - b).abs().max() / b.abs().max().clamp(min=1e-30)) <= 1e-4
+
+
+def _collectives_program(rank: int, n: int) -> dict:
+    from repro_torch.experiments.mesh_train_probe import check_collectives
+    from repro_torch.launch.mesh import make_mesh
+
+    return {shape: check_collectives(make_mesh(shape, ("data", "model"),
+                                               device=torch.device("cuda")))
+            for shape in ((1, 4), (2, 2))}
+
+
+def test_collective_backwards_on_the_card_equal_cpu(cuda, tmp_path):
+    from repro_torch.distributed.world import run_world
+
+    got = run_world(_collectives_program, 4, (), timeout_s=600, workdir=str(tmp_path))
+    assert got == {(1, 4): [], (2, 2): []}

@@ -15,9 +15,10 @@ numpy-seeded batches go through both frameworks, float32 reduced configs:
   ``grad_norm``, ``lr`` and the updated weights.
 * The remat policies none, full and dots give the same gradients, and a
   short ``run_train_loop`` follows JAX's history.
-* The refusal of what is not ported yet, a mesh; the launcher's checkpoint
-  flags, which are now taken, and the loop's refusal of a checkpoint
-  directory with a data iterator that has no state to save.
+* The launcher's refusal of a ``--mesh`` that is not DxM of positive
+  integers (training under a mesh: ``test_torch_train_mesh.py``); its
+  checkpoint flags, which are now taken, and the loop's refusal of a
+  checkpoint directory with a data iterator that has no state to save.
 * ``ssd_chunk``'s kernel route under autograd (``ops.SsdChunk``), its two
   kernels stood in for by their plain versions: one forward and one
   backward launch, gradients equal to plain autograd's, and ``mode="kernel"``
@@ -240,7 +241,7 @@ def test_loop_refuses_a_checkpoint_directory_and_missing_params(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--mesh", "2x4"], "item 5"),
+    (["--mesh", "2x"], "DxM of positive integers"),
 ])
 def test_launcher_refuses_what_is_not_ported(argv, item):
     from repro_torch.launch import train
