@@ -298,6 +298,25 @@ Phases, each a hard check (any failure exits non-zero):
    ssd_chunk_bwd 8), nothing else; per-rank peaks, the steps' and the
    world's wall times printed (gloo through host memory with 4 CUDA
    contexts on one card: no multi-GPU time and no tokens/s).
+17. the roofline held against the card (``launch/``: the launch tooling;
+   phase 16's world ended first): ``steps.build_cell`` on one device at
+   full width for olmo-1b training (4 x 2048, all 16 layers, remat
+   "full", AdamW in place), a 1024-token Llama-3.1-8B prefill, one Llama
+   decode step at context 1040 (all 32 layers) and a 1000-token mamba2-2.7b
+   prefill (64 layers). Each cell's second call (the first builds the
+   kernels and a decode's block table) is counted by
+   ``op_analysis.OpAnalyzer`` on ``meta`` (a dry run: nothing launched) and
+   on the card: the two counts equal exactly (every (aten op, input shapes,
+   dtypes), FLOPs, bytes, transcendentals, kernel entries), the kernel
+   entries equal the delta of ``ops.launch_counts()``, and the FLOPs of
+   every aten op ``torch.utils.flop_counter.FlopCounterMode`` knows equal
+   the analyzer's on the same call. The median of ROOFLINE_RUNS
+   synchronised calls, timed outside the analyzer, against the as-counted
+   bound max(FLOPs / 989e12, bytes / 3.35e12) (the share may not pass
+   ROOFLINE_SHARE_MAX: the count would overstate the work) and the useful
+   one (``dryrun.model_flops`` + ``attn_model_flops``,
+   ``roofline.useful_bytes``); ``torch.cuda.max_memory_allocated()`` of the
+   call against the analyzer's peak of live bytes within ROOFLINE_PEAK_RATIO.
 
 Prints the kernel table as one JSON line (the e4m3 paged instantiation as
 a row of its own, ``paged_attention_e4m3``, and the attention backward as
@@ -325,9 +344,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 from repro_torch.experiments.common import (  # noqa: E402
-    HBM_BYTES_PER_S, cycled_ms, device_ms, rounding_steps)
+    cycled_ms, device_ms, rounding_steps)
+from repro_torch.launch.mesh import (  # noqa: E402; one H100 SXM's data sheet
+    HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOP_PER_S,
+    PEAK_FLOPS_F32 as F32_FLOP_PER_S, PEAK_FLOPS_TF32 as TF32_FLOP_PER_S)
 
-BF16_FLOP_PER_S = 989e12  # dense tensor-core bf16
 FLASH_TOL = 2e-2  # bf16, tests/test_kernels.py:42
 # paged attention, bf16: kernel and plain version take the same inputs and
 # both accumulate in f32, so they differ only where the two f32 results round
@@ -338,8 +359,6 @@ PAGED_ULPS = 2
 # both sides, f32 accumulation, so only the summation order differs (about
 # 1e-5); rounding x to bf16 or to TF32 inside the kernel would read above it
 SSD_TOL = 1e-4
-F32_FLOP_PER_S = 67e12  # float32 outside the tensor cores
-TF32_FLOP_PER_S = 495e12  # dense tensor-core TF32
 # ssd_chunk's prefix sums against torch.cumsum of the same a, relative to the
 # largest |cum|: a warp's shuffle scan and torch's sum in other orders, 256
 # float32 terms at most
@@ -613,6 +632,26 @@ TRAIN_PARAM_LRS = 4
 BWD_F64_LAYERS = (0, 7, 15)
 BWD_F64_RMS_RATIO = 2.0
 BWD_F64_BIAS = 5e-5
+# phase 17: the roofline held against the card. Cells at full width on one
+# device (launch/steps.build_cell): label -> (arch, ShapeConfig fields)
+ROOFLINE_CELLS = {
+    "olmo_train": ("olmo-1b", ("olmo_train", TRAIN_SEQ, TRAIN_BATCH, "train")),
+    "llama_prefill": ("llama3.1-8b", ("llama_prefill", PROMPT, 1, "prefill")),
+    "llama_decode": ("llama3.1-8b", ("llama_decode", DECODE_CTX, 1, "decode")),
+    "mamba2_prefill": ("mamba2-2.7b", ("mamba2_prefill", 1000, 1, "prefill")),
+}
+ROOFLINE_RUNS = 5  # synchronised calls timed after the warm-up, median
+# the as-counted bound over the measured time: above this the count
+# overstates the work the call did (an impossible reading)
+ROOFLINE_SHARE_MAX = 1.05
+# torch.cuda.max_memory_allocated() of a call over the analyzer's predicted
+# peak of live bytes: the caching allocator rounds each block up to 512 B
+# and cuBLAS keeps its workspace, which the count of tensor storages does
+# not see. Readings at seeds 0-2, each the same at every seed (NVIDIA H100
+# 80GB HBM3, 700.00 W): olmo_train 1.0030, llama_prefill 1.0041,
+# llama_decode 1.0041, mamba2_prefill 1.0118; the upper limit about twice
+# the largest excess, and never under the count
+ROOFLINE_PEAK_RATIO = (1.0, 1.025)
 
 
 def check(cond: bool, what: str) -> None:
@@ -695,8 +734,7 @@ def paged_row(cfg, randn) -> dict:
     per_call = kernels_per_call(lambda: [kernel(i) for i in range(4)], 4, "paged")
     check(per_call == 1, f"paged_attention is {per_call} device kernel per call "
           "(torch.profiler over 4 calls)")
-    moved = (2 * DECODE_CTX * hkv * hd + 2 * hq * hd) * q.element_size()  # K, V rows; q, out
-    flops = 4 * hq * DECODE_CTX * hd
+    flops, moved = pa.paged_attention.cost(1, hq, hkv, hd, DECODE_CTX, q.element_size())
     qs = q.unsqueeze(3)  # (L, 1, hq, 1, hd)
     ks, vs = kc[:, :, :DECODE_CTX].transpose(2, 3), vc[:, :, :DECODE_CTX].transpose(2, 3)
     row = dict(
@@ -807,8 +845,8 @@ def paged_shape(label: str, hq: int, hkv: int, hd: int, max_len: int, ctx_len: i
           f"{hkv}, group {hq // hkv}, d {hd}, ctx {ctx_len}, K/V {str(kc.dtype)[6:]}: {took} "
           f"launches of that instantiation): max |err| {err:.3g} <= {tol:.3g} ({PAGED_ULPS} "
           f"bf16 steps at the largest output)")
-    moved = 2 * ctx_len * hkv * hd * kc.element_size() + 2 * hq * hd * q.element_size()
-    flops = 4 * hq * ctx_len * hd
+    flops, moved = pa.paged_attention.cost(1, hq, hkv, hd, ctx_len, q.element_size(),
+                                           kc.element_size())
     qs = q.unsqueeze(3)
     ks, vs = (c[:, :, :ctx_len].to(q.dtype).transpose(2, 3) for c in (kc, vc))
     splits, per_sm = pa.plan(dev, q.dtype, hd, hq // hkv, 1, hkv, n_blk, kc.dtype)
@@ -922,11 +960,9 @@ def ssd_row(cfg, jamba_cfg, g) -> dict:
         check(cum_rel <= CUM_TOL, f"ssd_chunk's prefix sums at {tuple(a.shape)} against "
               f"torch.cumsum: {cum_rel:.3g} of the largest |cum| <= {CUM_TOL}")
         nb, lc, nh, hp = x.shape
-        n = b.shape[-1]
-        moved = 4 * (2 * x.numel() + 2 * a.numel() + st.numel()) + 2 * 2 * nb * lc * n
-        pairs = lc * (lc + 1) // 2
-        flops_g = nb * 2 * pairs * n  # C.B^T, in B/C's type (bf16)
-        flops_tf32 = nb * nh * (2 * pairs * hp + 2 * lc * n * hp)  # P.x, B^T.(w x)
+        ng, n = b.shape[2] if b.stride(2) else 1, b.shape[-1]
+        _, moved = ssd.ssd_chunk.cost(nb, lc, nh, hp, ng, n, b.element_size(), True)
+        flops_g, flops_tf32 = ssd.forward_flops(nb, lc, nh, hp, ng, n)  # bf16 C.B^T; f32
         t_bytes = moved / HBM_BYTES_PER_S
         t_ops = flops_g / BF16_FLOP_PER_S + flops_tf32 / TF32_FLOP_PER_S
         rows[key] = dict(
@@ -964,12 +1000,11 @@ def ssd_bwd_bound(nb, lc, nh, hp, g, n, bc_dtype, with_dcum) -> tuple[float, str
     products at the TF32 tensor-core rate."""
     import torch
 
+    from repro_torch.kernels import ssd_chunk as ssd
+
     es = torch.tensor([], dtype=getattr(torch, bc_dtype)).element_size()
-    moved = (4 * (3 * nb * lc * nh * hp + nb * nh * n * hp + (3 if with_dcum else 2) * nb * lc
-                  * nh) + 4 * es * nb * lc * g * n)
-    pairs = lc * (lc + 1) // 2
-    flops_g = nb * g * 2 * pairs * n
-    flops_f32 = nb * nh * (4 * pairs * hp + 4 * lc * n * hp) + nb * g * 4 * pairs * n
+    _, moved = ssd.ssd_chunk_bwd.cost(nb, lc, nh, hp, g, n, es, with_dcum)
+    flops_g, flops_f32 = ssd.backward_flops(nb, lc, nh, hp, g, n)
     t_bytes = moved / HBM_BYTES_PER_S
     t_ops = (flops_g / (BF16_FLOP_PER_S if es == 2 else TF32_FLOP_PER_S)
              + flops_f32 / TF32_FLOP_PER_S)
@@ -1095,7 +1130,7 @@ def sparse_row(cfg, qwen_cfg, g) -> dict:
               and torch.equal(out[n_sel], view[n - 1]) and torch.equal(out[n_sel + 1], view[0]),
               f"sparse_kv_gather bit-exact on {c.name}'s pool {tuple(pool.shape)}: {n_sel} "
               f"pieces + ids -1, -N (wrapped), N, 2**31-1 (NaN rows, exactly those)")
-        moved = 2 * n_sel * lay.head_dim * pool.element_size()
+        _, moved = kv.sparse_kv_gather.cost(n_sel, view[0].numel() * view.element_size())
         rows[c.name] = r = dict(
             name="sparse_kv_gather", route="cuda",
             source="src/repro_torch/kernels/csrc/kv_transfer.cu",
@@ -1175,9 +1210,8 @@ def flash_row(cfg, randn) -> dict:
     check(torch.allclose(slow.float(), want.float(), atol=FLASH_TOL, rtol=FLASH_TOL),
           f"flash_attention (cuda_cores) on the same inputs within {FLASH_TOL} "
           f"(max |err| {slow_err:.3g})")
-    pairs = PROMPT * (PROMPT + 1) // 2  # causal (q, k) pairs
-    flops = 4 * hq * hd * pairs
-    moved = (2 * q.numel() + 2 * fk.numel()) * q.element_size()  # q, k, v in; out
+    flops, moved = fa.flash_attention.cost(1, PROMPT, PROMPT, hq, hkv, hd, True,
+                                           q.element_size())
     qt, kt, vt = (t.transpose(1, 2) for t in (q, fk, fv))
     ms = device_ms(lambda: fa.flash_attention(q, fk, fv, causal=True))
     row = dict(
@@ -1237,8 +1271,7 @@ def flash_shape(label: str, sq: int, hq: int, hkv: int, hd: int, randn) -> dict:
           and torch.allclose(out.float(), want.float(), atol=FLASH_TOL, rtol=FLASH_TOL),
           f"flash_attention (wgmma) within {FLASH_TOL} at {label}'s q {tuple(q.shape)}, "
           f"group {hq // hkv} (max |err| {err:.3g})")
-    flops = 4 * hq * hd * (sq * (sq + 1) // 2)
-    moved = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    flops, moved = fa.flash_attention.cost(1, sq, sq, hq, hkv, hd, True, q.element_size())
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     r = dict(q=list(q.shape), max_abs_err=err,
              ms=device_ms(lambda: fa.flash_attention(q, k, v, causal=True)),
@@ -1282,7 +1315,7 @@ def phase_kernels(cfg, mamba_cfg) -> list[dict]:
     want = ref.kv_gather_write_ref(k, v, slots_t, bt)
     torch.cuda.synchronize()
     check(torch.equal(blocks, want), f"kv_gather_write bit-exact at {tuple(blocks.shape)}")
-    moved = 2 * blocks.numel() * blocks.element_size()
+    _, moved = kv.kv_gather_write.cost(n_blocks, L, bt, hkv, hd, blocks.element_size())
     rows.append(dict(
         name="kv_gather_write", route="cuda",
         source="src/repro_torch/kernels/csrc/kv_transfer.cu",
@@ -1298,7 +1331,7 @@ def phase_kernels(cfg, mamba_cfg) -> list[dict]:
     torch.cuda.synchronize()
     check(torch.equal(kr, kw) and torch.equal(vr, vw),
           f"kv_scatter_read bit-exact (zero fill included) at {tuple(kr.shape)}")
-    moved = blocks.numel() * blocks.element_size() + 2 * kr.numel() * kr.element_size()
+    _, moved = kv.kv_scatter_read.cost(n_blocks, L, n_slots, bt, hkv, hd, kr.element_size())
     rows.append(dict(
         name="kv_scatter_read", route="cuda",
         source="src/repro_torch/kernels/csrc/kv_transfer.cu",
@@ -1353,8 +1386,8 @@ def kv_fp8_shapes(qwen_cfg, g) -> tuple[dict, dict]:
           f"kv_gather_write bit-exact on an e4m3 qwen3-32b cache at {tuple(blocks.shape)}")
     check(torch.equal(u8(kr), u8(kw)) and torch.equal(u8(vr), u8(vw)),
           f"kv_scatter_read bit-exact (zero fill included) on e4m3 blocks at {tuple(kr.shape)}")
-    gather_moved = 2 * blocks.numel()
-    scatter_moved = blocks.numel() + 2 * kr.numel()
+    _, gather_moved = kv.kv_gather_write.cost(len(slots), L, bt, hkv, hd, 1)
+    _, scatter_moved = kv.kv_scatter_read.cost(len(slots), L, n_slots, bt, hkv, hd, 1)
     out = (dict(max_abs_err=0.0, bytes_per_element=1,
                 ms=device_ms(lambda: kv.kv_gather_write(k, v, slots, bt)),
                 plain_ms=device_ms(lambda: ref.kv_gather_write_ref(k, v, slots_t, bt)),
@@ -1600,15 +1633,6 @@ def bwd_build_proof(build) -> None:
           f"instructions: {counts}")
 
 
-def attn_pairs(sq: int, skv: int, causal: bool) -> int:
-    """(query, key) pairs attention scores: under the causal mask aligned at
-    position 0, row r sees min(r + 1, skv) keys."""
-    if not causal:
-        return sq * skv
-    n = min(sq, skv)
-    return n * (n + 1) // 2 + max(sq - skv, 0) * skv
-
-
 def bwd_row() -> dict:
     """flash_attention_bwd on each route against flash_attention_bwd_ref at
     BWD_SHAPES and at FLASH_SHAPES (the wgmma route at every bf16 shape, the
@@ -1671,9 +1695,8 @@ def bwd_row() -> dict:
         q, k, v, do = inputs(b, sq, skv, hq, hkv, d, dtype)
         o, lse, errs = compared(q, k, v, do, causal, f"{label} q {tuple(q.shape)} {dt}")
         main = fa.route(dtype, d)  # the route the training path takes
-        flops = 2.5 * 4 * hq * d * b * attn_pairs(sq, skv, causal)
-        moved = (3 * q.numel() + 2 * k.numel()) * q.element_size() + lse.numel() * 4 \
-            + (q.numel() + 2 * k.numel()) * q.element_size()
+        flops, moved = fa.flash_attention_bwd.cost(b, sq, skv, hq, hkv, d, causal,
+                                                   q.element_size())
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True) for t in (q, k, v))
         out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=True)
         dot = do.transpose(1, 2)
@@ -3000,6 +3023,7 @@ def phase_train(cfg) -> dict:
     from repro_torch.configs.base import RuntimeConfig
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     from repro_torch.experiments import train_bwd_probe as probe
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model, init_params
     from repro_torch.training.optimizer import (OptimizerConfig, global_norm, init_opt_state,
@@ -3115,7 +3139,7 @@ def phase_train(cfg) -> dict:
           f"(ii) no pool, paged or SSM kernel on the training path: {launches}")
     step_s = sorted(b - a for a, b in zip(stamps, stamps[1:]))
     step_ms = step_s[len(step_s) // 2] * 1e3  # median
-    attn_flops = 4 * cfg.n_heads * cfg.head_dim * TRAIN_BATCH * attn_pairs(
+    attn_flops = 4 * cfg.n_heads * cfg.head_dim * TRAIN_BATCH * fa.attn_pairs(
         TRAIN_SEQ, TRAIN_SEQ, True) * L
     model_flops = 6 * n_params * tokens + 3 * attn_flops  # forward + backward, no recompute
     summary = {
@@ -3756,6 +3780,111 @@ def phase_mesh_train(phase13_losses: list) -> dict:
     return launches
 
 
+def phase_roofline(seed: int = 0) -> dict:
+    """The launch tooling held against the card (module docstring, phase
+    17), the card's arguments drawn from ``seed``; returns the kernel
+    launches of the cells' counted calls."""
+    import statistics
+
+    import torch
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.dryrun import attn_model_flops, model_flops
+    from repro_torch.launch.op_analysis import OpAnalyzer
+    from repro_torch.launch.roofline import useful_bytes
+    from repro_torch.launch.steps import build_cell
+
+    def counted(cell, device):
+        """The analyzer's count of the second call (the first builds the
+        kernels and a decode's block table), the launches and the peak."""
+        args = cell.make_args(device, seed)
+        cell.fn(*args)
+        if device == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        before = ops.launch_counts()
+        with FlopCounterMode(display=False) as fc, OpAnalyzer(track=args) as an:
+            cell.fn(*args)
+        peak = None
+        if device == "cuda":
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+        launched = {k: v - before[k] for k, v in ops.launch_counts().items() if v > before[k]}
+        return args, an, fc, launched, peak
+
+    total: dict[str, int] = {}
+    out = {}
+    for label, (arch, fields) in ROOFLINE_CELLS.items():
+        t0 = time.perf_counter()
+        cfg, shape = get_config(arch), ShapeConfig(*fields)
+        _, meta, _, meta_launched, _ = counted(build_cell(cfg, shape), "meta")
+        check(not meta_launched, f"{label}: the dry run on meta launched no kernel")
+        cell = build_cell(cfg, shape)
+        args, card, fc, launched, peak = counted(cell, "cuda")
+        for k, v in launched.items():
+            total[k] = total.get(k, 0) + v
+        got, want = card.result(), meta.result()
+        check(card.ops == meta.ops and all(got[k] == want[k] for k in (
+            "flops", "bytes_accessed", "transcendentals", "kernels")),
+            f"{label}: the dry run on meta counts the card's call exactly: "
+            f"{sum(card.ops.values())} aten ops ({len(card.ops)} distinct (op, shapes, dtypes)), "
+            f"{got['flops']:.6e} FLOPs, {got['bytes_accessed']:.6e} bytes, "
+            f"{got['transcendentals']:.6e} transcendentals")
+        kernel_launches = {k: v["launches"] for k, v in got["kernels"].items()}
+        check(kernel_launches == launched and kernel_launches,
+              f"{label}: kernel entries {kernel_launches} equal ops.launch_counts()'s delta "
+              f"{launched}")
+        gemm = {str(op): n for op, n in fc.get_flop_counts()["Global"].items()}
+        check(gemm == {k: v for k, v in card.op_flops.items() if v},
+              f"{label}: every aten op FlopCounterMode knows counted alike: {gemm}")
+        times = []
+        for _ in range(ROOFLINE_RUNS):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            cell.fn(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t1) * 1e3)
+        ms = statistics.median(times)
+        t_ops, t_bytes = got["flops"] / BF16_FLOP_PER_S, got["bytes_accessed"] / HBM_BYTES_PER_S
+        counted_ms = max(t_ops, t_bytes) * 1e3
+        useful_flops = model_flops(cfg, shape) + attn_model_flops(cfg, shape)
+        u_ops, u_bytes = useful_flops / BF16_FLOP_PER_S, useful_bytes(cfg, shape) / HBM_BYTES_PER_S
+        useful_ms = max(u_ops, u_bytes) * 1e3
+        r = out[label] = {
+            "ms": ms, "ms_all": times, "flops": got["flops"], "bytes": got["bytes_accessed"],
+            "counted_bound_ms": counted_ms,
+            "counted_by": "operations" if t_ops > t_bytes else "bytes",
+            "counted_share": counted_ms / ms, "useful_flops": useful_flops,
+            "useful_bound_ms": useful_ms, "useful_by": "operations" if u_ops > u_bytes else "bytes",
+            "useful_share": useful_ms / ms, "peak_predicted": meta.peak_live_bytes,
+            "peak_measured": peak, "peak_ratio": peak / meta.peak_live_bytes,
+            "kernels": kernel_launches, "top_flops": got["top_flops"][:3],
+            "top_bytes": got["top_bytes"][:3],
+        }
+        print(f"  {label} ({arch}, {fields[2]} x {fields[1]}, {fields[3]}): {ms:.2f} ms (median "
+              f"of {ROOFLINE_RUNS}: {[round(x, 2) for x in times]}); counted "
+              f"{r['flops']:.4e} FLOPs, {r['bytes']:.4e} bytes: bound {counted_ms:.2f} ms by "
+              f"{r['counted_by']}, share {r['counted_share']:.4f}; useful {useful_flops:.4e} "
+              f"FLOPs (model + attention), bound {useful_ms:.2f} ms by {r['useful_by']}, share "
+              f"{r['useful_share']:.4f}; peak {peak / 2**30:.3f} GiB measured, "
+              f"{meta.peak_live_bytes / 2**30:.3f} predicted (ratio {r['peak_ratio']:.4f}); "
+              f"top FLOPs {r['top_flops']}; top bytes {r['top_bytes']}")
+        check(r["counted_share"] <= ROOFLINE_SHARE_MAX,
+              f"{label}: as-counted share {r['counted_share']:.4f} <= {ROOFLINE_SHARE_MAX}")
+        lo, hi = ROOFLINE_PEAK_RATIO
+        check(lo <= r["peak_ratio"] <= hi,
+              f"{label}: measured peak over predicted {r['peak_ratio']:.4f} in [{lo}, {hi}]")
+        r["phase_s"] = time.perf_counter() - t0
+        del cell, args, card, meta, fc
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"  phase 17 cells: {json.dumps(out)}")
+    return total
+
+
 def main() -> None:
     import torch
 
@@ -3856,12 +3985,19 @@ def main() -> None:
     print("[16] training under a device mesh: 4 gloo ranks on the card, full width",
           flush=True)
     mesh_train_launches = phase_mesh_train(train_losses)
+    gc.collect()
+    torch.cuda.empty_cache()
+    print("[17] the roofline held against the card: olmo-1b train, Llama-3.1-8B prefill and "
+          "decode, mamba2-2.7b prefill, full width, one device", flush=True)
+    t17 = time.perf_counter()
+    roofline_launches = phase_roofline()
+    print(f"  phase 17 in {time.perf_counter() - t17:.1f} s")
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
              "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches,
              "qwen3_fp8": qwen3_fp8_launches, "internvl2": internvl_launches,
              "musicgen": musicgen_launches, "train": train_launches,
              "mamba2_train": ssm_train_launches, "mesh": mesh_launches,
-             "mesh_train": mesh_train_launches}
+             "mesh_train": mesh_train_launches, "roofline": roofline_launches}
     own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse",
            "paged_attention_e4m3": "qwen3_fp8", "flash_attention_bwd": "train",
            "ssd_chunk_bwd": "mamba2_train"}

@@ -9,6 +9,15 @@ a tensor on the card goes through a host copy and comes back to its device;
 NCCL would refuse two ranks on one device, which is how one card runs a
 world.
 
+Each collective runs inside ``kernels.accounting.collective``, which tells
+the op analyzer (``launch/op_analysis.py``) its kind, axes, bytes sent per
+device (its operand's, at the operand's dtype, as JAX's analyzer counts)
+and dtype, and keeps the host copies of its staging out of the count. On
+an abstract mesh (``Mesh(rank=None)``, the dry run's) a collective of
+``meta`` tensors stages nothing: it is recorded and returns an empty
+tensor of the result's shape and dtype. A real tensor under an abstract
+mesh raises, as ``Mesh.group`` does.
+
 ``row_parallel_matmul`` is the Megatron TP epilogue: each rank multiplies
 its column shard of the activation by its row shard of the weight, then
 the partials are summed over ``model``. With ``rowp_bf16`` the partial is
@@ -51,6 +60,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from repro_torch.kernels import accounting
+
 OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
@@ -72,38 +83,69 @@ def _tracked(*ts: torch.Tensor) -> bool:
 # ---------------------------------------------------------------------------
 
 
+def _abstract(t: torch.Tensor, mesh) -> bool:
+    """Whether a collective of ``t`` over ``mesh`` is only recorded: the
+    mesh is abstract, which takes meta tensors alone."""
+    if mesh.rank is None:
+        if t.device.type != "meta":
+            raise RuntimeError(f"an abstract mesh runs collectives of meta tensors only, "
+                               f"not of a tensor on {t.device}")
+        return True
+    return False
+
+
+def _recorded(kind: str, t: torch.Tensor, mesh, axes, out_numel: int | None = None):
+    """The accounting region of a collective of ``t`` whose result has
+    ``out_numel`` elements (default: as many as ``t``)."""
+    out_numel = t.numel() if out_numel is None else out_numel
+    return accounting.collective(kind, mesh.axes(axes), t.numel() * t.element_size(),
+                                 out_numel * t.element_size(), t.dtype)
+
+
 def _psum(t: torch.Tensor, mesh, axes, op: str = "sum") -> torch.Tensor:
-    buf = _staged(t).clone()
-    dist.all_reduce(buf, op=OPS[op], group=mesh.group(axes))
-    return _back(buf, t)
+    with _recorded("all-reduce", t, mesh, axes):
+        if _abstract(t, mesh):
+            return t.new_empty(t.shape)
+        buf = _staged(t).clone()
+        dist.all_reduce(buf, op=OPS[op], group=mesh.group(axes))
+        return _back(buf, t)
 
 
 def _gather0(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Every shard's ``t`` concatenated along dim 0."""
     n = mesh.axis_size(axes)
-    src = _staged(t)
-    out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype)
-    gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-    gather(out, src, group=mesh.group(axes))
-    return _back(out, t)
+    with _recorded("all-gather", t, mesh, axes, n * t.numel()):
+        if _abstract(t, mesh):
+            return t.new_empty((n * t.shape[0], *t.shape[1:]))
+        src = _staged(t)
+        out = torch.empty((n * src.shape[0], *src.shape[1:]), dtype=src.dtype)
+        gather = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+        gather(out, src, group=mesh.group(axes))
+        return _back(out, t)
 
 
 def _scatter0(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     """The sum over the shards of ``t``, cut along dim 0 into as many
     chunks: this rank's chunk (the reduce-scatter, transpose of ``_gather0``)."""
     n = mesh.axis_size(axes)
-    src = _staged(t)
-    out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype)
-    scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
-    scatter(out, src, group=mesh.group(axes))
-    return _back(out, t)
+    with _recorded("reduce-scatter", t, mesh, axes, t.numel() // n):
+        if _abstract(t, mesh):
+            return t.new_empty((t.shape[0] // n, *t.shape[1:]))
+        src = _staged(t)
+        out = torch.empty((src.shape[0] // n, *src.shape[1:]), dtype=src.dtype)
+        scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+        scatter(out, src, group=mesh.group(axes))
+        return _back(out, t)
 
 
 def _a2a(t: torch.Tensor, mesh, axes) -> torch.Tensor:
-    src = _staged(t)
-    out = torch.empty_like(src)
-    dist.all_to_all_single(out, src, group=mesh.group(axes))
-    return _back(out, t)
+    with _recorded("all-to-all", t, mesh, axes):
+        if _abstract(t, mesh):
+            return t.new_empty(t.shape)
+        src = _staged(t)
+        out = torch.empty_like(src)
+        dist.all_to_all_single(out, src, group=mesh.group(axes))
+        return _back(out, t)
 
 
 def _gather(t: torch.Tensor, dim: int, mesh, axes) -> torch.Tensor:

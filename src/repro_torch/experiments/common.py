@@ -11,7 +11,9 @@ import itertools
 
 import torch
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+from repro_torch.launch.mesh import HBM_BW
+
+HBM_BYTES_PER_S = HBM_BW  # H100 SXM, NVIDIA data sheet (launch/mesh.py)
 QUEUE_SPIN_CYCLES = 50_000_000  # about 25 ms at the H100's boost clock
 NOT_MEASURED = "not measured"
 

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from repro_torch.experiments.common import device_ms, device_name, emit
 from repro_torch.kernels import build, ref
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch.mesh import PEAK_FLOPS_BF16
 
 SHAPES = {  # label -> (sq, hq, hkv, d)
     "llama": (1024, 32, 8, 128),
@@ -44,7 +45,7 @@ SHAPES = {  # label -> (sq, hq, hkv, d)
     "qwen3_32b": (1024, 64, 8, 80),
 }
 TURNS = 3
-BF16_FLOP_PER_S = 989e12
+BF16_FLOP_PER_S = PEAK_FLOPS_BF16
 TURNS_HELPERS = (
     "__device__ __forceinline__ void turn_wait(int id) {\n"
     "  asm volatile(\"bar.sync %0, 256;\" ::\"r\"(id) : \"memory\");\n}\n"

@@ -18,7 +18,9 @@ as a fallback for the other:
     to 128, on the f32 CUDA cores.
 
 Raises on anything else, and on a build or launch failure of either route.
-Counts its launches in ``flash_attention.launches`` and per route in
+On the ``meta`` device it allocates its outputs and launches nothing (a
+dry run's shape-only stand-in, ``launch/op_analysis.py``), and counts no
+launch. Counts its launches in ``flash_attention.launches`` and per route in
 ``flash_attention.launches_by_route``. With ``return_lse`` either route
 also stores each row's log-sum-exp (b, hq, sq) f32, natural log, which
 ``flash_attention_bwd`` reads.
@@ -34,7 +36,13 @@ d 64, 80 and 128, the products on the tensor cores fed by TMA) and
 (JAX differentiates its jnp chunked flash); ``kernels/ops.py`` runs it
 under autograd. Counts its calls in ``flash_attention_bwd.launches``, per
 route in ``flash_attention_bwd.launches_by_route`` and each kernel's
-launches in ``flash_attention_bwd.launches_by_kernel``.
+launches in ``flash_attention_bwd.launches_by_kernel``; on ``meta`` it
+too allocates its outputs and launches nothing.
+
+``flash_attention.cost`` and ``flash_attention_bwd.cost`` give a call's
+(FLOPs, bytes): the products on the (query, key) pairs the mask keeps
+(``attn_pairs``), each input read once and each output written once. Each
+launch tells ``accounting.kernel`` its cost.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 
 ROUTES = ("wgmma", "cuda_cores")
 WGMMA_HEAD_DIMS = (64, 80, 128)
@@ -167,8 +175,35 @@ def _u64(vals):
     return (ctypes.c_uint64 * len(vals))(*vals)
 
 
-def flash_attention(
-    q: torch.Tensor,  # (b, sq, hq, d)
+def attn_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs attention scores: under the causal mask aligned at
+    position 0, row r sees min(r + 1, skv) keys."""
+    if not causal:
+        return sq * skv
+    n = min(sq, skv)
+    return n * (n + 1) // 2 + max(sq - skv, 0) * skv
+
+
+def forward_cost(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, causal: bool = True,
+                 elem_bytes: int = 2, lse: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one forward call: Q.K^T and P.V, 4 d a kept pair a
+    q head; q, k, v read, out (and the f32 log-sum-exp) written."""
+    flops = 4 * b * hq * d * attn_pairs(sq, skv, causal)
+    nbytes = (2 * b * sq * hq * d + 2 * b * skv * hkv * d) * elem_bytes
+    return flops, nbytes + (4 * b * hq * sq if lse else 0)
+
+
+def backward_cost(b: int, sq: int, skv: int, hq: int, hkv: int, d: int, causal: bool = True,
+                  elem_bytes: int = 2) -> tuple[int, int]:
+    """(FLOPs, bytes) of one backward call: 2.5 times the forward's products
+    (S and dP recomputed, dV, dK, dQ); q, o, dO, k, v and the f32
+    log-sum-exp read, dq, dk, dv written."""
+    flops = 10 * b * hq * d * attn_pairs(sq, skv, causal)
+    q_n, kv_n = b * sq * hq * d, b * skv * hkv * d
+    return flops, (4 * q_n + 4 * kv_n) * elem_bytes + 4 * b * hq * sq
+
+
+def flash_attention(    q: torch.Tensor,  # (b, sq, hq, d)
     k: torch.Tensor,  # (b, skv, hkv, d)
     v: torch.Tensor,
     causal: bool = True,
@@ -181,16 +216,31 @@ def flash_attention(
     that route cannot take the inputs. With ``return_lse``, returns
     (out, lse (b, hq, sq) f32)."""
     for t in (q, k, v):
-        if t.device.type != "cuda" or not t.is_contiguous() or t.dtype != q.dtype:
+        if t.device.type not in accounting.DEVICES or not t.is_contiguous() or t.dtype != q.dtype:
             raise ValueError("flash_attention takes contiguous q, k, v of one dtype on the card")
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     picked = pick_route(q.dtype, d, force_route)
     if hq % hkv or k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
         raise ValueError(f"bad shapes q {q.shape}, k {k.shape}, v {v.shape}")
-    out = torch.empty_like(q)
-    lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse else None
-    lse_ptr = lse.data_ptr() if return_lse else None
+    with accounting.kernel("flash_attention", forward_cost(
+            b, sq, skv, hq, hkv, d, causal, q.element_size(), return_lse)):
+        out = torch.empty_like(q)
+        lse = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device) if return_lse \
+            else None
+        if q.device.type != "meta":
+            _launch_forward(q, k, v, out, lse, causal, picked)
+    if not return_lse:
+        return out
+    if skv == 0:  # no keys: the log-sum-exp of an empty row
+        lse.fill_(-math.inf)
+    return out, lse
+
+
+def _launch_forward(q, k, v, out, lse, causal: bool, picked: str) -> None:
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    lse_ptr = lse.data_ptr() if lse is not None else None
     lib = build.load("flash_attention", SIGNATURES)
     if picked == "wgmma":
         for name, t in (("q", q), ("k", k), ("v", v), ("out", out)):
@@ -223,11 +273,6 @@ def flash_attention(
         raise RuntimeError(f"flash_attention ({picked}) launch failed: cudaError_t {rc}")
     flash_attention.launches += 1
     flash_attention.launches_by_route[picked] += 1
-    if not return_lse:
-        return out
-    if skv == 0:  # no keys: the log-sum-exp of an empty row
-        lse.fill_(-math.inf)
-    return out, lse
 
 
 def bwd_tensor_map_args(shape: tuple[int, ...], elem_bytes: int = 2):
@@ -260,12 +305,9 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, *,
     Raises on what the kernels do not take and on a build or launch
     failure."""
     for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
-        if t.device.type != "cuda" or not t.is_contiguous() or t.dtype != q.dtype:
+        if t.device.type not in accounting.DEVICES or not t.is_contiguous() or t.dtype != q.dtype:
             raise ValueError(f"flash_attention_bwd takes contiguous tensors of one dtype on "
                              f"the card; {name} is {t.dtype} on {t.device}")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention_bwd needs 16-byte aligned tensors; {name} "
-                             f"starts at {t.data_ptr():#x}")
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     picked = pick_route(q.dtype, d, force_route)
@@ -277,27 +319,43 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, *,
             or not lse.is_contiguous()):
         raise ValueError(f"lse must be a contiguous ({b}, {hq}, {sq}) float32 tensor on "
                          f"{q.device}, got {tuple(lse.shape)} {lse.dtype} on {lse.device}")
-    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    with accounting.kernel("flash_attention_bwd", backward_cost(
+            b, sq, skv, hq, hkv, d, causal, q.element_size())):
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+        f32 = {"dtype": torch.float32, "device": q.device}
+        if picked == "wgmma":  # the rows' (lse log2 e, D), padded
+            stat = torch.empty((b, hq, bwd_stat_rows(sq), 2), **f32)
+        else:  # the rows' D
+            stat = torch.empty((b, hq, sq), **f32)
+        if q.device.type != "meta":
+            _launch_backward(q, k, v, o, lse, do, stat, dq, dk, dv, causal, picked)
+    return dq, dk, dv
+
+
+def _launch_backward(q, k, v, o, lse, do, stat, dq, dk, dv, causal: bool, picked: str) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v), ("o", o), ("do", do)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention_bwd needs 16-byte aligned tensors; {name} "
+                             f"starts at {t.data_ptr():#x}")
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
     lib = build.load("flash_attention_bwd", BWD_SIGNATURES)
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
             do.data_ptr())
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         if picked == "wgmma":
-            sq_pad = bwd_stat_rows(sq)
-            stat = torch.empty((b, hq, sq_pad, 2), dtype=torch.float32, device=q.device)
             q_dims, q_strides, box = bwd_tensor_map_args(tuple(q.shape))
             kv_dims, kv_strides, _ = bwd_tensor_map_args(tuple(k.shape))
             rc = lib.flash_attention_bwd_wgmma(
                 *ptrs, stat.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 _u64(q_dims), _u64(q_strides), _u64(kv_dims), _u64(kv_strides),
-                (ctypes.c_uint32 * 4)(*box), b, sq, skv, hq, hkv, d, sq_pad, int(causal),
-                1.0 / math.sqrt(d), stream,
+                (ctypes.c_uint32 * 4)(*box), b, sq, skv, hq, hkv, d, stat.shape[2],
+                int(causal), 1.0 / math.sqrt(d), stream,
             )
         else:
-            delta = torch.empty((b, hq, sq), dtype=torch.float32, device=q.device)
             rc = lib.flash_attention_bwd(
-                *ptrs, delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                *ptrs, stat.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                 _DTYPES[q.dtype], b, sq, skv, hq, hkv, d, int(causal), 1.0 / math.sqrt(d),
                 stream,
             )
@@ -313,7 +371,6 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True, *,
         flash_attention_bwd.launches_by_route[picked] += 1
         for name in BWD_KERNELS:
             flash_attention_bwd.launches_by_kernel[name] += 1
-    return dq, dk, dv
 
 
 def reset_launch_counts() -> None:
@@ -325,3 +382,5 @@ def reset_launch_counts() -> None:
 
 
 reset_launch_counts()
+flash_attention.cost = forward_cost
+flash_attention_bwd.cost = backward_cost

@@ -23,7 +23,14 @@ kernel runs in at most one resident wave, one unit a lane where the read
 fits: ``sparse_plan`` is the Python mirror of how it splits the pieces over
 CTAs and lanes.
 
-Each wrapper counts its launches in ``<wrapper>.launches``.
+Each wrapper counts its launches in ``<wrapper>.launches``. On the
+``meta`` device the gather-write and the scatter-read allocate their
+outputs and launch nothing (a dry run's shape-only stand-in,
+``launch/op_analysis.py``), and count no launch; ``sparse_kv_gather``,
+which no ``Model`` cell reaches, takes no meta tensor past its checks.
+``<wrapper>.cost`` gives a call's (FLOPs, bytes), none of them FLOPs:
+each byte read once and each written once; each launch tells
+``accounting.kernel`` its cost.
 """
 
 from __future__ import annotations
@@ -35,7 +42,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGS = [_P, _P, _P, _P, _I, _I, _I, _LL, _P]
@@ -51,6 +58,28 @@ INT32_MIN, INT32_MAX = -(2**31), 2**31 - 1
 # the sparse kernel's constants (csrc/kv_transfer.cu): threads per CTA and
 # units a lane holds in flight
 SPARSE_THREADS, SPARSE_LANE_UNITS = 128, 2
+
+
+def gather_write_cost(n_blocks: int, layers: int, block_tokens: int, hkv: int, hd: int,
+                      elem_bytes: int = 2) -> tuple[int, int]:
+    """(FLOPs, bytes) of packing n_blocks blocks of ``layers`` layers' K and
+    V: each fragment read from the caches and written into the payload."""
+    return 0, 2 * n_blocks * 2 * layers * block_tokens * hkv * hd * elem_bytes
+
+
+def scatter_read_cost(n_blocks: int, layers: int, n_slots: int, block_tokens: int, hkv: int,
+                      hd: int, elem_bytes: int = 2) -> tuple[int, int]:
+    """(FLOPs, bytes) of unpacking n_blocks blocks into two (layers, n_slots
+    * block_tokens, hkv, hd) caches: the payload read, both caches written
+    whole (the unmapped slots' zeros included)."""
+    payload = n_blocks * 2 * layers * block_tokens * hkv * hd * elem_bytes
+    return 0, payload + 2 * layers * n_slots * block_tokens * hkv * hd * elem_bytes
+
+
+def sparse_gather_cost(n_sel: int, row_bytes: int) -> tuple[int, int]:
+    """(FLOPs, bytes) of gathering n_sel token rows of ``row_bytes``: each
+    read once and written once."""
+    return 0, 2 * n_sel * row_bytes
 
 
 def check_slots(slot_ids, n_slots: int) -> list[int]:
@@ -73,7 +102,7 @@ def _frag_vec(block_tokens: int, hkv: int, hd: int, dtype: torch.dtype) -> int:
 
 def _check_cuda(*ts: torch.Tensor) -> None:
     for t in ts:
-        if t.device.type != "cuda" or not t.is_contiguous():
+        if t.device.type not in accounting.DEVICES or not t.is_contiguous():
             raise ValueError("the CUDA kernel takes contiguous tensors on the card")
         if t.dtype != ts[0].dtype:
             raise ValueError(f"dtype mismatch: {t.dtype} vs {ts[0].dtype}")
@@ -113,19 +142,23 @@ def kv_gather_write(
     if v_cache.shape != k_cache.shape or T % block_tokens:
         raise ValueError(f"bad cache shapes {k_cache.shape}, {v_cache.shape}")
     n = len(slot_ids)
-    out = torch.empty(
-        (n, 2 * L, block_tokens, hkv, hd), dtype=k_cache.dtype, device=k_cache.device
-    )
-    slots = _device_ids(slot_ids, k_cache.device)
-    _launch("kv_gather_write", [
-        k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), slots.data_ptr(),
-        n, L, T // block_tokens, _frag_vec(block_tokens, hkv, hd, k_cache.dtype),
-    ], k_cache.device)
-    kv_gather_write.launches += 1
+    with accounting.kernel("kv_gather_write", gather_write_cost(
+            n, L, block_tokens, hkv, hd, k_cache.element_size())):
+        out = torch.empty(
+            (n, 2 * L, block_tokens, hkv, hd), dtype=k_cache.dtype, device=k_cache.device
+        )
+        slots = _device_ids(slot_ids, k_cache.device)
+        if k_cache.device.type != "meta":
+            _launch("kv_gather_write", [
+                k_cache.data_ptr(), v_cache.data_ptr(), out.data_ptr(), slots.data_ptr(),
+                n, L, T // block_tokens, _frag_vec(block_tokens, hkv, hd, k_cache.dtype),
+            ], k_cache.device)
+            kv_gather_write.launches += 1
     return out
 
 
 kv_gather_write.launches = 0
+kv_gather_write.cost = gather_write_cost
 
 
 def kv_scatter_read(
@@ -137,19 +170,23 @@ def kv_scatter_read(
     _check_cuda(pool_blocks)
     n, two_l, bt, hkv, hd = pool_blocks.shape
     L = two_l // 2
-    k = torch.zeros((L, n_slots * bt, hkv, hd), dtype=pool_blocks.dtype,
-                    device=pool_blocks.device)
-    v = torch.zeros_like(k)
-    slots = _device_ids(slot_ids, pool_blocks.device)
-    _launch("kv_scatter_read", [
-        pool_blocks.data_ptr(), k.data_ptr(), v.data_ptr(), slots.data_ptr(),
-        n, L, n_slots, _frag_vec(bt, hkv, hd, pool_blocks.dtype),
-    ], pool_blocks.device)
-    kv_scatter_read.launches += 1
+    with accounting.kernel("kv_scatter_read", scatter_read_cost(
+            n, L, n_slots, bt, hkv, hd, pool_blocks.element_size())):
+        k = torch.zeros((L, n_slots * bt, hkv, hd), dtype=pool_blocks.dtype,
+                        device=pool_blocks.device)
+        v = torch.zeros_like(k)
+        slots = _device_ids(slot_ids, pool_blocks.device)
+        if pool_blocks.device.type != "meta":
+            _launch("kv_scatter_read", [
+                pool_blocks.data_ptr(), k.data_ptr(), v.data_ptr(), slots.data_ptr(),
+                n, L, n_slots, _frag_vec(bt, hkv, hd, pool_blocks.dtype),
+            ], pool_blocks.device)
+            kv_scatter_read.launches += 1
     return k, v
 
 
 kv_scatter_read.launches = 0
+kv_scatter_read.cost = scatter_read_cost
 
 
 @dataclasses.dataclass(frozen=True)
@@ -204,6 +241,8 @@ def sparse_args(kv: torch.Tensor, ids: torch.Tensor, out: torch.Tensor) -> list 
     if max(kv.shape[0], n_sel) * row_units > INT32_MAX:  # the kernel's offsets are 32-bit
         raise ValueError(f"{max(kv.shape[0], n_sel)} rows of {row_units} units pass the "
                          f"kernel's 32-bit offsets ({INT32_MAX} units)")
+    if kv.device.type != "cuda":  # no meta stand-in: no Model cell reads the pool
+        raise ValueError("the CUDA kernel takes contiguous tensors on the card")
     _check_cuda(kv)
     if out.numel() == 0:
         return None
@@ -220,14 +259,18 @@ def sparse_kv_gather(
     is out of range (see the module's note). One launch; none for no ids."""
     if kv.dtype not in NAN_BITS:
         raise ValueError(f"sparse_kv_gather takes {tuple(NAN_BITS)}, got {kv.dtype}")
-    ids = _device_ids(token_ids, kv.device)
-    out = torch.empty((ids.numel(), *kv.shape[1:]), dtype=kv.dtype, device=kv.device)
-    args = sparse_args(kv, ids, out)
-    if args is None:
-        return out
-    _launch("sparse_kv_gather", args, kv.device)
-    sparse_kv_gather.launches += 1
+    n_sel = token_ids.numel() if isinstance(token_ids, torch.Tensor) else len(token_ids)
+    row_bytes = math.prod(kv.shape[1:]) * kv.element_size()
+    with accounting.kernel("sparse_kv_gather", sparse_gather_cost(n_sel, row_bytes)):
+        ids = _device_ids(token_ids, kv.device)
+        out = torch.empty((ids.numel(), *kv.shape[1:]), dtype=kv.dtype, device=kv.device)
+        args = sparse_args(kv, ids, out)
+        if args is None:
+            return out
+        _launch("sparse_kv_gather", args, kv.device)
+        sparse_kv_gather.launches += 1
     return out
 
 
 sparse_kv_gather.launches = 0
+sparse_kv_gather.cost = sparse_gather_cost

@@ -9,6 +9,18 @@
 
 There is no fallback: a kernel that fails to build or launch raises.
 
+A tensor on the ``meta`` device under "auto" or "kernel" takes the kernel
+route's structure: the same wrappers, ``FlashAttention`` and ``SsdChunk``
+under autograd, each wrapper's shape-only stand-in in place of its launch
+(``launch/op_analysis.py``'s dry run), so that a dry run and the card
+dispatch the same ops and a backward is recorded as ``flash_attention_bwd``
+or ``ssd_chunk_bwd``. It is no fallback either: a tensor on the card still
+launches the kernel, and one on the CPU still takes the plain version.
+
+``KERNELS[name].cost(**shapes)`` gives a call's (FLOPs, bytes): what the
+kernel must read and write and the products it computes (causal pairs
+only); ``chip_smoke.py``'s bounds and ``launch/roofline.py`` read it.
+
 Under autograd (grad enabled and q, k or v requiring grad) the kernel
 route of ``flash_attention`` goes through ``FlashAttention``, a
 ``torch.autograd.Function`` whose forward is the forward kernel with its
@@ -23,6 +35,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import accounting
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import kv_transfer as _kv
 from repro_torch.kernels import paged_attention as _pa
@@ -45,9 +58,9 @@ KERNELS = {
 def use_kernel(t: torch.Tensor, mode: str) -> bool:
     if mode not in MODES:
         raise ValueError(f"mode {mode!r} not in {MODES}")
-    if mode == "kernel" and t.device.type != "cuda":
+    if mode == "kernel" and t.device.type not in accounting.DEVICES:
         raise ValueError(f"mode='kernel' needs a tensor on the card, got {t.device}")
-    return mode == "kernel" or (mode == "auto" and t.device.type == "cuda")
+    return mode == "kernel" or (mode == "auto" and t.device.type in accounting.DEVICES)
 
 
 def launch_counts() -> dict[str, int]:
@@ -131,7 +144,10 @@ class SsdChunk(torch.autograd.Function):
 
 
 def flash_attention(q, k, v, *, causal: bool = True, mode: str = "auto"):
+    """The kernel takes contiguous q, k, v: a rank's slice of the kv heads
+    (``attention.kv_for_heads``) is copied into one first."""
     if use_kernel(q, mode):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         if _differentiated(q, k, v):
             return FlashAttention.apply(q, k, v, causal)
         return _fa.flash_attention(q, k, v, causal=causal)
@@ -186,8 +202,8 @@ def paged_attention(q, k_blocks, v_blocks, block_table, context_lens, *, mode: s
         raise ValueError("block_table must be an int32 tensor on q's device, built by "
                          "paged_attention.make_block_table")
     context_lens = context_lens.to(device=q.device, dtype=torch.int32)
-    if use_kernel(q, mode):
-        return _pa.paged_attention(q, k_blocks, v_blocks, block_table, context_lens,
+    if use_kernel(q, mode):  # q contiguous: one head a rank gathers as a strided view
+        return _pa.paged_attention(q.contiguous(), k_blocks, v_blocks, block_table, context_lens,
                                    return_lse=return_lse)
     return _ref.paged_attention_ref(q, k_blocks, v_blocks, block_table, context_lens,
                                     return_lse=return_lse)

@@ -49,6 +49,14 @@ With ``return_lse`` the kernel also stores each head's log-sum-exp of its
 scaled scores, (b, hq) f32 (-inf at context 0): a sequence sharded over
 ranks (the pool-interleaved decode, ``models/attention.py``) is attended
 shard by shard and the partials merged by it.
+
+On the ``meta`` device it allocates its outputs and launches nothing (a
+dry run's shape-only stand-in, ``launch/op_analysis.py``), and counts no
+launch. ``paged_attention.cost`` gives a call's (FLOPs, bytes) for the K/V
+rows it reads: a dry run has no contexts, so each launch tells
+``accounting.kernel`` the cost of its table's whole capacity (a full
+cache, which is what a decode cell reads); a measured call's bound passes
+its contexts.
 """
 
 from __future__ import annotations
@@ -59,7 +67,7 @@ import math
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
@@ -79,6 +87,17 @@ KV_NAMES = {torch.float32: "float32", torch.bfloat16: "bfloat16",
 HEAD_DIMS = (16, 32, 64, 80, 128)
 MAX_GROUP = 8
 MAX_SPLITS = 16  # the CTAs of one (row, kv head) form one thread-block cluster
+
+
+def cost(b: int, hq: int, hkv: int, d: int, tokens: int, q_bytes: int = 2,
+         kv_bytes: int | None = None, lse: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one call reading ``tokens`` K/V rows over its b rows
+    (the sum of their contexts): q.K^T and P.V, 4 d a row a q head; each K
+    and V row read once at ``kv_bytes`` an element (default q's), q read,
+    out (and the f32 log-sum-exp) written."""
+    kv_bytes = q_bytes if kv_bytes is None else kv_bytes
+    nbytes = 2 * tokens * hkv * d * kv_bytes + 2 * b * hq * d * q_bytes
+    return 4 * hq * tokens * d, nbytes + (4 * b * hq if lse else 0)
 
 
 def plan_splits(n_sms: int, ctas_per_sm: int, b: int, hkv: int, max_blocks: int,
@@ -203,7 +222,7 @@ def paged_attention(
     lse and the kernel stores none."""
     code = kind(q.dtype, k_blocks.dtype)
     for t in (q, k_blocks, v_blocks, block_table, context_lens):
-        if t.device != q.device or t.device.type != "cuda":
+        if t.device != q.device or t.device.type not in accounting.DEVICES:
             raise ValueError("paged_attention takes tensors on the card, all on one device")
     b, hq, d = q.shape
     n, bt, hkv, _ = k_blocks.shape
@@ -218,20 +237,30 @@ def paged_attention(
             or k_blocks.stride()[1:] != inner or v_blocks.stride() != k_blocks.stride()):
         raise ValueError("k/v blocks must share one dtype and one block stride, "
                          "each block contiguous; q contiguous")
-    item = k_blocks.element_size()
-    if (k_blocks.data_ptr() | v_blocks.data_ptr()) % 16 or k_blocks.stride(0) * item % 16:
-        raise ValueError("k/v blocks must be 16-byte aligned, as must the block stride")
-    if q.data_ptr() % 16:
-        raise ValueError("q must be 16-byte aligned")
     if (block_table.dtype != torch.int32 or block_table.dim() != 2
             or block_table.shape[0] != b or not block_table.is_contiguous()):
         raise ValueError(f"block table must be ({b}, max_blocks) int32, contiguous")
     if context_lens.dtype != torch.int32 or tuple(context_lens.shape) != (b,):
         raise ValueError(f"context_lens must be ({b},) int32")
-    out = torch.empty_like(q)
-    lse = torch.empty((b, hq), dtype=torch.float32, device=q.device) if return_lse else None
-    if b == 0:
-        return (out, lse) if return_lse else out
+    max_blocks = block_table.shape[1]
+    with accounting.kernel("paged_attention", cost(
+            b, hq, hkv, d, b * max_blocks * bt, q.element_size(), k_blocks.element_size(),
+            return_lse)):
+        out = torch.empty_like(q)
+        lse = torch.empty((b, hq), dtype=torch.float32, device=q.device) if return_lse else None
+        if b and q.device.type != "meta":
+            _launch(q, k_blocks, v_blocks, block_table, context_lens, out, lse, code)
+    return (out, lse) if return_lse else out
+
+
+def _launch(q, k_blocks, v_blocks, block_table, context_lens, out, lse, code: int) -> None:
+    b, hq, d = q.shape
+    _, bt, hkv, _ = k_blocks.shape
+    item = k_blocks.element_size()
+    if (k_blocks.data_ptr() | v_blocks.data_ptr()) % 16 or k_blocks.stride(0) * item % 16:
+        raise ValueError("k/v blocks must be 16-byte aligned, as must the block stride")
+    if q.data_ptr() % 16:
+        raise ValueError("q must be 16-byte aligned")
     max_blocks = block_table.shape[1]
     g = hq // hkv
     splits, _ = plan(q.device, q.dtype, d, g, b, hkv, max_blocks, k_blocks.dtype)
@@ -241,16 +270,15 @@ def paged_attention(
         rc = lib.paged_attention_fwd(
             q.data_ptr(), k_blocks.data_ptr(), v_blocks.data_ptr(), k_blocks.stride(0),
             block_table.data_ptr(), context_lens.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if return_lse else None, code, b, hq, hkv, d, bt, max_blocks, splits, 1.0 / math.sqrt(d), stream,
+            lse.data_ptr() if lse is not None else None, code, b, hq, hkv, d, bt, max_blocks,
+            splits, 1.0 / math.sqrt(d), stream,
         )
     if rc:
         raise RuntimeError(f"paged_attention launch failed: cudaError_t {rc}")
     paged_attention.launches += 1
     paged_attention.launches_by_kv[KV_NAMES[k_blocks.dtype]] += 1
-    if return_lse:
+    if lse is not None:
         paged_attention.launches_with_lse += 1
-        return out, lse
-    return out
 
 
 def reset_launch_counts() -> None:
@@ -260,3 +288,4 @@ def reset_launch_counts() -> None:
 
 
 reset_launch_counts()
+paged_attention.cost = cost

@@ -12,7 +12,9 @@ B and C come group-shaped, (nb, Lc, g, n) with head h reading group
 h // (nh // g), so the model never materialises the broadcast over heads;
 a head axis expanded with stride 0 is read as one group. Takes x and a_log
 in float32, B and C in float32 or bfloat16; Lc <= 256, n <= 128, hp <= 64.
-Raises outside that. Counts its launches in ``ssd_chunk.launches``.
+Raises outside that. Counts its launches in ``ssd_chunk.launches``. On the
+``meta`` device it allocates its outputs and launches nothing (a dry run's
+shape-only stand-in, ``launch/op_analysis.py``), and counts no launch.
 
 ``ssd_chunk_bwd`` wraps ``csrc/ssd_chunk_bwd.cu``, the gradient of the
 three outputs (y, the states, the prefix sums), which no Pallas kernel has
@@ -22,7 +24,14 @@ as split TF32 passes (bf16 C.B^T in one pass), G^T and the head block's dG^T
 kept in shared memory, then two small kernels that sum the CTAs' partials
 in a fixed order (``bwd_plan`` says which); no atomics, so two calls give
 the same bits. It counts its calls in ``ssd_chunk_bwd.launches`` (three
-kernels each).
+kernels each); on ``meta`` it allocates its outputs and scratch and
+launches nothing.
+
+``ssd_chunk.cost`` and ``ssd_chunk_bwd.cost`` give a call's (FLOPs,
+bytes): the products on causal pairs, each input read once and each output
+written once; ``forward_flops`` and ``backward_flops`` split the FLOPs by
+the rate they run at (B/C's type, f32 on the TF32 tensor cores). Each
+launch tells ``accounting.kernel`` its cost.
 """
 
 from __future__ import annotations
@@ -31,7 +40,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import accounting, build
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
@@ -48,6 +57,40 @@ BWD_SIGNATURES = {
 _BC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_LC, MAX_N, MAX_HP = 256, 128, 64
 TILE = 64  # rows of a row tile, columns of a column tile
+
+
+def forward_flops(nb: int, lc: int, nh: int, hp: int, g: int, n: int) -> tuple[int, int]:
+    """(FLOPs in B/C's type, f32 FLOPs) of one forward call on causal pairs:
+    C.B^T per group; P.x and B^T.(w x) per head."""
+    pairs = lc * (lc + 1) // 2
+    return nb * g * 2 * pairs * n, nb * nh * (2 * pairs * hp + 2 * lc * n * hp)
+
+
+def forward_cost(nb: int, lc: int, nh: int, hp: int, g: int, n: int, bc_bytes: int = 2,
+                 return_cum: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one forward call: x, a_log, B, C read; y, the
+    states (and cum) written, f32 but B and C."""
+    nbytes = (4 * (2 * nb * lc * nh * hp + (2 if return_cum else 1) * nb * lc * nh
+                   + nb * nh * n * hp) + 2 * bc_bytes * nb * lc * g * n)
+    return sum(forward_flops(nb, lc, nh, hp, g, n)), nbytes
+
+
+def backward_flops(nb: int, lc: int, nh: int, hp: int, g: int, n: int) -> tuple[int, int]:
+    """(FLOPs in B/C's type, f32 FLOPs) of one backward call on causal
+    pairs: per head dM = dy.x^T, M^T.dy, w dst^T B, w x dst^T; per group
+    G = C.B^T (B/C's type), dG^T.C and dG.B after the head sum (f32)."""
+    pairs = lc * (lc + 1) // 2
+    return (nb * g * 2 * pairs * n,
+            nb * nh * (4 * pairs * hp + 4 * lc * n * hp) + nb * g * 4 * pairs * n)
+
+
+def backward_cost(nb: int, lc: int, nh: int, hp: int, g: int, n: int, bc_bytes: int = 2,
+                  with_dcum: bool = False) -> tuple[int, int]:
+    """(FLOPs, bytes) of one backward call: x, dy, a_log, dst (and dcum), B,
+    C read; dx, da, dB, dC written."""
+    nbytes = (4 * (3 * nb * lc * nh * hp + nb * nh * n * hp
+                   + (3 if with_dcum else 2) * nb * lc * nh) + 4 * bc_bytes * nb * lc * g * n)
+    return sum(backward_flops(nb, lc, nh, hp, g, n)), nbytes
 
 
 def tile_schedule(lc: int) -> list[list[tuple[int, int]]]:
@@ -139,7 +182,7 @@ def _check_inputs(name, x, a_log, b_mat, c_mat):
             f"multiple of the groups; got Lc {lc}, n {n}, hp {hp}, nh {nh}, groups {g}"
         )
     for t in (x, a_log, b_mat, c_mat):
-        if t.device != x.device or t.device.type != "cuda":
+        if t.device != x.device or t.device.type not in accounting.DEVICES:
             raise ValueError(f"{name} takes tensors on the card, all on one device")
     if x.dtype != torch.float32 or a_log.dtype != torch.float32:
         raise ValueError(f"x and a_log must be float32, got {x.dtype}, {a_log.dtype}")
@@ -166,20 +209,24 @@ def ssd_chunk(
     nb, lc, nh, hp = x.shape
     b_mat, c_mat = _check_inputs("ssd_chunk", x, a_log, b_mat, c_mat)
     g, n = b_mat.shape[2], b_mat.shape[3]
-    y = torch.empty_like(x)
-    states = torch.empty((nb, nh, n, hp), dtype=torch.float32, device=x.device)
-    cum = torch.empty_like(a_log) if return_cum else None
-    lib = build.load("ssd_chunk", SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ssd_chunk_fwd(
-            x.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
-            y.data_ptr(), states.data_ptr(), cum.data_ptr() if return_cum else None,
-            _BC_DTYPES[b_mat.dtype], nb, lc, nh, hp, n, g, *b_mat.stride()[:3], stream,
-        )
-    if rc:
-        raise RuntimeError(f"ssd_chunk launch failed: cudaError_t {rc}")
-    ssd_chunk.launches += 1
+    with accounting.kernel("ssd_chunk", forward_cost(nb, lc, nh, hp, g, n,
+                                                     b_mat.element_size(), return_cum)):
+        y = torch.empty_like(x)
+        states = torch.empty((nb, nh, n, hp), dtype=torch.float32, device=x.device)
+        cum = torch.empty_like(a_log) if return_cum else None
+        if x.device.type != "meta":
+            lib = build.load("ssd_chunk", SIGNATURES)
+            with torch.cuda.device(x.device):
+                stream = torch.cuda.current_stream(x.device).cuda_stream
+                rc = lib.ssd_chunk_fwd(
+                    x.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+                    y.data_ptr(), states.data_ptr(), cum.data_ptr() if return_cum else None,
+                    _BC_DTYPES[b_mat.dtype], nb, lc, nh, hp, n, g, *b_mat.stride()[:3],
+                    stream,
+                )
+            if rc:
+                raise RuntimeError(f"ssd_chunk launch failed: cudaError_t {rc}")
+            ssd_chunk.launches += 1
     return (y, states, cum) if return_cum else (y, states)
 
 
@@ -212,25 +259,31 @@ def ssd_chunk_bwd(
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
     plan = bwd_plan(nb, lc, nh, g)
     f32 = {"dtype": torch.float32, "device": x.device}
-    scratch = {k: torch.empty(shape, **f32) for k, shape in plan["scratch"].items()}
-    dx, da = torch.empty_like(x), torch.empty_like(a_log)
-    db = torch.empty((nb, lc, g, n), dtype=b_mat.dtype, device=x.device)
-    dc = torch.empty_like(db)
-    lib = build.load("ssd_chunk_bwd", BWD_SIGNATURES)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.ssd_chunk_bwd(
-            x.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(), dy.data_ptr(),
-            dst.data_ptr(), None if dcum is None else dcum.data_ptr(), dx.data_ptr(),
-            da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-            *(scratch[k].data_ptr() for k in ("dbpart", "dcpart", "rowpart", "usum")),
-            _BC_DTYPES[b_mat.dtype], nb, lc, nh, hp, n, g, plan["head_block"],
-            *b_mat.stride()[:3], stream,
-        )
-    if rc:
-        raise RuntimeError(f"ssd_chunk_bwd launch failed: cudaError_t {rc}")
-    ssd_chunk_bwd.launches += 1
+    with accounting.kernel("ssd_chunk_bwd", backward_cost(nb, lc, nh, hp, g, n,
+                                                         b_mat.element_size(),
+                                                         dcum is not None)):
+        scratch = {k: torch.empty(shape, **f32) for k, shape in plan["scratch"].items()}
+        dx, da = torch.empty_like(x), torch.empty_like(a_log)
+        db = torch.empty((nb, lc, g, n), dtype=b_mat.dtype, device=x.device)
+        dc = torch.empty_like(db)
+        if x.device.type != "meta":
+            lib = build.load("ssd_chunk_bwd", BWD_SIGNATURES)
+            with torch.cuda.device(x.device):
+                stream = torch.cuda.current_stream(x.device).cuda_stream
+                rc = lib.ssd_chunk_bwd(
+                    x.data_ptr(), a_log.data_ptr(), b_mat.data_ptr(), c_mat.data_ptr(),
+                    dy.data_ptr(), dst.data_ptr(), None if dcum is None else dcum.data_ptr(),
+                    dx.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+                    *(scratch[k].data_ptr() for k in ("dbpart", "dcpart", "rowpart", "usum")),
+                    _BC_DTYPES[b_mat.dtype], nb, lc, nh, hp, n, g, plan["head_block"],
+                    *b_mat.stride()[:3], stream,
+                )
+            if rc:
+                raise RuntimeError(f"ssd_chunk_bwd launch failed: cudaError_t {rc}")
+            ssd_chunk_bwd.launches += 1
     return dx, da, db, dc
 
 
 ssd_chunk_bwd.launches = 0
+ssd_chunk.cost = forward_cost
+ssd_chunk_bwd.cost = backward_cost

@@ -15,6 +15,14 @@ coordinates (all 0, or those given) but no groups, which is all that
 
 The production and debug meshes keep JAX's shapes and axis names; the
 world must already be initialised with as many ranks.
+
+The card's constants price a cell (``launch/roofline.py``) and every
+kernel's bound (``chip_smoke.py``, the experiments): one NVIDIA H100 SXM
+from NVIDIA's data sheet, dense rates without sparsity, where JAX's
+``mesh.py`` has a TPU's. ``COLLECTIVE_BW`` is MODELED: one NDR 400 Gb/s
+InfiniBand port a GPU, as in a DGX H100. The production ``model`` axis of
+16 spans two 8-GPU NVLink domains, so every collective of the 16x16 and
+2x16x16 meshes crosses that fabric; one card cannot measure it.
 """
 
 from __future__ import annotations
@@ -22,6 +30,13 @@ from __future__ import annotations
 import itertools
 import math
 from datetime import timedelta
+
+PEAK_FLOPS_BF16 = 989e12  # dense tensor-core bf16 (and fp16), per GPU
+PEAK_FLOPS_TF32 = 495e12  # dense tensor-core TF32
+PEAK_FLOPS_F32 = 67e12  # float32 outside the tensor cores
+HBM_BW = 3.35e12  # bytes/s per GPU
+HBM_PER_CHIP = 80e9  # the data sheet's 80 GB
+COLLECTIVE_BW = 50e9  # bytes/s per GPU: one NDR 400 Gb/s port (MODELED)
 
 PRODUCTION = {False: ((16, 16), ("data", "model")),
               True: ((2, 16, 16), ("pod", "data", "model"))}

@@ -202,10 +202,14 @@ class Model:
         return t[self.mesh.axis_index(axes) * n:][:n]
 
     def mesh_context(self, b: int):
-        """The ``transformer.MeshContext`` of a pass over a global batch of b rows."""
-        kv_seq = self.rules.spec(self.kv_axes())[1]
+        """The ``transformer.MeshContext`` of a pass over a global batch of b
+        rows. A batch every rank holds leaves its mesh axes to the cache's
+        sequence, as ``init_cache`` lays the cache out."""
+        batch_axes = self._batch_axes(b)
+        kv_b, kv_s = self.kv_axes()
+        kv_seq = self.rules.spec((kv_b if batch_axes else None, kv_s))[1]
         layer_specs = {k: tree_map(lambda sp: sp[1:], v) for k, v in self._pspecs["stack"].items()}
-        return stack_lib.MeshContext(self.rules, layer_specs, self._batch_axes(b),
+        return stack_lib.MeshContext(self.rules, layer_specs, batch_axes,
                                      self.mesh.axes(kv_seq))
 
     @property

@@ -29,7 +29,6 @@ k) order, and the output is cast to ``x``'s dtype.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.distributed import collectives as coll
@@ -37,6 +36,15 @@ from repro_torch.distributed.sharding import ParamSpec
 from repro_torch.models.layers import act_fn, mlp_apply, mlp_param_specs
 
 DISPATCHES = ("einsum", "ragged", "a2a")
+
+
+def one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot``'s int64 result for ids in [0, n), zero rows elsewhere
+    (``jax.nn.one_hot``'s), dispatched as the same ops on every device:
+    ``F.one_hot`` checks its ids on the host on the CPU, scatters on the
+    card and compares on ``meta``, so a dry run would count other ops than
+    the card runs."""
+    return (idx[..., None] == torch.arange(n, device=idx.device)).long()
 
 
 def moe_param_specs(cfg: ModelConfig, dtype: torch.dtype) -> dict:
@@ -133,7 +141,7 @@ def _einsum_dispatch(p, xt, top_w, top_e, cfg):
     cap = capacity(t, cfg)
 
     # position of each (token, k) within its expert's capacity
-    onehot = F.one_hot(top_e, e)  # (t, k, e)
+    onehot = one_hot(top_e, e)  # (t, k, e)
     pos_in_e = (onehot.reshape(t * k, e).cumsum(0) - 1).reshape(t, k, e)
     pos = (pos_in_e * onehot).sum(-1)  # (t, k)
     keep = pos < cap
@@ -141,7 +149,7 @@ def _einsum_dispatch(p, xt, top_w, top_e, cfg):
 
     # jax.nn.one_hot gives a zero row where pos >= cap; F.one_hot raises
     e_hot = onehot.float()
-    c_hot = F.one_hot(torch.where(keep, pos, 0), cap).float() * keep[..., None]
+    c_hot = one_hot(torch.where(keep, pos, 0), cap).float() * keep[..., None]
     disp = torch.einsum("tke,tkc->tec", e_hot * keep[..., None], c_hot)
     comb = torch.einsum("tke,tkc->tec", e_hot * w[..., None], c_hot)
 
@@ -161,7 +169,7 @@ def _ragged_dispatch(p, xt, top_w, top_e, cfg):
 
     flat_e = top_e.reshape(-1)  # (t*k,)
     flat_tok = torch.arange(t, device=xt.device).repeat_interleave(k)
-    onehot = F.one_hot(flat_e, e)  # (t*k, e)
+    onehot = one_hot(flat_e, e)  # (t*k, e)
     pos = ((onehot.cumsum(0) - 1) * onehot).sum(-1)  # (t*k,)
     keep = pos < cap
     pos = torch.where(keep, pos, cap - 1)
@@ -231,7 +239,7 @@ def _local_experts(p, xt, top_w, top_e, cfg, rules, batch_axes, einsum: bool):
     all_e = coll.all_gather(top_e, 0, mesh, batch_axes)  # (t, k), global token order
     t = all_e.shape[0]
     cap = capacity(t, cfg)
-    onehot = F.one_hot(all_e.reshape(-1), e)  # (t*k, e)
+    onehot = one_hot(all_e.reshape(-1), e)  # (t*k, e)
     pos = ((onehot.cumsum(0) - 1) * onehot).sum(-1).reshape(t, k)
     first = mesh.axis_index(batch_axes) * t_loc if batch_axes else 0
     pos = pos[first: first + t_loc]  # this rank's tokens
@@ -242,10 +250,10 @@ def _local_experts(p, xt, top_w, top_e, cfg, rules, batch_axes, einsum: bool):
     le = (top_e - e0).clamp(0, e_loc - 1)
     w = torch.where(local, top_w, 0.0)
     if einsum:
-        e_hot = F.one_hot(le, e_loc).float() * local[..., None]
-        c_hot = F.one_hot(torch.where(local, pos, 0), cap).float() * local[..., None]
+        e_hot = one_hot(le, e_loc).float() * local[..., None]
+        c_hot = one_hot(torch.where(local, pos, 0), cap).float() * local[..., None]
         disp = torch.einsum("tke,tkc->tec", e_hot, c_hot)
-        comb = torch.einsum("tke,tkc->tec", F.one_hot(le, e_loc).float() * w[..., None], c_hot)
+        comb = torch.einsum("tke,tkc->tec", one_hot(le, e_loc).float() * w[..., None], c_hot)
         xin = torch.einsum("tec,td->ecd", disp.to(xt.dtype), xt)
         eo = _experts(p, xin, cfg)
         part = torch.einsum("tec,ecd->td", comb.to(eo.dtype).float(), eo.float())
@@ -299,7 +307,7 @@ def _a2a_dispatch(p, x, router, cfg, rules, batch_axes):
     flat_e, flat_w = top_e.reshape(-1), top_w.reshape(-1)
     flat_tok = torch.arange(tl, device=x.device).repeat_interleave(k)
     dest, leid = flat_e // e_loc, flat_e % e_loc
-    onehot_d = F.one_hot(dest, tp)
+    onehot_d = one_hot(dest, tp)
     pos = ((onehot_d.cumsum(0) - 1) * onehot_d).sum(-1)
     keep = pos < cap_pair
     pos = torch.where(keep, pos, cap_pair - 1)
@@ -318,7 +326,7 @@ def _a2a_dispatch(p, x, router, cfg, rules, batch_axes):
     valid = rows_e < e_loc
 
     # pack the rows by local expert
-    onehot_e = F.one_hot(torch.where(valid, rows_e, e_loc), e_loc + 1)[:, :e_loc]
+    onehot_e = one_hot(torch.where(valid, rows_e, e_loc), e_loc + 1)[:, :e_loc]
     pos_e = ((onehot_e.cumsum(0) - 1) * onehot_e).sum(-1)
     keep_e = valid & (pos_e < cap_e)
     pos_e = torch.where(keep_e, pos_e, cap_e - 1)
