@@ -317,6 +317,18 @@ Phases, each a hard check (any failure exits non-zero):
    one (``dryrun.model_flops`` + ``attn_model_flops``,
    ``roofline.useful_bytes``); ``torch.cuda.max_memory_allocated()`` of the
    call against the analyzer's peak of live bytes within ROOFLINE_PEAK_RATIO.
+18. the cluster simulator, on the card's host (``serving/scheduler.py``,
+   ``kvcache/``; nothing launched): the exp05 twin at the paper's own size,
+   256 closed-loop clients, 16 engines, 15,000-token prompts, a pool of
+   262,144 Qwen3-32B blocks (payload-free, on ``meta``), for vllm / rdma /
+   beluga, each a populate then a cache-hit phase. Fails unless every
+   request finishes, every pool block's refcount is back to what the index
+   owns (and every HBM slot is free), each summary number equals
+   ``exp05_e2e.PINNED`` (the JAX package's numbers at this size, held by
+   ``tests/test_torch_cluster.py``: integers exactly, times within 1e-12
+   relative), and beluga's cache-hit TTFT is below rdma's. Prints the
+   MODELED Table 5 rows and the phase's wall seconds, beside no card's
+   name: the simulator runs where no JAX exists.
 
 Prints the kernel table as one JSON line (the e4m3 paged instantiation as
 a row of its own, ``paged_attention_e4m3``, and the attention backward as
@@ -3780,6 +3792,38 @@ def phase_mesh_train(phase13_losses: list) -> dict:
     return launches
 
 
+def phase_cluster() -> None:
+    """Phase 18: the port's exp05 twin (Table 5) at the paper's size on the
+    host, each mode's cluster checked and dropped before the next."""
+    from repro_torch.experiments import exp05_e2e as exp05
+    from repro_torch.serving.scheduler import refcounts_settled
+
+    t0 = time.perf_counter()
+    res = {}
+    for name, _, _ in exp05.MODES:
+        s1, s2, c = exp05.run_mode(name)
+        check(len(c.requests) == 512 and all(r.state == "done" for r in c.requests),
+              f"exp05 {name}: all 512 requests of both phases finished")
+        check(refcounts_settled(c.pool, c.index)
+              and all(e.manager.hbm.free_slots() == e.manager.hbm.n_slots for e in c.engines),
+              f"exp05 {name}: every pool refcount is what the index owns "
+              f"({c.index.stats()['entries']} entries, {c.pool.free_blocks()} blocks free), "
+              "every HBM slot free")
+        bad = exp05.pinned_mismatches(name, s1, s2)
+        check(not bad, f"exp05 {name}: every summary number equals the pinned reference "
+                       "(integers exactly, times within 1e-12 relative)" + (f": {bad[:4]}" if bad else ""))
+        res[name] = (s1, s2)
+        del c
+    hit = {name: res[name][1]["avg_ttft_s"] for name in res}
+    check(hit["beluga"] < hit["rdma"],
+          f"beluga's cache-hit TTFT {hit['beluga']!r} s below rdma's {hit['rdma']!r} s (MODELED)")
+    print("  " + exp05.MODELED_NOTE)
+    for row in exp05.rows_of(res):
+        print("  " + ",".join(row))
+    print(f"  phase 18 in {time.perf_counter() - t0:.1f} s of wall time on the host "
+          "(the rows above are MODELED; no device)", flush=True)
+
+
 def phase_roofline(seed: int = 0) -> dict:
     """The launch tooling held against the card (module docstring, phase
     17), the card's arguments drawn from ``seed``; returns the kernel
@@ -3992,6 +4036,9 @@ def main() -> None:
     t17 = time.perf_counter()
     roofline_launches = phase_roofline()
     print(f"  phase 17 in {time.perf_counter() - t17:.1f} s")
+    print("[18] the cluster simulator, on the card's host: exp05 (Table 5) at 256 clients, "
+          "16 engines, 262,144 pool blocks", flush=True)
+    phase_cluster()
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
              "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches,
              "qwen3_fp8": qwen3_fp8_launches, "internvl2": internvl_launches,

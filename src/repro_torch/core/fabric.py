@@ -1,5 +1,6 @@
 """The paper's CXL / RDMA fabric cost model: the port's copy of what the
-exp09 and exp10 twins read from ``repro/core/fabric.py``.
+exp09 and exp10 twins and the cluster simulator read from
+``repro/core/fabric.py``.
 
 Pure Python. Every constant has the value of the reference's field of the
 same name in lower case (``FabricConstants`` at ``fabric.py:31``, traced
@@ -29,6 +30,9 @@ RDMA_BASE_LATENCY = 3.2 * US  # one-sided verb, QD=1 small msg
 RDMA_BW = 50.0 * GB  # 400 Gbps NIC
 RDMA_REQUEST_OVERHEAD = 1.0 * US  # WQE prep + doorbell + CQ poll
 RDMA_SGL_MAX = 30  # ConnectX-7 sglist entries (§6.1)
+# CPU-side allocation + staging per (super-)block transfer in the
+# MoonCake/LMCache path, calibrated to Fig. 13c's block-size sweep
+RDMA_SW_PER_SUPERBLOCK = 25.0 * US * 1000
 BOUNCE_COPY_BW = 40.0 * GB  # GPU->host bounce buffer copy
 HOST_SYNC_OVERHEAD = 8.0 * US  # CPU<->GPU coordination (§3.2)
 

@@ -9,12 +9,18 @@ rules:
     present entries' (block_id, epoch) against the pool, returns the valid
     prefix, refreshes it to most recently used, and drops the first stale
     entry it met;
+  * ``match_prefix_keys`` does the same over a chain hashed once by the
+    caller (``keys_for``, which remembers the last requests' chains);
+  * ``filter_unpublished`` gives the positions of a chain with no valid
+    entry: the blocks a writeback still has to write;
   * ``publish_many`` keeps the last occurrence of a key repeated in one
     batch; fresh keys join the most-recently-used end in batch order, a
     re-published key keeps its place;
   * ``evict_lru`` frees, least recently used first, only blocks the index
     still owns (refcount 1, committed, epoch current) and drops stale
-    entries without releasing their blocks a second time.
+    entries without releasing their blocks a second time;
+  * ``stats`` counts a hit per matched block and a miss per key of the
+    chain past the match, as the reference's ``GlobalIndex.stats``.
 
 The reference's flat arrays and array-linked LRU with timestamps are its
 answer to lock contention across threads; the port's engine is
@@ -34,6 +40,7 @@ import numpy as np
 from repro_torch.core.pool import KVBlockPool
 
 ROOT = b"ROOT"
+_REQUEST_MEMO_MAX = 256  # chains remembered by keys_for, as the reference's
 
 
 def _hash_link(parent: bytes, token_bytes: bytes) -> bytes:
@@ -64,16 +71,29 @@ class PrefixIndex:
         self.pool = pool
         self.block_tokens = pool.layout.block_tokens
         self._entries: OrderedDict[bytes, PrefixEntry] = OrderedDict()
+        # token tuple -> chain: a request seen again (the cluster hashes a
+        # prompt at admission and at every routing probe) is hashed once
+        self._memo: OrderedDict[tuple[int, ...], tuple[bytes, ...]] = OrderedDict()
         self.hits = 0
         self.misses = 0
 
     def keys_for(self, tokens: list[int]) -> tuple[bytes, ...]:
-        return chain_keys(tokens, self.block_tokens)
+        sig = tuple(tokens)
+        keys = self._memo.get(sig)
+        if keys is None:
+            keys = chain_keys(tokens, self.block_tokens)
+            self._memo[sig] = keys
+            if len(self._memo) > _REQUEST_MEMO_MAX:
+                self._memo.popitem(last=False)
+        return keys
 
     # ------------------------------------------------------------------
     def match_prefix(self, tokens: list[int]) -> list[tuple[bytes, int, int]]:
         """Longest cached prefix: [(key, block_id, epoch)] with valid epochs."""
-        keys = self.keys_for(tokens)
+        return self.match_prefix_keys(self.keys_for(tokens))
+
+    def match_prefix_keys(self, keys) -> list[tuple[bytes, int, int]]:
+        """``match_prefix`` over a chain the caller has already hashed."""
         present: list[PrefixEntry] = []
         for k in keys:
             e = self._entries.get(k)
@@ -95,6 +115,21 @@ class PrefixIndex:
         self.misses += len(keys) - len(out)
         return out
 
+    def filter_unpublished(self, keys) -> list[int]:
+        """Positions in ``keys`` with no valid (committed, current-epoch)
+        entry: the blocks a writeback still has to write."""
+        ok = np.zeros(len(keys), bool)
+        pos, ids, eps = [], [], []
+        for i, k in enumerate(keys):
+            e = self._entries.get(k)
+            if e is not None:
+                pos.append(i)
+                ids.append(e.block_id)
+                eps.append(e.epoch)
+        if pos:
+            ok[pos] = self.pool.validate_epochs(ids, eps)
+        return np.nonzero(~ok)[0].tolist()
+
     def publish_many(
         self, keys: list[bytes], block_ids: list[int], epochs: list[int], n_tokens: int
     ) -> None:
@@ -106,6 +141,10 @@ class PrefixIndex:
                 self._entries[k] = PrefixEntry(block_ids[i], epochs[i], n_tokens)
             else:
                 e.block_id, e.epoch, e.n_tokens = block_ids[i], epochs[i], n_tokens
+
+    def entries(self) -> list[PrefixEntry]:
+        """Copies of every entry, least recently used first."""
+        return [dataclasses.replace(e) for e in self._entries.values()]
 
     def lookup(self, key: bytes) -> PrefixEntry | None:
         e = self._entries.get(key)

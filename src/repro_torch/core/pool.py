@@ -1,15 +1,26 @@
 """KVBlockPool: the interleaved KV block pool, with its payload on the card.
 
-Twin of ``repro.core.pool.BelugaPool`` for the serving path: the same
-allocator (one free stack per shard, allocation round-robin over the
-fullest shards first, block ``b`` on shard ``b % n_shards``), the same
+Twin of ``repro.core.pool.BelugaPool``: the same allocator, the same
 per-block epochs, refcounts and committed flags, and the same batched
-``write_blocks`` publish. The payload is one device tensor of shape
-``(n_blocks, 2L, block_tokens, hkv, hd)``: every layer's K and V fragments
-of a block, interleaved ``[k0, v0, k1, v1, ...]`` — the layout that
-``kv_gather_write`` packs and ``kv_scatter_read`` unpacks.
+``write_blocks`` publish.
 
-The port's engine is single-threaded, so the pool takes no lock.
+Block ``b`` lives on shard ``b % n_shards``, one free stack per shard, and
+an allocation goes round-robin over the fullest shards first, ties to the
+shard whose oldest free block has been free longest; when that order runs
+dry it sweeps what is left by shard. The reference's non-interleaved FIFO
+(``interleave=False``) is not ported: nothing in the port runs it
+(``ROADMAP.md`` queue 1 item 7c).
+
+The payload is one tensor of shape ``(n_blocks, 2L, block_tokens, hkv,
+hd)``: every layer's K and V fragments of a block, interleaved ``[k0, v0,
+k1, v1, ...]`` — the layout that ``kv_gather_write`` packs and
+``kv_scatter_read`` unpacks. On ``torch.device("meta")`` it holds no bytes:
+the twin of the reference's ``backing="meta"``, where the allocator, the
+epochs and the index run for real at the paper's pool size (the cluster
+simulator's 262,144 Qwen3-32B blocks, 640 GiB of KV) and no payload is
+stored (``payload_free``).
+
+The port's engines are single-threaded, so the pool takes no lock.
 """
 
 from __future__ import annotations
@@ -27,19 +38,44 @@ class KVBlockLayout:
     """Shape of one pool block for a model config."""
 
     block_tokens: int
-    n_layers_kv: int
+    n_layers_kv: int  # attention layers
     n_kv_heads: int
     head_dim: int
+    dtype_bytes: int = 2
 
     @property
     def block_shape(self) -> tuple[int, int, int, int]:
         """(2L fragments [k0, v0, k1, v1, ...], tokens, kv heads, head_dim)."""
         return (2 * self.n_layers_kv, self.block_tokens, self.n_kv_heads, self.head_dim)
 
+    @property
+    def fragment_bytes(self) -> int:
+        """One (layer, k|v) fragment of a block: the paper's 20 KB unit."""
+        return self.block_tokens * self.n_kv_heads * self.head_dim * self.dtype_bytes
+
+    @property
+    def n_fragments(self) -> int:
+        """Fragments per block: 2 * n_layers (Qwen3-32B: 128)."""
+        return 2 * self.n_layers_kv
+
+    @property
+    def block_bytes(self) -> int:
+        return self.n_fragments * self.fragment_bytes
+
+    @property
+    def token_bytes(self) -> int:
+        return self.block_bytes // self.block_tokens
+
     @classmethod
-    def for_model(cls, cfg: ModelConfig, block_tokens: int) -> "KVBlockLayout":
-        """For an attention stack: every layer holds KV."""
-        return cls(block_tokens, cfg.n_layers, cfg.n_kv_heads, cfg.head_dim)
+    def for_model(cls, cfg: ModelConfig, block_tokens: int = 16) -> "KVBlockLayout":
+        """The attention layers' KV (an attention stack: every layer), as the
+        reference's ``PoolLayout.for_model`` counts it (``pool.py:72``)."""
+        return cls(
+            block_tokens=block_tokens,
+            n_layers_kv=max(1, len(cfg.attn_layer_ids())),
+            n_kv_heads=max(1, cfg.n_kv_heads),
+            head_dim=max(1, cfg.head_dim),
+        )
 
 
 class PoolExhausted(RuntimeError):
@@ -47,13 +83,19 @@ class PoolExhausted(RuntimeError):
 
 
 N_SHARDS = 8  # as the JAX RealEngine's pool
+PAYLOAD_DTYPES = {1: torch.uint8, 2: torch.bfloat16, 4: torch.float32}
 
 
 class KVBlockPool:
-    """Block allocator + bf16 device payload over interleaved shards."""
+    """Block allocator + device payload over interleaved shards."""
 
-    def __init__(self, layout: KVBlockLayout, n_blocks: int, device: torch.device):
-        n_shards = N_SHARDS
+    def __init__(
+        self,
+        layout: KVBlockLayout,
+        n_blocks: int,
+        device: str | torch.device,
+        n_shards: int = N_SHARDS,
+    ):
         if n_blocks % n_shards:
             raise ValueError(f"n_blocks={n_blocks} is not a multiple of {n_shards} shards")
         self.layout = layout
@@ -72,8 +114,14 @@ class KVBlockPool:
         self._n_free = n_blocks
         self._occ = [0] * n_shards
         self.data = torch.zeros(
-            (n_blocks, *layout.block_shape), dtype=torch.bfloat16, device=device
+            (n_blocks, *layout.block_shape), dtype=PAYLOAD_DTYPES[layout.dtype_bytes],
+            device=device,
         )
+
+    @property
+    def payload_free(self) -> bool:
+        """The payload lies on ``meta``: metadata only, no bytes."""
+        return self.data.device.type == "meta"
 
     # ------------------------------------------------------------------
     def free_blocks(self) -> int:
@@ -120,6 +168,14 @@ class KVBlockPool:
         self.refcounts[ids] = 1
         self.committed[ids] = False
         return out
+
+    def retain(self, block_ids: list[int]) -> None:
+        if not len(block_ids):
+            return
+        ids = np.asarray(block_ids, np.intp)
+        if not (self.refcounts[ids] > 0).all():
+            raise ValueError("retain of a free block")
+        np.add.at(self.refcounts, ids, 1)
 
     def release(self, block_ids: list[int]) -> None:
         if not len(block_ids):

@@ -1,37 +1,141 @@
 """Modeled cost of the pool's transfers: the accounting of
-``repro/core/transfer.py``'s ``TransferEngine`` as plain functions over a
-block layout.
+``repro/core/transfer.py``'s ``TransferEngine``.
 
 ``mode`` is ``"beluga"`` (one fused copy kernel per batch of blocks, the
 paper's §6.1) or ``"rdma"`` (MoonCake's bounce buffer and sglist-limited
-requests, optionally batched into LMCache-style super-blocks). Each
-function returns what the reference adds to ``modeled_*_s`` and
-``requests_issued``; the bytes themselves move elsewhere, through the
-port's device pool (``core/pool.py``) and its kernels. Sizes follow the
-reference's ``PoolLayout``: the port's ``KVBlockLayout`` plus the bytes of
-one element (2 for bf16, 1 for fp8). Every time here is MODELED by
-``core/fabric.py``.
+requests, optionally batched into LMCache-style super-blocks).
+
+* ``PoolTransfer`` is the engine's twin over a ``KVBlockPool``:
+  ``gather_write`` publishes blocks (storing their payload, unless the pool
+  is payload-free) and ``scatter_read`` reads them back after checking
+  their epochs, raising ``StaleBlockError`` where the reference raises its
+  coherence error. Both add to ``stats`` what the reference adds, priced by
+  ``block_transfer_cost``. ``fetch_latency`` and ``writeback_latency`` are
+  what the cluster simulator charges a request for its hit prefix and its
+  fresh blocks (the reference's ``KVCacheManager._fetch_latency`` and
+  ``EngineInstance._writeback_latency``): every price of a pool transfer
+  is in this module.
+* The plain functions below it price whole blocks and sparse reads for a
+  layout and a dtype (the exp09 and exp10 twins call them too; there the
+  bytes move through the port's kernels). ``rdma_batching`` is the
+  reference's ``TransferEngine._rdma_batching``.
+
+Every time here is MODELED by ``core/fabric.py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
 
 from repro_torch.core import fabric
-from repro_torch.core.pool import KVBlockLayout
+from repro_torch.core.pool import KVBlockLayout, KVBlockPool
 
 
-def fragment_bytes(layout: KVBlockLayout, dtype_bytes: int = 2) -> int:
-    """One (layer, k|v) fragment of a block: the paper's 20 KB unit."""
-    return layout.block_tokens * layout.n_kv_heads * layout.head_dim * dtype_bytes
+class StaleBlockError(RuntimeError):
+    """A read found a block whose epoch moved on: recycled or rewritten."""
+
+
+@dataclass
+class PoolTransferStats:
+    writes: int = 0
+    reads: int = 0
+    bytes_written: int = 0
+    bytes_read: int = 0
+    modeled_write_s: float = 0.0
+    modeled_read_s: float = 0.0
+    requests_issued: int = 0  # RDMA request count / kernel launches
+
+
+@dataclass
+class PoolTransfer:
+    pool: KVBlockPool
+    mode: str = "beluga"  # beluga | rdma
+    super_block_tokens: int = 0  # rdma batching (LMCache: 256); 0 = native
+    stats: PoolTransferStats = field(default_factory=PoolTransferStats)
+
+    def _price(self, n: int) -> float:
+        """Modeled seconds of moving n whole blocks; counts the requests."""
+        lay = self.pool.layout
+        t, n_req = block_transfer_cost(lay, n, self.mode, lay.dtype_bytes,
+                                       self.super_block_tokens)
+        self.stats.requests_issued += n_req
+        return t
+
+    def fetch_latency(self, n: int) -> float:
+        """Modeled seconds of fetching a request's n hit blocks
+        (``manager.py:136``). RDMA moves every fragment unbatched and pays
+        the LMCache-style staging (allocation and CPU copies) once per
+        super-block; ``stats`` is not touched."""
+        lay = self.pool.layout
+        size = n * lay.block_bytes
+        if self.mode == "beluga":
+            return fabric.gpu_transfer_latency(size)
+        t = fabric.rdma_transfer_latency(size, n * lay.n_fragments)
+        sbt = max(self.super_block_tokens, lay.block_tokens)
+        n_super = math.ceil(n * lay.block_tokens / sbt)
+        return t + n_super * fabric.RDMA_SW_PER_SUPERBLOCK
+
+    def writeback_latency(self, n: int) -> float:
+        """Modeled seconds a prefill waits on writing n fresh blocks back
+        (``engine.py:151``): RDMA pays the CPU-driven path synchronously;
+        beluga's fused kernel runs in-stream, ~70 % overlapped with
+        compute. ``stats`` is not touched."""
+        lay = self.pool.layout
+        size = n * lay.block_bytes
+        if self.mode == "rdma":
+            return fabric.rdma_transfer_latency(size, n * lay.n_fragments)
+        return 0.3 * fabric.gpu_transfer_latency(size)
+
+    def gather_write(self, block_ids: list[int], kv_blocks: torch.Tensor | None) -> list[int]:
+        """kv_blocks: (n_blocks, 2L, block_tokens, hkv, hd), or None on a
+        payload-free pool. Returns the publish epochs."""
+        n = len(block_ids)
+        self.stats.modeled_write_s += self._price(n)
+        if not self.pool.payload_free:
+            self.pool.data[torch.as_tensor(block_ids, dtype=torch.long)] = kv_blocks.to(
+                self.pool.data.device, self.pool.data.dtype)
+        epochs = self.pool.write_blocks(block_ids)
+        self.stats.writes += n
+        self.stats.bytes_written += n * self.pool.layout.block_bytes
+        return epochs
+
+    def scatter_read(self, block_ids: list[int], epochs: list[int] | None = None):
+        """Returns (n_blocks, 2L, block_tokens, hkv, hd) (on ``meta`` for a
+        payload-free pool). With ``epochs``, a block that is no longer
+        committed at that epoch (payload-free) or whose epoch moved
+        (payload) raises ``StaleBlockError``, as the reference checks."""
+        n = len(block_ids)
+        self.stats.modeled_read_s += self._price(n)
+        if epochs is not None:
+            if self.pool.payload_free:
+                ok = self.pool.validate_epochs(block_ids, epochs)
+            else:
+                ok = self.pool.epochs[np.asarray(block_ids, np.intp)] == np.asarray(epochs)
+            if not ok.all():
+                bad = block_ids[int(np.argmin(ok))]
+                raise StaleBlockError(f"block {bad} epoch changed during read")
+        data = self.pool.data
+        if self.pool.payload_free:
+            out = data.new_empty((n, *data.shape[1:]))
+        else:
+            out = data[torch.as_tensor(block_ids, dtype=torch.long)]
+        self.stats.reads += n
+        self.stats.bytes_read += n * self.pool.layout.block_bytes
+        return out
 
 
 def n_fragments(layout: KVBlockLayout) -> int:
-    return 2 * layout.n_layers_kv
+    return layout.n_fragments
 
 
 def block_bytes(layout: KVBlockLayout, dtype_bytes: int = 2) -> int:
-    return n_fragments(layout) * fragment_bytes(layout, dtype_bytes)
+    """A block's bytes at ``dtype_bytes`` an element (2 bf16, 1 fp8)."""
+    return dataclasses.replace(layout, dtype_bytes=dtype_bytes).block_bytes
 
 
 def rdma_batching(layout: KVBlockLayout, n_blocks: int, super_block_tokens: int = 0) -> int:

@@ -1,0 +1,166 @@
+"""Two-tier KVCache manager: HBM paged cache <-> KV block pool (paper §6).
+
+Twin of ``repro/kvcache/manager.py``, one per engine instance:
+
+  new request  -> PrefixIndex.match_prefix_keys
+               -> hit blocks: scatter-read pool -> HBM slots (PoolTransfer)
+               -> miss tokens: prefill computes them -> gather-write to pool
+               -> publish (key, block, epoch) in the index
+  decode       -> paged attention over HBM slots
+  eviction     -> HBM slots recycled per sequence; pool blocks LRU-evicted
+                  by the index when the pool fills
+
+Straggler mitigation (fetch-vs-recompute cutover): if the modeled fetch
+latency of the hit prefix exceeds ``recompute_cutover`` x the estimated
+recompute time, the manager recomputes instead of waiting on a slow pool.
+
+The degraded mode of a remote metadata plane (``degraded_ok``) comes with
+the cross-process planes, ``ROADMAP.md`` queue 1 item 7e; the tiered
+pool's fetch pricing with item 7c.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+from repro_torch.core.index import PrefixIndex
+from repro_torch.core.pool import KVBlockPool, PoolExhausted
+from repro_torch.core.transfer import PoolTransfer
+from repro_torch.kvcache.hbm_cache import HbmPagedCache, OutOfHbmBlocks
+
+@dataclass
+class FetchPlan:
+    n_hit_tokens: int
+    n_miss_tokens: int
+    hit_blocks: list[tuple[bytes, int, int]]  # (key, block_id, epoch)
+    fetch_latency: float  # modeled
+    recompute: bool  # cutover decision
+    keys: list[bytes] | None = None  # full chain (hashed once per request)
+
+
+@dataclass
+class ManagerStats:
+    prefix_hits_tokens: int = 0
+    prefix_miss_tokens: int = 0
+    fetches: int = 0
+    writebacks: int = 0
+    recompute_cutovers: int = 0
+    pool_evictions: int = 0
+
+
+class KVCacheManager:
+    def __init__(
+        self,
+        pool: KVBlockPool,
+        index: PrefixIndex,
+        hbm: HbmPagedCache,
+        transfer: PoolTransfer,
+        recompute_cutover: float | None = None,
+        prefill_tok_per_s: float = 8000.0,
+    ):
+        self.pool = pool
+        self.index = index
+        self.hbm = hbm
+        self.transfer = transfer
+        self.recompute_cutover = recompute_cutover
+        self.prefill_tok_per_s = prefill_tok_per_s
+        self.stats = ManagerStats()
+
+    # ------------------------------------------------------------------
+    def plan_fetch(self, tokens: list[int]) -> FetchPlan:
+        """Prefix match + fetch-vs-recompute decision."""
+        bt = self.pool.layout.block_tokens
+        keys = self.index.keys_for(tokens)
+        hits = self.index.match_prefix_keys(keys)
+        n_hit = len(hits) * bt
+        n_miss = len(tokens) - n_hit
+        lat = self.transfer.fetch_latency(len(hits)) if hits else 0.0
+        recompute_time = n_hit / self.prefill_tok_per_s
+        # recompute instead of waiting on a fetch slower than `cutover x` the
+        # recompute time; off by default, so RDMA behaves as MoonCake
+        cutover = (
+            self.recompute_cutover is not None
+            and bool(hits)
+            and lat > self.recompute_cutover * max(recompute_time, 1e-9)
+        )
+        if cutover:
+            self.stats.recompute_cutovers += 1
+            hits, n_hit, n_miss = [], 0, len(tokens)
+        self.stats.prefix_hits_tokens += n_hit
+        self.stats.prefix_miss_tokens += max(0, n_miss)
+        return FetchPlan(n_hit, max(0, n_miss), hits, lat, cutover, keys)
+
+    # ------------------------------------------------------------------
+    def fetch_into_hbm(self, seq_id: str, plan: FetchPlan) -> list[int]:
+        """Scatter-read hit blocks into freshly allocated HBM slots.
+
+        On any failure the sequence is still registered (empty) and every
+        intermediate resource is rolled back, so the caller can fall back
+        to a full recompute with no leaked pool refs or HBM slots."""
+        if not plan.hit_blocks:
+            self.hbm.register_sequence(seq_id, [])
+            return []
+        keys = [k for k, _, _ in plan.hit_blocks]
+        block_ids = [b for _, b, _ in plan.hit_blocks]
+        epochs = [e for _, _, e in plan.hit_blocks]
+        self.pool.retain(block_ids)
+        try:
+            slots = self.hbm.allocate(len(block_ids), keys=keys)
+        except OutOfHbmBlocks:
+            self.pool.release(block_ids)
+            self._fetch_failed(seq_id, plan)
+            raise
+        try:
+            self.transfer.scatter_read(block_ids, epochs)
+            self.stats.fetches += 1
+        except BaseException:
+            self.pool.release(block_ids)
+            self.hbm.release(slots)
+            self._fetch_failed(seq_id, plan)
+            raise
+        self.pool.release(block_ids)
+        self.hbm.register_sequence(seq_id, slots)
+        return slots
+
+    def _fetch_failed(self, seq_id: str, plan: FetchPlan) -> None:
+        """The caller falls back to a full recompute, so the planned hit
+        tokens were in fact missed."""
+        self.hbm.register_sequence(seq_id, [])
+        self.stats.prefix_hits_tokens -= plan.n_hit_tokens
+        self.stats.prefix_miss_tokens += plan.n_hit_tokens
+
+    def writeback(self, seq_id: str, tokens: list[int], kv_payload=None, keys=None) -> int:
+        """After prefill: gather-write the new full blocks to the pool and
+        publish them. Returns the number of blocks written.
+
+        ``kv_payload`` optionally carries their KV, (n_new, 2L, bt, hkv, hd);
+        on a payload pool without it, zeros are written. ``keys`` is the
+        chain from ``plan_fetch`` (hash once)."""
+        bt = self.pool.layout.block_tokens
+        if keys is None:
+            keys = self.index.keys_for(tokens)
+        # only blocks not already in the pool need writing
+        missing = self.index.filter_unpublished(keys)
+        new_keys = [(i, keys[i]) for i in missing]
+        if not new_keys:
+            return 0
+        try:
+            block_ids = self.pool.allocate(len(new_keys))
+        except PoolExhausted:
+            freed = self.index.evict_lru(len(new_keys) * 2)
+            self.stats.pool_evictions += len(freed)
+            try:
+                block_ids = self.pool.allocate(len(new_keys))
+            except PoolExhausted:
+                return 0  # pool full of referenced blocks: skip offload
+        if kv_payload is None and not self.pool.payload_free:
+            data = self.pool.data
+            kv_payload = data.new_zeros((len(new_keys), *data.shape[1:]))
+        epochs = self.transfer.gather_write(block_ids, kv_payload)
+        self.index.publish_many([key for _, key in new_keys], block_ids, epochs, bt)
+        self.stats.writebacks += 1
+        return len(new_keys)
+
+    # ------------------------------------------------------------------
+    def finish(self, seq_id: str) -> None:
+        self.hbm.finish_sequence(seq_id)
