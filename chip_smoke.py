@@ -329,6 +329,30 @@ Phases, each a hard check (any failure exits non-zero):
    relative), and beluga's cache-hit TTFT is below rdma's. Prints the
    MODELED Table 5 rows and the phase's wall seconds, beside no card's
    name: the simulator runs where no JAX exists.
+19. the tiered pool (``tiering/``). (i) On the card's host, nothing
+   launched: the exp13 twin at full size (four sweep cells, two chain
+   cells, the zero-cost check), then the exp03 and exp04 twins. Fails
+   unless every request finishes, after every cell each pool block's
+   refcount is what the index owns and ``promote_pending`` names only live
+   refcount-1 blocks, each number equals ``exp13_tiering.PINNED`` (the JAX
+   package's: integers exactly, times within 1e-12 relative), and the
+   three-tier chain beats destroy-on-evict at 2x and 4x oversubscription;
+   exp03's interleaved queues must beat the non-interleaved ones and
+   exp04's p99 must rise with the background. Prints the MODELED rows,
+   beside no card's name. (ii) Tier migrations of real KV payloads on the
+   card: a ``TieredPool`` on ``cuda`` at the Qwen3-32B layout (2.5 MiB a
+   block), fast 512, spill 512 (RDMA DRAM), SSD 2048: 3,072 blocks, 7.5
+   GiB. The churn protocol of ``experiments/tier_churn.py`` (writebacks of
+   distinct seeded bytes a key, planned fetches, LRU and targeted
+   evictions, the migrator stepped after each) must balance the books after
+   every operation, demote, promote and write the SSD tier, place the block
+   ids and count the ``TierStats`` of ``tier_churn.PINS`` (the JAX
+   package's payload-free run), read every indexed block back through
+   ``PoolTransfer.scatter_read`` equal to its key's bytes bit for bit, and
+   free every block on a full eviction. The migration copies (HBM to HBM on
+   the card; the spill media's latency is MODELED and is not this number)
+   are timed with CUDA events and printed as GB/s beside the copy bound
+   (2 x bytes / 3.35 TB/s), the card's name and power limit.
 
 Prints the kernel table as one JSON line (the e4m3 paged instantiation as
 a row of its own, ``paged_attention_e4m3``, and the attention backward as
@@ -3824,6 +3848,137 @@ def phase_cluster() -> None:
           "(the rows above are MODELED; no device)", flush=True)
 
 
+def phase_tiering() -> None:
+    """Phase 19: the tiered pool (module docstring). (i) exp13 / exp03 /
+    exp04 on the host; (ii) tier migrations of real payloads on the card."""
+    import torch
+
+    from repro_torch.core.index import PrefixIndex
+    from repro_torch.core.transfer import PoolTransfer
+    from repro_torch.experiments import exp03_skew, exp04_background
+    from repro_torch.experiments import exp13_tiering as exp13
+    from repro_torch.experiments import tier_churn as tc
+    from repro_torch.experiments.cluster_common import mismatches, qwen32b_layout
+    from repro_torch.kvcache.hbm_cache import HbmPagedCache
+    from repro_torch.kvcache.manager import KVCacheManager
+    from repro_torch.serving.scheduler import pending_live, refcounts_settled
+    from repro_torch.tiering import MigrationEngine, TieredPool, TieringConfig
+
+    t0 = time.perf_counter()
+
+    def settled(label, c, reqs):
+        check(all(r.state == "done" for r in reqs), f"exp13 {label}: all {len(reqs)} requests finished")
+        check(refcounts_settled(c.pool, c.index)
+              and (c.migrator is None or pending_live(c.pool)),
+              f"exp13 {label}: every pool refcount is what the index owns "
+              f"({c.index.stats()['entries']} entries, {c.pool.free_blocks()} blocks free)"
+              + ("" if c.migrator is None else
+                 f", promote_pending's {len(c.pool.promote_pending)} ids live refcount-1 blocks"))
+
+    res = exp13.results_of(False, check=settled)
+    bad = exp13.pinned_mismatches(res)
+    check(not bad, "exp13: every number equals the pinned reference (integers exactly, times "
+                   "within 1e-12 relative)" + (f": {bad[:4]}" if bad else ""))
+    ratios = [c["ttft_ratio_3t"] for c in res["tier_chain"]]
+    check(len(ratios) == 2 and not exp13.chain_gate(res),
+          f"exp13: the 3-tier chain beats destroy-on-evict at os 2 and os 4 "
+          f"(ratio_3t {ratios}, MODELED)")
+    print("  " + exp13.MODELED_NOTE)
+    for row in exp13.rows_of(res):
+        print("  " + ",".join(row))
+    r3, r4 = exp03_skew.run(), exp04_background.run()
+    bw = {name.split(".")[1]: float(d.split("agg_bw=")[1].rstrip("GiB/s")) for name, _, d in r3[:2]}
+    check(bw["interleave"] > bw["no_interleave"],
+          f"exp03: interleaved queues {bw['interleave']} GiB/s above non-interleaved "
+          f"{bw['no_interleave']} (MODELED)")
+    p99 = [float(d.split("=")[1].rstrip("us")) for _, _, d in r4]
+    check(p99 == sorted(p99) and p99[-1] > p99[0],
+          f"exp04: the 64 B p99 rises with the background, {p99} us (MODELED)")
+    print("  " + exp03_skew.MODELED_NOTE)
+    print("  " + exp04_background.MODELED_NOTE)
+    for row in r3 + r4:
+        print("  " + ",".join(row))
+    print(f"  phase 19 (i) in {time.perf_counter() - t0:.1f} s of wall time on the host "
+          "(the rows above are MODELED; no device)", flush=True)
+
+    # (ii) the churn on a chain whose tiers hold real rows on the card
+    t1 = time.perf_counter()
+    layout = qwen32b_layout()
+    cfg = TieringConfig(**tc.TIERING)
+    pool = TieredPool(layout, tc.FAST_BLOCKS, tc.SPILL_BLOCKS, "cuda", n_shards=tc.N_SHARDS,
+                      cfg=cfg)
+    gib = pool.n_blocks * layout.block_bytes / 2**30
+    check(pool.n_blocks == 3072 and all(t.data.is_cuda for t in pool.tiers),
+          f"tiered pool on the card: {pool.n_blocks} blocks of {layout.block_bytes} B "
+          f"({gib:.2f} GiB), tiers {[t.n_blocks for t in pool.tiers]} {list(pool.tier_media)}")
+    index = PrefixIndex(pool)
+    index.on_evict = pool.policy.ghost_add
+    transfer = PoolTransfer(pool)
+    mgr = KVCacheManager(pool, index, HbmPagedCache(512, 16), transfer)
+
+    class TimedMigrator(MigrationEngine):
+        """Times each migration's copy with CUDA events; counts the rows
+        each tier receives."""
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            self.copies: list = []
+            self.rows_into = [0] * self.pool.n_tiers
+
+        def _copy_payloads(self, src_ids, dst_pool, dst_local):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            eps = super()._copy_payloads(src_ids, dst_pool, dst_local)
+            e1.record()
+            self.copies.append((e0, e1, len(src_ids) * self.pool.layout.block_bytes))
+            self.rows_into[self.pool.tiers.index(dst_pool)] += len(src_ids)
+            return eps
+
+    mig = TimedMigrator(pool, index, cfg)
+    unbalanced: list = []
+
+    def books(step):
+        bad = tc.books_balance(pool, index)
+        if bad:
+            unbalanced.append((step, bad))
+
+    record = tc.churn(mgr, index, mig, pool, payload=lambda keys: tc.key_payload(keys, layout, "cuda"),
+                      after_op=books)
+    torch.cuda.synchronize()
+    churn_s = time.perf_counter() - t1
+    got = tc.summary(record, pool, mig, index)
+    st = pool.tier_stats
+    check(not unbalanced, f"churn: the books balance after each of {len(record)} operations and "
+                          f"{mig.steps} migrator steps" + (f": {unbalanced[:2]}" if unbalanced else ""))
+    deep = pool.tier_writes[2] + mig.rows_into[2]
+    check(st.demotions > 0 and st.promotions > 0 and deep > 0,
+          f"churn: {st.demotions} demotions, {st.promotions} promotions, {deep} blocks written "
+          f"into the SSD tier ({mig.rows_into[2]} by demotion)")
+    bad = mismatches(got, tc.PINS, "churn.")
+    check(not bad, f"churn: the placed ids and TierStats equal the pins of the JAX package's "
+                   f"payload-free run (digest {got['digest']})" + (f": {bad[:4]}" if bad else ""))
+    n_read, n_bad = tc.verify_payloads(index, transfer)
+    check(n_read == got["entries"] and n_bad == 0,
+          f"churn: all {n_read} indexed blocks read back through scatter_read equal their keys' "
+          f"bytes bit for bit ({n_bad} differ)")
+    index.evict_lru(pool.n_blocks)
+    check(pool.free_blocks() == pool.n_blocks and not tc.books_balance(pool, index),
+          f"churn: a full eviction frees all {pool.n_blocks} blocks")
+    ms = sum(a.elapsed_time(b) for a, b, _ in mig.copies)
+    moved = sum(n for _, _, n in mig.copies)
+    bound_ms = 2 * moved / HBM_BYTES_PER_S * 1e3
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"  migration copies on the card ({smi}): {len(mig.copies)} copies, {moved} B, "
+          f"{ms:.3f} ms of CUDA events ({moved / ms / 1e6:.1f} GB/s; each copy's interval "
+          f"holds its gather, scatter and index uploads), copy bound {bound_ms:.3f} ms "
+          f"(2 x bytes / 3.35 TB/s): HBM-to-HBM copies, not the spill media's latency, which "
+          f"is MODELED", flush=True)
+    print(f"  phase 19 (ii) in {time.perf_counter() - t1:.1f} s ({churn_s:.1f} s of churn); "
+          f"phase 19 in {time.perf_counter() - t0:.1f} s", flush=True)
+    del pool, index, transfer, mgr, mig
+
+
 def phase_roofline(seed: int = 0) -> dict:
     """The launch tooling held against the card (module docstring, phase
     17), the card's arguments drawn from ``seed``; returns the kernel
@@ -4039,6 +4194,12 @@ def main() -> None:
     print("[18] the cluster simulator, on the card's host: exp05 (Table 5) at 256 clients, "
           "16 engines, 262,144 pool blocks", flush=True)
     phase_cluster()
+    print("[19] the tiered pool: exp13 / exp03 / exp04 on the card's host, then tier "
+          "migrations of real Qwen3-32B KV blocks on the card (fast 512, spill 512, SSD 2048)",
+          flush=True)
+    phase_tiering()
+    gc.collect()
+    torch.cuda.empty_cache()
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
              "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches,
              "qwen3_fp8": qwen3_fp8_launches, "internvl2": internvl_launches,

@@ -8,8 +8,11 @@ Block ``b`` lives on shard ``b % n_shards``, one free stack per shard, and
 an allocation goes round-robin over the fullest shards first, ties to the
 shard whose oldest free block has been free longest; when that order runs
 dry it sweeps what is left by shard. The reference's non-interleaved FIFO
-(``interleave=False``) is not ported: nothing in the port runs it
-(``ROADMAP.md`` queue 1 item 7c).
+(``interleave=False``) is not ported: nothing in the port runs it.
+
+``write_blocks`` / ``read_blocks`` move payload rows by block id with one
+batched epoch bump or snapshot: the calls through which a transfer, and a
+tier chain (``tiering/tiers.py``), reach a pool's bytes.
 
 The payload is one tensor of shape ``(n_blocks, 2L, block_tokens, hkv,
 hd)``: every layer's K and V fragments of a block, interleaved ``[k0, v0,
@@ -89,6 +92,8 @@ PAYLOAD_DTYPES = {1: torch.uint8, 2: torch.bfloat16, 4: torch.float32}
 class KVBlockPool:
     """Block allocator + device payload over interleaved shards."""
 
+    is_tiered = False
+
     def __init__(
         self,
         layout: KVBlockLayout,
@@ -117,6 +122,10 @@ class KVBlockPool:
             (n_blocks, *layout.block_shape), dtype=PAYLOAD_DTYPES[layout.dtype_bytes],
             device=device,
         )
+
+    @property
+    def device(self) -> torch.device:
+        return self.data.device
 
     @property
     def payload_free(self) -> bool:
@@ -205,13 +214,31 @@ class KVBlockPool:
         self._n_free += len(freed)
 
     # ------------------------------------------------------------------
-    def write_blocks(self, block_ids: list[int]) -> list[int]:
-        """Publish blocks whose payload is already in ``data``: one batched
-        epoch bump. Returns the publish epochs."""
+    def write_blocks(self, block_ids: list[int], payloads: torch.Tensor | None = None) -> list[int]:
+        """Publish blocks: store ``payloads`` (n, *block_shape) into their
+        rows when given (a payload-free pool stores nothing; without them
+        the rows were written in place), then one batched epoch bump.
+        Returns the publish epochs."""
         ids = np.asarray(block_ids, np.intp)
+        if payloads is not None and not self.payload_free:
+            rows = payloads.to(self.data.device, self.data.dtype).reshape(len(ids), -1)
+            self.data.flatten(1).index_copy_(0, self._index(ids), rows)
         self.epochs[ids] += 1
         self.committed[ids] = True
         return self.epochs[ids].tolist()
+
+    def read_blocks(self, block_ids) -> tuple[torch.Tensor | None, np.ndarray]:
+        """(payload rows (n, *block_shape), or None on a payload-free pool;
+        the epochs at the read, snapshot before the copy)."""
+        ids = np.asarray(block_ids, np.intp)
+        eps = self.epochs[ids].copy()
+        if self.payload_free:
+            return None, eps
+        rows = self.data.flatten(1).index_select(0, self._index(ids))
+        return rows.view(len(ids), *self.layout.block_shape), eps
+
+    def _index(self, ids: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(ids, dtype=torch.long, device=self.data.device)
 
     def validate_epochs(self, block_ids, epochs) -> np.ndarray:
         """Vectorized committed + epoch check."""

@@ -5,16 +5,19 @@
 paper's §6.1) or ``"rdma"`` (MoonCake's bounce buffer and sglist-limited
 requests, optionally batched into LMCache-style super-blocks).
 
-* ``PoolTransfer`` is the engine's twin over a ``KVBlockPool``:
-  ``gather_write`` publishes blocks (storing their payload, unless the pool
-  is payload-free) and ``scatter_read`` reads them back after checking
-  their epochs, raising ``StaleBlockError`` where the reference raises its
-  coherence error. Both add to ``stats`` what the reference adds, priced by
-  ``block_transfer_cost``. ``fetch_latency`` and ``writeback_latency`` are
-  what the cluster simulator charges a request for its hit prefix and its
-  fresh blocks (the reference's ``KVCacheManager._fetch_latency`` and
-  ``EngineInstance._writeback_latency``): every price of a pool transfer
-  is in this module.
+* ``PoolTransfer`` is the engine's twin over a ``KVBlockPool`` or a
+  ``TieredPool``: ``gather_write`` publishes blocks (storing their payload,
+  unless the pool is payload-free) and ``scatter_read`` reads them back
+  after checking their epochs, raising ``StaleBlockError`` where the
+  reference raises its coherence error; both go through the pool's
+  ``write_blocks`` / ``read_blocks``, which a tier chain dispatches by id.
+  Both add to ``stats`` what the reference adds, priced by
+  ``block_transfer_cost``. ``fetch_latency``, ``tiered_fetch_latency`` and
+  ``writeback_latency`` are what the cluster simulator charges a request
+  for its hit prefix (on a flat pool, and on a tier chain) and its fresh
+  blocks (the reference's ``KVCacheManager._fetch_latency`` and
+  ``_fetch_latency_tiered``, and ``EngineInstance._writeback_latency``):
+  every price of a pool transfer is in this module.
 * The plain functions below it price whole blocks and sparse reads for a
   layout and a dtype (the exp09 and exp10 twins call them too; there the
   bytes move through the port's kernels). ``rdma_batching`` is the
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import fabric
-from repro_torch.core.pool import KVBlockLayout, KVBlockPool
+from repro_torch.core.pool import PAYLOAD_DTYPES, KVBlockLayout
 
 
 class StaleBlockError(RuntimeError):
@@ -53,7 +56,7 @@ class PoolTransferStats:
 
 @dataclass
 class PoolTransfer:
-    pool: KVBlockPool
+    pool: object  # KVBlockPool or tiering.TieredPool
     mode: str = "beluga"  # beluga | rdma
     super_block_tokens: int = 0  # rdma batching (LMCache: 256); 0 = native
     stats: PoolTransferStats = field(default_factory=PoolTransferStats)
@@ -80,6 +83,28 @@ class PoolTransfer:
         n_super = math.ceil(n * lay.block_tokens / sbt)
         return t + n_super * fabric.RDMA_SW_PER_SUPERBLOCK
 
+    def tiered_fetch_latency(self, counts, now: float, queues=None) -> float:
+        """Modeled seconds of fetching a hit prefix from a tier chain
+        (``manager.py:156-186``), given its blocks per tier (tier 0 first,
+        from ``TieredPool.touch_demand``): the fast tier's at
+        ``fetch_latency``'s price, each down-chain tier's at its medium's
+        price plus its bytes over the GPU ingest bandwidth. With the pool's
+        ``fabric.PoolDeviceQueues``, a fetch overlapping the migrator's
+        backlog pays up to its own duration again."""
+        lay = self.pool.layout
+        media = self.pool.tier_media
+        lat = self.fetch_latency(counts[0]) if counts[0] else 0.0
+        for t, n in enumerate(counts[1:], start=1):
+            if not n:
+                continue
+            size = n * lay.block_bytes
+            lat += fabric.spill_transfer_latency(size, media[t]) + size / fabric.GPU_CXL_BW
+        if queues is not None:
+            backlog = max(queues.busy_until) - now
+            if backlog > 0.0:
+                lat += min(backlog, lat)
+        return lat
+
     def writeback_latency(self, n: int) -> float:
         """Modeled seconds a prefill waits on writing n fresh blocks back
         (``engine.py:151``): RDMA pays the CPU-driven path synchronously;
@@ -96,10 +121,7 @@ class PoolTransfer:
         payload-free pool. Returns the publish epochs."""
         n = len(block_ids)
         self.stats.modeled_write_s += self._price(n)
-        if not self.pool.payload_free:
-            self.pool.data[torch.as_tensor(block_ids, dtype=torch.long)] = kv_blocks.to(
-                self.pool.data.device, self.pool.data.dtype)
-        epochs = self.pool.write_blocks(block_ids)
+        epochs = self.pool.write_blocks(block_ids, None if self.pool.payload_free else kv_blocks)
         self.stats.writes += n
         self.stats.bytes_written += n * self.pool.layout.block_bytes
         return epochs
@@ -111,19 +133,19 @@ class PoolTransfer:
         (payload) raises ``StaleBlockError``, as the reference checks."""
         n = len(block_ids)
         self.stats.modeled_read_s += self._price(n)
+        out, eps_now = self.pool.read_blocks(block_ids)
         if epochs is not None:
             if self.pool.payload_free:
                 ok = self.pool.validate_epochs(block_ids, epochs)
             else:
-                ok = self.pool.epochs[np.asarray(block_ids, np.intp)] == np.asarray(epochs)
+                ok = eps_now == np.asarray(epochs)
             if not ok.all():
                 bad = block_ids[int(np.argmin(ok))]
                 raise StaleBlockError(f"block {bad} epoch changed during read")
-        data = self.pool.data
-        if self.pool.payload_free:
-            out = data.new_empty((n, *data.shape[1:]))
-        else:
-            out = data[torch.as_tensor(block_ids, dtype=torch.long)]
+        if out is None:
+            lay = self.pool.layout
+            out = torch.empty((n, *lay.block_shape), dtype=PAYLOAD_DTYPES[lay.dtype_bytes],
+                              device="meta")
         self.stats.reads += n
         self.stats.bytes_read += n * self.pool.layout.block_bytes
         return out

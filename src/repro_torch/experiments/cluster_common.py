@@ -1,5 +1,6 @@
-"""What the cluster experiment twins share (Exp #5-#8): the Qwen3-32B pool
-layout, the LV-Eval-like workload and the two-phase protocol of Exp #5.
+"""What the cluster experiment twins share (Exp #5-#8, #13): the Qwen3-32B
+pool layout, the LV-Eval-like workload, the two-phase protocol of Exp #5,
+and the check of a run's numbers against pinned ones.
 
 Twin of ``benchmarks/common.py:19-79``. ``lveval_requests`` draws its
 tokens and arrivals from the same ``numpy.random.default_rng`` and
@@ -9,6 +10,7 @@ requests. Nothing here touches a device: the cluster's times are MODELED.
 
 from __future__ import annotations
 
+import math
 import random
 
 import numpy as np
@@ -67,3 +69,32 @@ def run_populate_then_hit(cluster_cfg, layout, n=256, in_len=15000, out_len=64):
     hits = [r for r in c.requests if r.req_id.startswith("h")]
     s2 = summarize(hits, max(x.t_done for x in hits) - t0)
     return s1, s2, c
+
+
+def flat(d: dict, prefix: str = "") -> dict:
+    """A nested dict's leaves under dotted keys."""
+    out = {}
+    for k, v in d.items():
+        if isinstance(v, dict):
+            out.update(flat(v, f"{prefix}{k}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def mismatches(got: dict, want: dict, prefix: str = "", rel: float = 1e-12) -> list[str]:
+    """Each leaf of ``got`` against ``want``'s: an integer (or any
+    non-float) exactly, a float within ``rel`` of it, a list element by
+    element. Returns what differs."""
+    g, w = flat(got), flat(want)
+    if g.keys() != w.keys():
+        return [f"{prefix.rstrip('.')}: keys {sorted(g.keys() ^ w.keys())}"]
+    bad = []
+    for k, wv in w.items():
+        gv = g[k]
+        pairs = list(zip(gv, wv)) if isinstance(wv, list) and len(gv) == len(wv) else [(gv, wv)]
+        same = all(math.isclose(a, b, rel_tol=rel, abs_tol=0.0) if isinstance(b, float)
+                   else a == b for a, b in pairs)
+        if not same:
+            bad.append(f"{prefix}{k}: {gv!r} != pinned {wv!r}")
+    return bad

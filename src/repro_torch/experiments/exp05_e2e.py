@@ -21,10 +21,10 @@ them.
 from __future__ import annotations
 
 import argparse
-import math
 import time
 
-from repro_torch.experiments.cluster_common import qwen32b_layout, run_populate_then_hit
+from repro_torch.experiments.cluster_common import (
+    mismatches, qwen32b_layout, run_populate_then_hit)
 from repro_torch.experiments.common import emit
 from repro_torch.serving.scheduler import ClusterConfig
 
@@ -181,34 +181,13 @@ PINNED = {
 }
 
 
-def _flat(d: dict, prefix: str = "") -> dict:
-    out = {}
-    for k, v in d.items():
-        if isinstance(v, dict):
-            out.update(_flat(v, f"{prefix}{k}."))
-        else:
-            out[prefix + k] = v
-    return out
-
-
 def pinned_mismatches(name: str, s1: dict, s2: dict, pinned: dict | None = None,
                       rel: float = 1e-12) -> list[str]:
     """Each number of one mode's summaries against the pinned one: an
     integer exactly, a float within ``rel`` of it. Returns what differs."""
     want = (pinned or PINNED)[name]
-    bad = []
-    for phase, got in (("populate", s1), ("cache_hit", s2)):
-        g, w = _flat(got), _flat(want[phase])
-        if g.keys() != w.keys():
-            bad.append(f"{name}.{phase}: keys {sorted(g.keys() ^ w.keys())}")
-            continue
-        for k, wv in w.items():
-            gv = g[k]
-            same = (gv == wv if isinstance(wv, int)
-                    else math.isclose(gv, wv, rel_tol=rel, abs_tol=0.0))
-            if not same:
-                bad.append(f"{name}.{phase}.{k}: {gv!r} != pinned {wv!r}")
-    return bad
+    return (mismatches(s1, want["populate"], f"{name}.populate.", rel)
+            + mismatches(s2, want["cache_hit"], f"{name}.cache_hit.", rel))
 
 
 def main(argv: list[str] | None = None) -> list[tuple]:

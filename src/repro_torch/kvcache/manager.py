@@ -14,17 +14,25 @@ Straggler mitigation (fetch-vs-recompute cutover): if the modeled fetch
 latency of the hit prefix exceeds ``recompute_cutover`` x the estimated
 recompute time, the manager recomputes instead of waiting on a slow pool.
 
+On a tiered pool (``tiering.TieredPool``) a planned fetch bumps the hit
+blocks' heat (``touch_demand``) and is priced per tier
+(``PoolTransfer.tiered_fetch_latency``), behind the migrator's backlog in
+the shared ``queues``; a fetch made counts its blocks per tier; a writeback
+moves the pool's hotness clock and passes its keys to the ghost list's
+admission filter.
+
 The degraded mode of a remote metadata plane (``degraded_ok``) comes with
-the cross-process planes, ``ROADMAP.md`` queue 1 item 7e; the tiered
-pool's fetch pricing with item 7c.
+the cross-process planes, ``ROADMAP.md`` queue 1 item 7e.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
+import torch
+
 from repro_torch.core.index import PrefixIndex
-from repro_torch.core.pool import KVBlockPool, PoolExhausted
+from repro_torch.core.pool import PAYLOAD_DTYPES, KVBlockPool, PoolExhausted
 from repro_torch.core.transfer import PoolTransfer
 from repro_torch.kvcache.hbm_cache import HbmPagedCache, OutOfHbmBlocks
 
@@ -57,24 +65,36 @@ class KVCacheManager:
         transfer: PoolTransfer,
         recompute_cutover: float | None = None,
         prefill_tok_per_s: float = 8000.0,
+        queues=None,
     ):
-        self.pool = pool
+        self.pool = pool  # a KVBlockPool or a tiering.TieredPool
         self.index = index
         self.hbm = hbm
         self.transfer = transfer
         self.recompute_cutover = recompute_cutover
         self.prefill_tok_per_s = prefill_tok_per_s
+        # the pool devices' fabric.PoolDeviceQueues, shared with the
+        # migrator on a tiered pool: a fetch queues behind migration traffic
+        self.queues = queues
         self.stats = ManagerStats()
 
     # ------------------------------------------------------------------
-    def plan_fetch(self, tokens: list[int]) -> FetchPlan:
-        """Prefix match + fetch-vs-recompute decision."""
+    def plan_fetch(self, tokens: list[int], now: float = 0.0) -> FetchPlan:
+        """Prefix match + fetch-vs-recompute decision. ``now`` (the engine's
+        virtual time) matters on a tiered pool alone: it drives the hotness
+        decay and the queues' backlog."""
         bt = self.pool.layout.block_tokens
         keys = self.index.keys_for(tokens)
         hits = self.index.match_prefix_keys(keys)
         n_hit = len(hits) * bt
         n_miss = len(tokens) - n_hit
-        lat = self.transfer.fetch_latency(len(hits)) if hits else 0.0
+        lat = 0.0
+        if hits:
+            if self.pool.is_tiered:
+                counts = self.pool.touch_demand([b for _, b, _ in hits], now)
+                lat = self.transfer.tiered_fetch_latency(counts, now, self.queues)
+            else:
+                lat = self.transfer.fetch_latency(len(hits))
         recompute_time = n_hit / self.prefill_tok_per_s
         # recompute instead of waiting on a fetch slower than `cutover x` the
         # recompute time; off by default, so RDMA behaves as MoonCake
@@ -119,6 +139,8 @@ class KVCacheManager:
             self._fetch_failed(seq_id, plan)
             raise
         self.pool.release(block_ids)
+        if self.pool.is_tiered:
+            self.pool.count_tier_hits(block_ids)
         self.hbm.register_sequence(seq_id, slots)
         return slots
 
@@ -129,14 +151,19 @@ class KVCacheManager:
         self.stats.prefix_hits_tokens -= plan.n_hit_tokens
         self.stats.prefix_miss_tokens += plan.n_hit_tokens
 
-    def writeback(self, seq_id: str, tokens: list[int], kv_payload=None, keys=None) -> int:
+    def writeback(self, seq_id: str, tokens: list[int], kv_payload=None, keys=None,
+                  now: float = 0.0) -> int:
         """After prefill: gather-write the new full blocks to the pool and
         publish them. Returns the number of blocks written.
 
         ``kv_payload`` optionally carries their KV, (n_new, 2L, bt, hkv, hd);
         on a payload pool without it, zeros are written. ``keys`` is the
-        chain from ``plan_fetch`` (hash once)."""
+        chain from ``plan_fetch`` (hash once). ``now`` moves a tiered pool's
+        hotness clock."""
         bt = self.pool.layout.block_tokens
+        tiered = self.pool.is_tiered
+        if tiered:
+            self.pool.tick(now)
         if keys is None:
             keys = self.index.keys_for(tokens)
         # only blocks not already in the pool need writing
@@ -144,18 +171,25 @@ class KVCacheManager:
         new_keys = [(i, keys[i]) for i in missing]
         if not new_keys:
             return 0
+
+        def alloc():
+            if tiered:  # the keys feed the ghost list's admission filter
+                return self.pool.allocate(len(new_keys), keys=[k for _, k in new_keys])
+            return self.pool.allocate(len(new_keys))
+
         try:
-            block_ids = self.pool.allocate(len(new_keys))
+            block_ids = alloc()
         except PoolExhausted:
             freed = self.index.evict_lru(len(new_keys) * 2)
             self.stats.pool_evictions += len(freed)
             try:
-                block_ids = self.pool.allocate(len(new_keys))
+                block_ids = alloc()
             except PoolExhausted:
                 return 0  # pool full of referenced blocks: skip offload
         if kv_payload is None and not self.pool.payload_free:
-            data = self.pool.data
-            kv_payload = data.new_zeros((len(new_keys), *data.shape[1:]))
+            lay = self.pool.layout
+            kv_payload = torch.zeros((len(new_keys), *lay.block_shape),
+                                     dtype=PAYLOAD_DTYPES[lay.dtype_bytes], device=self.pool.device)
         epochs = self.transfer.gather_write(block_ids, kv_payload)
         self.index.publish_many([key for _, key in new_keys], block_ids, epochs, bt)
         self.stats.writebacks += 1

@@ -13,7 +13,9 @@ loop across all running sequences. The waiting queue is a heap by arrival
 (ties in submission order), so each loop peeks the next admissible request
 in O(log n); a request is admitted only while its context and decode
 budget fit in the free HBM slots, and ``drain`` stops when no event can
-fire any more.
+fire any more. A shared ``tiering.MigrationEngine`` (``migrator``) is
+driven to the engine's clock after each admission, each decode step and
+each idle jump, so background migration rides the serving virtual clock.
 """
 
 from __future__ import annotations
@@ -67,11 +69,12 @@ class EngineInstance:
     """One LLM instance (one server / GPU group) with a virtual clock."""
 
     def __init__(self, engine_id: int, manager: KVCacheManager, runner: SimRunner,
-                 max_batch: int | None = None):
+                 max_batch: int | None = None, migrator=None):
         self.engine_id = engine_id
         self.manager = manager
         self.runner = runner
         self.max_batch = max_batch or runner.cfg.max_batch
+        self.migrator = migrator  # a tiered pool's, shared by every engine
         self.clock = 0.0
         # heap of (arrival, submit_seq, req): ties resolve in submission
         # order; a resubmitted orphan is admitted by its old arrival
@@ -85,6 +88,14 @@ class EngineInstance:
     def waiting(self) -> list[Request]:
         """Queued requests in admission order (a sorted copy)."""
         return [r for _, _, r in sorted(self._waiting, key=lambda t: t[:2])]
+
+    @property
+    def n_queued(self) -> int:
+        return len(self._waiting)
+
+    def has_backlog(self) -> bool:
+        """True while any submitted work is unfinished."""
+        return bool(self._waiting or self.running)
 
     def next_arrival(self) -> float | None:
         """Arrival time of the next admissible request (heap peek)."""
@@ -114,7 +125,7 @@ class EngineInstance:
     def _admit_one(self, req: Request) -> None:
         t0 = max(self.clock, req.arrival)
         req.t_admitted = t0
-        plan = self.manager.plan_fetch(req.tokens)
+        plan = self.manager.plan_fetch(req.tokens, now=t0)
         req.hit_tokens = plan.n_hit_tokens
         fetch_t = 0.0
         if plan.hit_blocks:
@@ -144,7 +155,8 @@ class EngineInstance:
             else 0.0
         )
         wb_t = 0.0
-        n_new = self.manager.writeback(req.req_id, req.tokens, keys=plan.keys)
+        n_new = self.manager.writeback(req.req_id, req.tokens, keys=plan.keys,
+                                       now=t0 + fetch_t + prefill_t)
         if n_new:
             wb_t = self.manager.transfer.writeback_latency(n_new)
         self.clock = t0 + fetch_t + prefill_t + wb_t
@@ -198,16 +210,24 @@ class EngineInstance:
                     break
                 heapq.heappop(self._waiting)
                 self._admit_one(head[2])
+                if self.migrator is not None:
+                    self.migrator.run_until(self.clock)
             elif self.running:
                 if self.clock >= until:
                     break
                 self._decode_step()
+                if self.migrator is not None:
+                    self.migrator.run_until(self.clock)
             elif head is not None:
                 if ready or head[0] >= until:
                     # `ready` here means capacity-gated with nothing running:
                     # no event can unblock it before `until`
                     break
                 self.clock = max(self.clock, head[0])
+                if self.migrator is not None:
+                    # the idle gap's budget goes to the migrator before the
+                    # next admission plans against the tiers
+                    self.migrator.run_until(self.clock)
             else:
                 break  # idle: leave the clock at the last busy instant
 

@@ -11,15 +11,19 @@ are forced to do.
 Every engine shares ONE pool and ONE in-process index; engines join and
 leave (``add_engine`` / ``remove_engine``) with no KV migration. The pool
 is payload-free (its payload lies on ``meta``): the allocator, epochs and
-index run for real at the paper's size, and every time is MODELED.
+index run for real at the paper's size, and every time is MODELED. With
+``tiering.enabled`` the pool is a ``tiering.TieredPool`` (``pool_blocks``
+become its fast tier; the spill tier defaults to 4x it), its ghost list
+hears the index's evictions, and one ``MigrationEngine`` shared by every
+engine moves blocks along the chain, contending with the fetches in the
+pool devices' queues (the reference's ``model_contention`` default).
 
 ``ClusterConfig`` holds the reference's fields that the in-process path
-reads, with the same defaults, and the switches of the pieces the port
-does not have yet, which raise a ``ValueError`` naming their ``ROADMAP.md``
-item (queue 1): the tiered pool (``tiering.enabled``) is item 7c; the
-cross-process planes (``index_rpc``, ``index_transport="process"``, a
-sharded index, ``data_plane="shared"``, ``engine_processes``,
-``selfheal``) are item 7e. Those pieces' own knobs come with them.
+reads, with the same defaults, and the switches of the cross-process
+planes (``index_rpc``, ``index_transport="process"``, a sharded index,
+``data_plane="shared"``, ``engine_processes``, ``selfheal``), which the
+port does not have yet: each raises a ``ValueError`` naming ``ROADMAP.md``
+queue 1 item 7e, with tiering on or off. Their own knobs come with them.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from repro_torch.core import fabric
 from repro_torch.core.index import PrefixIndex
 from repro_torch.core.pool import KVBlockLayout, KVBlockPool
 from repro_torch.core.transfer import PoolTransfer
@@ -35,18 +40,9 @@ from repro_torch.kvcache.hbm_cache import HbmPagedCache
 from repro_torch.kvcache.manager import FetchPlan, KVCacheManager
 from repro_torch.serving.engine import EngineInstance, SimRunner, SimRunnerConfig
 from repro_torch.serving.request import Request, summarize
+from repro_torch.tiering import MigrationEngine, TieredPool, TieringConfig
 
-ITEM_TIERING = "ROADMAP.md queue 1 item 7c (tiering)"
 ITEM_PLANES = "ROADMAP.md queue 1 item 7e (the cross-process planes)"
-
-
-@dataclass
-class TieringConfig:
-    """The reference's tiered-pool switch (``repro/tiering/tiers.py:53``);
-    the port refuses it (item 7c)."""
-
-    enabled: bool = False
-
 
 @dataclass
 class ClusterConfig:
@@ -71,7 +67,7 @@ class ClusterConfig:
     data_plane: str = "private"
     engine_processes: int = 0
     selfheal: bool = False
-    # refused when enabled (item 7c)
+    # the tiered pool (Exp #13): disabled, the flat pool's path unchanged
     tiering: TieringConfig = field(default_factory=TieringConfig)
 
 
@@ -83,7 +79,6 @@ def refuse_unported(cfg: ClusterConfig) -> None:
     if cfg.data_plane not in ("private", "shared"):
         raise ValueError(f"data_plane must be 'private' or 'shared', got {cfg.data_plane!r}")
     unported = [
-        ("tiering.enabled", cfg.tiering.enabled, ITEM_TIERING),
         ("index_rpc", cfg.index_rpc, ITEM_PLANES),
         ("index_transport='process'", cfg.index_transport == "process", ITEM_PLANES),
         (f"index_shards={cfg.index_shards}", cfg.index_shards != 1, ITEM_PLANES),
@@ -100,9 +95,23 @@ class Cluster:
     def __init__(self, cfg: ClusterConfig, layout: KVBlockLayout):
         refuse_unported(cfg)
         self.cfg = cfg
+        tcfg = cfg.tiering
         # payload-free: the reference's backing="meta"
-        self.pool = KVBlockPool(layout, cfg.pool_blocks, "meta", n_shards=cfg.pool_shards)
-        self.index = PrefixIndex(self.pool)
+        if tcfg.enabled:
+            spill = tcfg.spill_blocks or 4 * cfg.pool_blocks
+            spill = -(-spill // cfg.pool_shards) * cfg.pool_shards
+            self.pool = TieredPool(layout, cfg.pool_blocks, spill, "meta", n_shards=cfg.pool_shards,
+                                   cfg=tcfg)
+            self.index = PrefixIndex(self.pool)
+            # destroyed keys arm the ghost list's admission filter
+            self.index.on_evict = self.pool.policy.ghost_add
+            self.queues = fabric.PoolDeviceQueues()
+            self.migrator = MigrationEngine(self.pool, self.index, tcfg, queues=self.queues)
+        else:
+            self.pool = KVBlockPool(layout, cfg.pool_blocks, "meta", n_shards=cfg.pool_shards)
+            self.index = PrefixIndex(self.pool)
+            self.queues = None
+            self.migrator = None
         self.engines: list[EngineInstance] = [self._make_engine(i) for i in range(cfg.n_engines)]
         self.requests: list[Request] = []
         self._rr = 0
@@ -119,12 +128,13 @@ class Cluster:
             self.pool, self.index, hbm, transfer,
             recompute_cutover=cfg.straggler_cutover,
             prefill_tok_per_s=cfg.runner.prefill_tok_per_s,
+            queues=self.queues,
         )
         if cfg.transfer_mode == "none":
             # no pool offload: disable prefix reuse entirely
             mgr.plan_fetch = _no_offload_plan(mgr)
             mgr.writeback = lambda *a, **k: 0
-        return EngineInstance(engine_id, mgr, SimRunner(cfg.runner))
+        return EngineInstance(engine_id, mgr, SimRunner(cfg.runner), migrator=self.migrator)
 
     # ------------------------------------------------------------------
     def _select_engine(self, req: Request) -> EngineInstance:
@@ -162,6 +172,9 @@ class Cluster:
         stats["index"] = self.index.stats()
         stats["pool_free"] = self.pool.free_blocks()
         stats["shard_occupancy_max"] = max(self.pool.shard_occupancy() or [0])
+        if self.migrator is not None:
+            stats["tiering"] = self.pool.stats_dict()
+            stats["tiering"]["migrator_steps"] = self.migrator.steps
         return stats
 
     # ------------------------------------------------------------------
@@ -192,19 +205,28 @@ class Cluster:
 
 
 def _no_offload_plan(mgr):
-    def plan(tokens):
+    def plan(tokens, now=0.0):
         return FetchPlan(0, len(tokens), [], 0.0, False)
 
     return plan
 
 
-def refcounts_settled(pool: KVBlockPool, index: PrefixIndex) -> bool:
+def refcounts_settled(pool, index: PrefixIndex) -> bool:
     """Once no request is in flight, every pool block's refcount is what
     the index owns: 1 for a block an entry holds at its current epoch, 0
-    for every other."""
+    for every other. A flat pool or a tier chain."""
+    ents = index.entries()
     want = np.zeros(pool.n_blocks, np.int32)
-    for e in index.entries():
-        b = e.block_id
-        if pool.committed[b] and pool.epochs[b] == e.epoch:
-            want[b] = 1
-    return bool((pool.refcounts == want).all())
+    if ents:
+        ids = np.asarray([e.block_id for e in ents], np.intp)
+        ok = pool.validate_epochs(ids, [e.epoch for e in ents])
+        want[ids[ok]] = 1
+    return bool((pool.refcounts[np.arange(pool.n_blocks)] == want).all())
+
+
+def pending_live(pool) -> bool:
+    """A tier chain's ``promote_pending`` names only live down-chain blocks
+    that the index alone holds (committed, refcount 1)."""
+    ids = np.fromiter(pool.promote_pending, np.intp, len(pool.promote_pending))
+    return bool((ids >= pool.offset).all() and (pool.refcounts[ids] == 1).all()
+                and pool.committed[ids].all())

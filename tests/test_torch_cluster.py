@@ -264,7 +264,7 @@ def test_settled_check_sees_a_leaked_reference():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"tiering": TieringConfig(enabled=True)}, "item 7c"),
+    ({"tiering": TieringConfig(enabled=True), "index_rpc": True}, "item 7e"),
     ({"index_rpc": True}, "item 7e"),
     ({"index_rpc": True, "index_transport": "process"}, "item 7e"),
     ({"index_transport": "process"}, "item 7e"),
@@ -282,8 +282,8 @@ def test_unported_settings_are_refused(kw, item):
 
 def test_cluster_config_fields_and_defaults_are_the_reference_s():
     """Each field the port has is the reference's, with its default, so a
-    config written for the port is valid for JAX; what the port leaves out
-    belongs to a refused piece and fails loudly as an unknown keyword."""
+    config written for the port is valid for JAX, ``TieringConfig``'s too;
+    what the port leaves out fails loudly as an unknown keyword."""
     def fields(cls):
         return {f.name: (f.default if f.default is not dataclasses.MISSING
                          else dataclasses.asdict(f.default_factory()))
@@ -295,5 +295,9 @@ def test_cluster_config_fields_and_defaults_are_the_reference_s():
         mine, theirs = fields(port), fields(ref)
         assert {k: theirs.get(k) for k in mine if k != "tiering"} == \
             {k: v for k, v in mine.items() if k != "tiering"}
+    assert fields(ClusterConfig)["tiering"] == {k: v for k, v in fields(JClusterConfig)[
+        "tiering"].items() if k in fields(TieringConfig)}
     with pytest.raises(TypeError):
         ClusterConfig(interleave=False)
+    with pytest.raises(TypeError):
+        TieringConfig(prefix_admit_blocks=3)
