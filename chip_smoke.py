@@ -353,12 +353,35 @@ Phases, each a hard check (any failure exits non-zero):
    the card; the spill media's latency is MODELED and is not this number)
    are timed with CUDA events and printed as GB/s beside the copy bound
    (2 x bytes / 3.35 TB/s), the card's name and power limit.
+20. the CXL-RPC metadata plane served by threads (``core/{rpc,wire}.py``,
+   ``experiments/ring_serve.py``). (i) On the card's host: exp05's beluga
+   mode at Table 5's size with ``index_rpc`` over 1 and 4 rings, each
+   summary number equal to ``exp05_e2e.PINNED`` (the in-process reference;
+   the per-shard entries summing to the total), every refcount back to the
+   index's, no round trip failed, every server thread stopped; exp11's
+   thread rows (host wall time of the card's machine); exp01 and exp02,
+   MODELED. (ii) Llama-3.1-8B at full width, all 32 layers: phase 4's six
+   requests twice more, on a ``RealEngine`` of phase 4's seed, each run on
+   a fresh pool, the engine's ``index`` field the client side of one ring
+   and of 4 rings (``core/wire.ring_plane``, one server thread a ring).
+   Fails unless each run hits as phase 4 wants and gives the tokens, pool
+   block ids and epochs of phase 4's run (its index a ``PrefixIndex`` in
+   process, on a fresh pool), and its logits bit for bit; prints each
+   request's TTFT, ring round trips, the clients' mean wait and the index
+   calls' share of the TTFT. (iii) On the one-ring
+   run's pool, its two full hits under a ``FaultPlan``: clean three times,
+   then under a 1 ms delay window (the tokens and logits unchanged; the
+   index calls' time outside their round trips at least posts x 1 ms above
+   their fastest clean run's; the TTFTs printed beside the clean median),
+   then under a 50 ms drop window, inside ``RingRetryPolicy``'s budget (the
+   match retried, the tokens unchanged). Prints the phase's wall time.
 
 Prints the kernel table as one JSON line (the e4m3 paged instantiation as
 a row of its own, ``paged_attention_e4m3``, and the attention backward as
 ``flash_attention_bwd``, its launches from phase 13, and the SSD backward
 as ``ssd_chunk_bwd``, its launches from phase 14; each row's launches by
-path, ``mesh_train`` among them: rank 0's in phase 16),
+path, ``mesh_train`` among them: rank 0's in phase 16, ``ring`` phase
+20's),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Without a GPU it exits non-zero before doing anything.
 """
@@ -688,6 +711,10 @@ ROOFLINE_SHARE_MAX = 1.05
 # llama_decode 1.0041, mamba2_prefill 1.0118; the upper limit about twice
 # the largest excess, and never under the count
 ROOFLINE_PEAK_RATIO = (1.0, 1.025)
+# phase 20 (iii): the delay window's sleep before each post on the ring, and
+# a drop window that ends well inside RingRetryPolicy()'s budget (3.3 s)
+RING_DELAY_S = 0.001
+RING_DROP_S = 0.05
 
 
 def check(cond: bool, what: str) -> None:
@@ -2046,10 +2073,24 @@ def compare_steps(a, b) -> tuple[int, float]:
     return n, diff
 
 
-def phase_main(cfg) -> dict:
+def main_prompts(cfg):
+    """Phase 4's six requests (two cold, two partial hits on a shared 512
+    prefix, two repeats), their expected hit tokens, and the seeded draw
+    that made them, to draw more."""
     import numpy as np
+
+    rng = np.random.default_rng(0)
+    fresh = lambda n: rng.integers(0, cfg.vocab_size, size=n).tolist()  # noqa: E731
+    shared = fresh(SHARED)
+    p0, p1 = shared + fresh(PROMPT - SHARED), fresh(PROMPT)
+    p2, p3 = shared + fresh(PROMPT - SHARED), shared + fresh(PROMPT - SHARED)
+    return fresh, [p0, p1, p2, p3, p0, p1], [0, 0, SHARED, SHARED, PROMPT, PROMPT]
+
+
+def phase_main(cfg) -> dict:
     import torch
 
+    from repro_torch.experiments import ring_serve as rs
     from repro_torch.kernels import ops
     from repro_torch.models.model import Model
     from repro_torch.serving.real_runner import RealEngine
@@ -2059,18 +2100,16 @@ def phase_main(cfg) -> dict:
     torch.cuda.synchronize()
     print(f"  engine up in {time.perf_counter() - t0:.1f} s "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated)")
-    rng = np.random.default_rng(0)
-    fresh = lambda n: rng.integers(0, cfg.vocab_size, size=n).tolist()  # noqa: E731
-    shared = fresh(SHARED)
-    p0, p1 = shared + fresh(PROMPT - SHARED), fresh(PROMPT)
-    p2, p3 = shared + fresh(PROMPT - SHARED), shared + fresh(PROMPT - SHARED)
-    prompts = [p0, p1, p2, p3, p0, p1]
-    want_hits = [0, 0, SHARED, SHARED, PROMPT, PROMPT]
+    fresh, prompts, want_hits = main_prompts(cfg)
+    p0 = prompts[0]
 
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    results = [eng.generate(p, max_new=MAX_NEW) for p in prompts]
+    results, chains = [], []
+    for p in prompts:
+        results.append(eng.generate(p, max_new=MAX_NEW))
+        chains.append(rs.chain_state(eng.index, p, eng.pool.layout.block_tokens))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -2141,9 +2180,15 @@ def phase_main(cfg) -> dict:
         "flash_routes": routes,
     }
     print("  main path: " + json.dumps(summary))
+    # phase 20's in-process reference: this run, its index a PrefixIndex on
+    # a fresh pool, each chain's block ids and epochs read after its request
+    in_process = [{"tokens": toks, "logits": info["logits"].cpu(),
+                   "hit_tokens": info["hit_tokens"], "block_ids": ids, "epochs": epochs,
+                   "ttft_s": info["ttft_s"]}
+                  for (toks, info), (ids, epochs) in zip(results, chains)]
     phase_profile(eng, results[0], fresh(PROMPT), results[1][1]["ttft_s"])
     # phase 6 reads this engine's pool: the blocks of p0 and the KV they hold
-    return launches, (eng, [b for _, b, _ in hits], cold_k[:, 0], cold_v[:, 0])
+    return launches, (eng, [b for _, b, _ in hits], cold_k[:, 0], cold_v[:, 0]), in_process
 
 
 def report_profile(label, events, n, wall_ms, top=5) -> None:
@@ -3979,6 +4024,155 @@ def phase_tiering() -> None:
     del pool, index, transfer, mgr, mig
 
 
+def phase_ring(cfg, local: list[dict]) -> dict:
+    """Phase 20: the CXL-RPC metadata plane in threads (module docstring).
+    (i) exp05 over the rings, exp11's thread rows, exp01 / exp02 on the
+    host; (ii) Llama-3.1-8B with its index behind one ring and behind 4,
+    held against ``local``, phase 4's run with its index in process; (iii)
+    the ring under a delay and a drop window. Returns the launches of (ii)
+    and (iii)."""
+    import torch
+
+    from repro_torch.core.rpc import RingRetryPolicy
+    from repro_torch.distributed.fault_tolerance import FaultEvent, FaultPlan
+    from repro_torch.experiments import exp01_coherence, exp02_latency, exp11_rpc
+    from repro_torch.experiments import exp05_e2e as exp05
+    from repro_torch.experiments import ring_serve as rs
+    from repro_torch.kernels import ops
+    from repro_torch.serving.real_runner import RealEngine
+    from repro_torch.serving.scheduler import refcounts_settled
+
+    t0 = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip()
+    for shards in (1, 4):
+        t = time.perf_counter()
+        s1, s2, c = exp05.run_mode("beluga", index_rpc=True, index_shards=shards)
+        alive = c.close()
+        per = s1["index"].pop("shards", None)
+        bad = exp05.pinned_mismatches("beluga", s1, s2)
+        check(not bad and (per is None or sum(per) == s1["index"]["entries"]),
+              f"exp05 beluga, index over {shards} ring(s): every summary number equals the "
+              "pinned in-process reference" + (f" (entries a shard {per})" if per else "")
+              + (f": {bad[:4]}" if bad else ""))
+        rts = [cl.stats.requests for cl in c.ring_clients]
+        check(refcounts_settled(c.pool, c.index) and all(rts)
+              and not any(cl.stats.errors or cl.stats.timeouts for cl in c.ring_clients)
+              and not alive and len(c.plane.servers) == shards
+              and not any(srv.alive() for srv in c.plane.servers),
+              f"exp05 over {shards} ring(s): {rts} round trips a ring, no error or timeout, "
+              "every refcount what the index owns, every server thread stopped")
+        print(f"  exp05 beluga over {shards} ring(s): {time.perf_counter() - t:.1f} s of wall "
+              f"time on the host; hit TTFT {s2['avg_ttft_s']!r} s (MODELED)", flush=True)
+    rows, res = exp11_rpc.run(fast=False)
+    check(res["client_stats"]["errors"] == res["client_stats"]["timeouts"] == 0
+          and all(cl["errors"] == cl["timeouts"] == 0 and all(cl["served_per_shard"])
+                  for cl in res["shard_sweep"]),
+          "exp11: every round trip answered (no error, no timeout), every shard served")
+    print(f"  {exp11_rpc.HOST_NOTE}; the host of the {smi}")
+    for row in rows:
+        print("  " + ",".join(row))
+    e1, e2 = exp01_coherence.run(), exp02_latency.run()
+    check(e1[-1] == ("exp01.guideline_ordering_holds", "0", "ok=True"),
+          "exp01: the paper's ordering of the coherence methods holds (MODELED)")
+    print("  " + exp01_coherence.MODELED_NOTE)
+    print("  " + exp02_latency.MODELED_NOTE)
+    for row in e1 + e2:
+        print("  " + ",".join(row))
+    t_i = time.perf_counter() - t0
+
+    # (ii) Llama-3.1-8B: phase 4's requests behind one ring, behind 4, each
+    # run on a fresh pool of an engine of phase 4's seed, against phase 4's
+    # run with the index in process
+    t1 = time.perf_counter()
+    eng = RealEngine.create(cfg, max_len=MAX_LEN, pool_blocks=POOL_BLOCKS, seed=0)
+    _, prompts, want_hits = main_prompts(cfg)
+    ops.reset_launch_counts()
+    ring, plane = rs.serve(eng, prompts, MAX_NEW, n_shards=1)
+    try:
+        # (iii) the ring of the run above under the injector's windows, on
+        # its pool: the two full hits, clean, then under each window
+        t3 = time.perf_counter()
+        hits = prompts[4:]
+        clean = rs.faulted(eng, plane, hits * 3, 1, FaultPlan([]))
+        slow = rs.faulted(eng, plane, hits, MAX_NEW, FaultPlan(
+            [FaultEvent(0.0, "delay", 0, duration=600.0, delay_s=RING_DELAY_S)]))
+        dropped = rs.faulted(eng, plane, hits, MAX_NEW, FaultPlan(
+            [FaultEvent(0.0, "drop", 0, duration=RING_DROP_S)]))
+        t_iii = time.perf_counter() - t3
+    finally:
+        alive = plane.close()
+    check(not alive and not any(srv.alive() for srv in plane.servers),
+          "the ring's server thread stopped")
+    del plane
+    sharded, plane4 = rs.serve(eng, prompts, MAX_NEW, n_shards=4)
+    alive = plane4.close()
+    check(not alive and len(plane4.servers) == 4
+          and not any(srv.alive() for srv in plane4.servers),
+          "the 4 rings' server threads stopped")
+    del plane4
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    t_ii = time.perf_counter() - t1 - t_iii
+    for name, run in (("in process (phase 4)", local), ("1 ring", ring), ("4 rings", sharded)):
+        check([r["hit_tokens"] for r in run] == want_hits,
+              f"Llama, index {name}: hit tokens {[r['hit_tokens'] for r in run]} == {want_hits}")
+    for name, run in (("1 ring", ring), ("4 rings", sharded)):
+        same = all(a["tokens"] == b["tokens"] and a["block_ids"] == b["block_ids"]
+                   and a["epochs"] == b["epochs"] for a, b in zip(local, run))
+        bits = all(torch.equal(a["logits"], b["logits"]) for a, b in zip(local, run))
+        check(same and bits, f"Llama, index behind {name}: the same tokens, pool block ids "
+              "and epochs as phase 4's run with its index in process, logits bit for bit")
+        for i, r in enumerate(run):
+            print(f"  {name} req {i}: hit {r['hit_tokens']}/{PROMPT}, ttft "
+                  f"{r['ttft_s'] * 1e3:.2f} ms (in process {local[i]['ttft_s'] * 1e3:.2f}), "
+                  f"{r['round_trips']} round trips, mean wait {r['mean_wait_s'] * 1e6:.1f} us, "
+                  f"index calls {r['index_s'] * 1e3:.3f} ms ({r['index_s'] / r['ttft_s']:.2%} "
+                  "of the TTFT)")
+    check([r["round_trips"] for r in ring] == [2, 2, 1, 1, 1, 1],
+          "over 1 ring: a cold request is two round trips (match, publish), a hit one (match)")
+    check(all(launches[k] > 0 for k in LLAMA_KERNELS),
+          f"every kernel of the path launched in phase 20: {launches}")
+
+    # (iii) the windows: tokens unchanged, the delay paid, the drop retried
+    for i, (sl, dr) in enumerate(zip(slow, dropped)):
+        want = ring[4 + i]
+        check(sl["tokens"] == dr["tokens"] == want["tokens"]
+              and torch.equal(sl["logits"], want["logits"])
+              and torch.equal(dr["logits"], want["logits"])
+              and sl["hit_tokens"] == dr["hit_tokens"] == PROMPT,
+              f"req {4 + i} under the delay and the drop window: the same tokens and logits")
+        # the delay is paid before each post, so it lands in the index
+        # calls' time outside their round trips (whose wake-up latency varies
+        # by more than the delay between runs)
+        floor = min(b["index_s"] - b["wait_s"] for b in clean[i::2])
+        base = sorted(b["ttft_s"] for b in clean[i::2])[1]
+        grew = sl["index_s"] - sl["wait_s"] - floor
+        check(sl["retries"] == 0 and grew >= sl["round_trips"] * RING_DELAY_S,
+              f"req {4 + i} under a {RING_DELAY_S * 1e3:g} ms delay: its index calls spent "
+              f"{grew * 1e3:.3f} ms more outside their round trips than in their fastest clean "
+              f"run, >= {sl['round_trips']} post(s) x {RING_DELAY_S * 1e3:g} ms (TTFT "
+              f"{sl['ttft_s'] * 1e3:.2f} ms against a clean median {base * 1e3:.2f}; round "
+              f"trips {sl['wait_s'] * 1e3:.3f} ms)")
+        check(dr["retries"] >= 1 and RING_DROP_S < RingRetryPolicy().budget(),
+              f"req {4 + i} under a {RING_DROP_S * 1e3:g} ms drop window (retry budget "
+              f"{RingRetryPolicy().budget():.2f} s): {dr['retries']} retries, TTFT "
+              f"{dr['ttft_s'] * 1e3:.2f} ms")
+    share = [r["index_s"] / r["ttft_s"] for r in ring[4:]]
+    print("  ring: " + json.dumps({
+        "card": smi, "round_trips": [r["round_trips"] for r in ring],
+        "round_trips_4": [r["round_trips"] for r in sharded],
+        "mean_wait_us": [r["mean_wait_s"] * 1e6 for r in ring],
+        "hit_ttft_ms": {"in_process": [r["ttft_s"] * 1e3 for r in local[4:]],
+                        "ring": [r["ttft_s"] * 1e3 for r in ring[4:]],
+                        "rings_4": [r["ttft_s"] * 1e3 for r in sharded[4:]]},
+        "ring_share_of_hit_ttft": share, "launches": launches}))
+    del eng, local, ring, sharded
+    print(f"  phase 20 in {time.perf_counter() - t0:.1f} s ((i) {t_i:.1f} s on the host, "
+          f"(ii) {t_ii:.1f} s, (iii) {t_iii:.1f} s)", flush=True)
+    return launches
+
+
 def phase_roofline(seed: int = 0) -> dict:
     """The launch tooling held against the card (module docstring, phase
     17), the card's arguments drawn from ``seed``; returns the kernel
@@ -4118,7 +4312,7 @@ def main() -> None:
     print("[3] reduced models, card vs CPU", flush=True)
     phase_small()
     print("[4] main path: Llama-3.1-8B full width", flush=True)
-    launches, llama_pool = phase_main(cfg)
+    launches, llama_pool, llama_in_process = phase_main(cfg)
     print("[5] Mamba-2 path: mamba2-2.7b full width", flush=True)
     mamba_launches = phase_mamba(mamba_cfg)
     print("[6] sparse reads: exp10 and exp09 twins, full width", flush=True)
@@ -4200,12 +4394,21 @@ def main() -> None:
     phase_tiering()
     gc.collect()
     torch.cuda.empty_cache()
+    print("[20] the CXL-RPC metadata plane in threads: exp05 over 1 and 4 rings, exp11, "
+          "exp01, exp02 on the card's host; Llama-3.1-8B full width with its index behind "
+          "1 ring and behind 4 against phase 4's run; the ring under delay and drop windows",
+          flush=True)
+    ring_launches = phase_ring(cfg, llama_in_process)
+    del llama_in_process
+    gc.collect()
+    torch.cuda.empty_cache()
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
              "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches,
              "qwen3_fp8": qwen3_fp8_launches, "internvl2": internvl_launches,
              "musicgen": musicgen_launches, "train": train_launches,
              "mamba2_train": ssm_train_launches, "mesh": mesh_launches,
-             "mesh_train": mesh_train_launches, "roofline": roofline_launches}
+             "mesh_train": mesh_train_launches, "roofline": roofline_launches,
+             "ring": ring_launches}
     own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse",
            "paged_attention_e4m3": "qwen3_fp8", "flash_attention_bwd": "train",
            "ssd_chunk_bwd": "mamba2_train"}

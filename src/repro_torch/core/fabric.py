@@ -4,10 +4,13 @@ exp09 and exp10 twins and the cluster simulator read from
 
 Pure Python. Every constant has the value of the reference's field of the
 same name in lower case (``FabricConstants`` at ``fabric.py:31``, traced
-there to the paper's measurements). ``gpu_transfer_latency`` is the
-reference's ``fused_kernel`` path (``fabric.py:137``) and
-``rdma_transfer_latency`` its ``gpu_side=True`` path (``:161``), the only
-paths the twins price. ``spill_transfer_latency`` and ``SPILL_MEDIA`` price
+there to the paper's measurements). ``gpu_transfer_latency`` prices the
+reference's ``fused_kernel`` and ``cudamemcpy`` paths (``fabric.py:137``;
+one argument gives the fused kernel, as every pool transfer prices it),
+``cpu_write_latency`` / ``cpu_read_latency`` the CPU instruction paths of
+Table 4 (``:111-134``), ``local_dram_latency`` the DRAM baseline, and
+``rdma_transfer_latency`` the reference's ``gpu_side=True`` path (``:161``).
+The exp01 / exp02 twins print them; exp11 prints the RPC round trips. ``spill_transfer_latency`` and ``SPILL_MEDIA`` price
 the tiered pool's media below the CXL pool (``fabric.py:79-102``,
 ``:186-196``), and ``PoolDeviceQueues`` is the reference's ``DeviceQueues``
 (``:203-244``): per-device FIFO queues of the pool's memory devices, which
@@ -24,6 +27,7 @@ from __future__ import annotations
 import math
 
 US = 1e-6
+KB = 1024
 MB = 1024 * 1024
 GB = 1024**3
 
@@ -36,6 +40,19 @@ GPU_CXL_BW = 26.0 * GB  # GPU<->CXL through root complex, §5.3
 N_DEVICES = 32  # memory devices in the pool (Table 2)
 INTERLEAVE_BYTES = 2 * MB  # software interleaving granularity, §5.3
 KERNEL_LAUNCH = 7.9 * US  # CUDA kernel launch + sync (§3.2)
+CUDAMEMCPY_UC_SMALL = 1230 * US  # < 24 KB H2D from UC memory (§5.2)
+# CPU instruction-path costs (Exp #1, Table 4's 16 KB uncacheable points)
+STORE_UC_16K = 281.56 * US
+LOAD_UC_16K = 166.49 * US
+DSA_SETUP = 0.9 * US  # DMA descriptor setup (crossover at ~4 KB, Fig. 5)
+CLFLUSH_PER_LINE = 0.03 * US  # 64 B line flush, amortised
+# --- local DRAM baseline ---
+DRAM_LATENCY = 0.09 * US
+DRAM_BW = 80.0 * GB
+# --- RPC round trips (Exp #11, Fig. 15) ---
+CXL_RPC_RTT = 2.11 * US
+RDMA_RC_RPC_RTT = 8.39 * US
+RDMA_UD_RPC_RTT = 8.83 * US
 # --- RDMA path (MoonCake-style baseline) ---
 RDMA_BASE_LATENCY = 3.2 * US  # one-sided verb, QD=1 small msg
 RDMA_BW = 50.0 * GB  # 400 Gbps NIC
@@ -65,10 +82,50 @@ SPILL_MEDIA: dict[str, tuple[float, float]] = {
 }
 
 
-def gpu_transfer_latency(size: int) -> float:
-    """GPU <-> CXL pool transfer of ``size`` bytes in any number of
-    fragments: one fused copy kernel moves them all (Beluga)."""
-    return KERNEL_LAUNCH + CXL_64B_LATENCY + size / GPU_CXL_BW
+def cpu_write_latency(size: int, method: str = "ntstore") -> float:
+    """CPU -> CXL pool write: ntstore, store + clflush, uncacheable, dsa."""
+    lines = max(1, size // 64)
+    if method == "ntstore":  # O1: bypass the cache, no flush
+        return CXL_64B_LATENCY + size / CXL_ADAPTER_WRITE_BW + lines * 0.004 * US
+    if method == "clflush":
+        return CXL_64B_LATENCY + size / CXL_ADAPTER_WRITE_BW + lines * CLFLUSH_PER_LINE
+    if method == "uncacheable":  # each store stalls the pipeline
+        return lines * (STORE_UC_16K / 256)
+    if method == "dsa":  # O2: DSA with cache bypass
+        return DSA_SETUP + CXL_64B_LATENCY + size / CXL_ADAPTER_WRITE_BW
+    raise ValueError(method)
+
+
+def cpu_read_latency(size: int, method: str = "clflush") -> float:
+    """CPU <- CXL pool read: invalidate then load, uncacheable, dsa."""
+    lines = max(1, size // 64)
+    if method == "clflush":  # O1
+        return CXL_64B_LATENCY + size / CXL_ADAPTER_READ_BW + lines * CLFLUSH_PER_LINE
+    if method == "uncacheable":
+        return lines * (LOAD_UC_16K / 256)
+    if method == "dsa":  # O2
+        return DSA_SETUP + CXL_64B_LATENCY + size / CXL_ADAPTER_READ_BW
+    raise ValueError(method)
+
+
+def gpu_transfer_latency(size: int, n_fragments: int = 1, method: str = "fused_kernel",
+                         direction: str = "read") -> float:
+    """GPU <-> CXL pool transfer of ``size`` bytes. ``fused_kernel``: one
+    copy kernel moves every fragment (Beluga); ``cudamemcpy``: one copy per
+    fragment, each read under 24 KB from UC memory at §5.2's pathological
+    cost."""
+    if method == "fused_kernel":
+        return KERNEL_LAUNCH + CXL_64B_LATENCY + size / GPU_CXL_BW
+    if method == "cudamemcpy":
+        per = KERNEL_LAUNCH + CXL_64B_LATENCY + (size / n_fragments) / GPU_CXL_BW
+        if direction == "read" and size / n_fragments < 24 * KB:
+            per = CUDAMEMCPY_UC_SMALL
+        return n_fragments * per
+    raise ValueError(method)
+
+
+def local_dram_latency(size: int) -> float:
+    return DRAM_LATENCY + size / DRAM_BW
 
 
 def rdma_transfer_latency(size: int, n_fragments: int) -> float:

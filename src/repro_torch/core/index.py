@@ -30,11 +30,26 @@ rules:
   * ``stats`` counts a hit per matched block and a miss per key of the
     chain past the match, as the reference's ``GlobalIndex.stats``.
 
+  * ``publish`` (one key) moves a re-published key to the most recently
+    used end, as the reference's; ``restore_entries`` publishes one by one
+    so, and ``snapshot_entries`` pages the entries least recently used
+    first: the surface the wire serves (``core/wire.py``), with
+    ``lookup_many``, ``n_entries``, ``keys_of_blocks`` and ``seed_stats``.
+
 The reference's flat arrays and array-linked LRU with timestamps are its
-answer to lock contention across threads; the port's engine is
-single-threaded, so one ``OrderedDict`` (least recently used first) holds
-the entries, and its order is the LRU. A dict from block id to the key
-that owns it is the reverse map (the reference's ``_block2row``).
+answer to lock contention across threads; the port's index is owned by one
+thread (the engine's, or a ring server's), so one ``OrderedDict`` (least
+recently used first) holds the entries, and its order is the LRU. A dict
+from block id to the key that owns it is the reverse map (the reference's
+``_block2row``). ``ChainHasher`` is the chain hashing with its memo, which
+a remote index client runs on its own side (only keys cross a ring).
+
+The sharded plane (``ShardedPrefixIndex`` and the functions before it) is
+the reference's ``ShardedIndex``: keys route by digest
+(``shard_of_key``), chain ops fan out by position and merge back, cutting a
+match at the first hole; ``evict_lru`` drains the fullest shards first
+(``evict_lru_pressure``), which ``core/wire.ShardedRemoteIndex`` shares so
+that the in-process and ring planes free the same blocks.
 """
 
 from __future__ import annotations
@@ -43,6 +58,7 @@ import dataclasses
 import hashlib
 from collections import OrderedDict
 from dataclasses import dataclass
+from itertools import islice
 from typing import Callable
 
 import numpy as np
@@ -76,21 +92,14 @@ class PrefixEntry:
     n_tokens: int
 
 
-class PrefixIndex:
-    def __init__(self, pool: KVBlockPool):
-        self.pool = pool
-        self.block_tokens = pool.layout.block_tokens
-        self._entries: OrderedDict[bytes, PrefixEntry] = OrderedDict()
-        # token tuple -> chain: a request seen again (the cluster hashes a
-        # prompt at admission and at every routing probe) is hashed once
+class ChainHasher:
+    """``chain_keys`` with a memo of the last requests' chains: a request
+    seen again (the cluster hashes a prompt at admission and at every
+    routing probe) is hashed once."""
+
+    def __init__(self, block_tokens: int):
+        self.block_tokens = block_tokens
         self._memo: OrderedDict[tuple[int, ...], tuple[bytes, ...]] = OrderedDict()
-        # block id -> the key whose entry owns it
-        self._owner: dict[int, bytes] = {}
-        # fired with the keys of entries destroyed by eviction (the tiered
-        # pool's ghost list subscribes); None costs nothing
-        self.on_evict: Callable[[list[bytes]], None] | None = None
-        self.hits = 0
-        self.misses = 0
 
     def keys_for(self, tokens: list[int]) -> tuple[bytes, ...]:
         sig = tuple(tokens)
@@ -101,6 +110,24 @@ class PrefixIndex:
             if len(self._memo) > _REQUEST_MEMO_MAX:
                 self._memo.popitem(last=False)
         return keys
+
+
+class PrefixIndex:
+    def __init__(self, pool: KVBlockPool, hasher: ChainHasher | None = None):
+        self.pool = pool
+        self.block_tokens = pool.layout.block_tokens
+        self._entries: OrderedDict[bytes, PrefixEntry] = OrderedDict()
+        self.hasher = hasher if hasher is not None else ChainHasher(self.block_tokens)
+        # block id -> the key whose entry owns it
+        self._owner: dict[int, bytes] = {}
+        # fired with the keys of entries destroyed by eviction (the tiered
+        # pool's ghost list subscribes); None costs nothing
+        self.on_evict: Callable[[list[bytes]], None] | None = None
+        self.hits = 0
+        self.misses = 0
+
+    def keys_for(self, tokens: list[int]) -> tuple[bytes, ...]:
+        return self.hasher.keys_for(tokens)
 
     # ------------------------------------------------------------------
     def match_prefix(self, tokens: list[int]) -> list[tuple[bytes, int, int]]:
@@ -161,6 +188,20 @@ class PrefixIndex:
                 e.block_id, e.epoch, e.n_tokens = block_ids[i], epochs[i], n_tokens
             owner[block_ids[i]] = k
 
+    def publish(self, key: bytes, block_id: int, epoch: int, n_tokens: int) -> None:
+        """Publish one block; a re-published key moves to the most recently
+        used end (``publish_many`` keeps its place)."""
+        owner = self._owner
+        e = self._entries.get(key)
+        if e is None:
+            self._entries[key] = PrefixEntry(block_id, epoch, n_tokens)
+        else:
+            if owner.get(e.block_id) == key:
+                del owner[e.block_id]
+            e.block_id, e.epoch, e.n_tokens = block_id, epoch, n_tokens
+            self._entries.move_to_end(key)
+        owner[block_id] = key
+
     def _drop(self, key: bytes) -> None:
         """Forget an entry and, where it still owns its block, the block's
         owner."""
@@ -179,6 +220,35 @@ class PrefixIndex:
     def lookup(self, key: bytes) -> PrefixEntry | None:
         e = self._entries.get(key)
         return None if e is None else dataclasses.replace(e)
+
+    def lookup_many(self, keys) -> list[PrefixEntry | None]:
+        return [self.lookup(k) for k in keys]
+
+    def n_entries(self) -> int:
+        """Occupancy: the sharded plane's eviction-pressure signal."""
+        return len(self._entries)
+
+    def keys_of_blocks(self, block_ids) -> list[bytes | None]:
+        """The key owning each block, None for an unindexed one."""
+        return [self._owner.get(int(b)) for b in block_ids]
+
+    def snapshot_entries(self, start: int, max_items: int
+                         ) -> tuple[int, list[bytes], list[int], list[int], list[int]]:
+        """One page, least recently used first: (total, keys, block ids,
+        epochs, n_tokens) of at most ``max_items`` entries from ``start``."""
+        page = list(islice(self._entries.items(), start, start + max_items))
+        return (len(self._entries), [k for k, _ in page], [e.block_id for _, e in page],
+                [e.epoch for _, e in page], [e.n_tokens for _, e in page])
+
+    def restore_entries(self, keys, block_ids, epochs, n_tokens) -> int:
+        """Publish entries one by one, in order (a rebuilt shard's refill)."""
+        for k, b, e, t in zip(keys, block_ids, epochs, n_tokens):
+            self.publish(k, int(b), int(e), int(t))
+        return len(keys)
+
+    def seed_stats(self, hits: int, misses: int) -> None:
+        """Set the hit / miss counters (a restarted shard's, from before)."""
+        self.hits, self.misses = int(hits), int(misses)
 
     def evict_lru(self, n: int) -> list[int]:
         """Evict up to n unreferenced blocks; returns the freed block ids."""
@@ -273,3 +343,242 @@ class PrefixIndex:
             "misses": self.misses,
             "hit_rate": self.hits / max(1, self.hits + self.misses),
         }
+
+
+# ---------------------------------------------------------------------------
+# the sharded metadata plane (paper §6: the service scales out, one shard
+# behind each ring)
+# ---------------------------------------------------------------------------
+def shard_of_key(key: bytes, n_shards: int) -> int:
+    """A key's shard: its first 4 bytes, little-endian, mod S (keys are
+    uniform digests)."""
+    return int.from_bytes(key[:4], "little") % n_shards
+
+
+def partition_keys(keys, n_shards: int) -> tuple[list[list[bytes]], list[list[int]]]:
+    """Per-shard key lists in chain order, and each key's position. A
+    shard's own first miss lies at or after the global one, so merging the
+    shards' hits by position and cutting at the first hole gives the
+    global all-hit prefix."""
+    key_lists: list[list[bytes]] = [[] for _ in range(n_shards)]
+    pos_lists: list[list[int]] = [[] for _ in range(n_shards)]
+    for i, k in enumerate(keys):
+        s = shard_of_key(k, n_shards)
+        key_lists[s].append(k)
+        pos_lists[s].append(i)
+    return key_lists, pos_lists
+
+
+def evict_blocks_sharded(shards, block_ids) -> list[int]:
+    """``evict_blocks`` over the shards in turn; a block one shard freed is
+    offered to no later shard (a stale alias must not free it again)."""
+    remaining = list(block_ids)
+    freed: list[int] = []
+    for sh in shards:
+        if not remaining:
+            break
+        got = sh.evict_blocks(remaining)
+        if got:
+            freed.extend(got)
+            gs = set(got)
+            remaining = [b for b in remaining if b not in gs]
+    return freed
+
+
+def evict_lru_pressure(shards, n: int) -> list[int]:
+    """Evict ``n`` blocks over per-shard LRU lists, draining the fullest
+    shards toward a common level (a waterfill on ``n_entries``, ties to the
+    lower shard): the reference's policy, shared by the in-process and the
+    ring planes. A shard that frees fewer than asked is out of victims and
+    drops out; each round frees a block or drops a shard."""
+    freed: list[int] = []
+    alive = list(range(len(shards)))
+    while len(freed) < n and alive:
+        occ = {s: shards[s].n_entries() for s in alive}
+        alive = [s for s in alive if occ[s] > 0]
+        if not alive:
+            break
+        need = min(n - len(freed), sum(occ[s] for s in alive))
+        lo, hi = 0, max(occ[s] for s in alive)
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if sum(occ[s] - mid for s in alive if occ[s] > mid) <= need:
+                hi = mid
+            else:
+                lo = mid + 1
+        level = lo
+        quota = {s: max(0, occ[s] - level) for s in alive}
+        left = need - sum(quota.values())
+        for s in alive:
+            if left <= 0:
+                break
+            if occ[s] >= level > 0:
+                quota[s] += 1
+                left -= 1
+        survivors = []
+        for s in alive:
+            k = quota[s]
+            if k <= 0:
+                survivors.append(s)  # under the level: spared
+                continue
+            got = shards[s].evict_lru(k)
+            freed.extend(got)
+            if len(got) >= k:
+                survivors.append(s)
+        alive = survivors
+    return freed
+
+
+def merge_owners(block_ids, answers) -> tuple[list[bytes], list[int], list[int]]:
+    """``owners_of`` over shards: each shard's (keys, ids, epochs) merged
+    back into ``block_ids``' order."""
+    owner: dict[int, tuple[bytes, int]] = {}
+    for keys, ids, eps in answers:
+        for k, b, e in zip(keys, ids, eps):
+            owner[b] = (k, e)
+    keys_o: list[bytes] = []
+    ids_o: list[int] = []
+    eps_o: list[int] = []
+    for b in block_ids:
+        f = owner.get(int(b))
+        if f is not None:
+            keys_o.append(f[0])
+            ids_o.append(int(b))
+            eps_o.append(f[1])
+    return keys_o, ids_o, eps_o
+
+
+def merge_stats(per: list[dict]) -> dict:
+    """The sharded plane's ``stats``: sums, and each shard's entries."""
+    hits = sum(p["hits"] for p in per)
+    misses = sum(p["misses"] for p in per)
+    return {
+        "entries": sum(p["entries"] for p in per),
+        "hits": hits,
+        "misses": misses,
+        "hit_rate": hits / max(1, hits + misses),
+        "shards": [p["entries"] for p in per],
+    }
+
+
+class ShardedPrefixIndex:
+    """S ``PrefixIndex`` shards behind one front, keys routed by
+    ``shard_of_key``; a block belongs to the shard of the key that
+    published it. S=1 hands every op to the one shard unchanged. For S>1 a
+    shard refreshes (and drops stale entries among) its hits past the
+    global cut, and the counters count them, as the reference's do."""
+
+    def __init__(self, pool: KVBlockPool, n_shards: int):
+        if n_shards < 1:
+            raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+        self.pool = pool
+        self.n_shards = n_shards
+        self.block_tokens = pool.layout.block_tokens
+        self.hasher = ChainHasher(self.block_tokens)
+        self.shards = [PrefixIndex(pool, self.hasher) for _ in range(n_shards)]
+
+    @property
+    def on_evict(self):
+        return self.shards[0].on_evict
+
+    @on_evict.setter
+    def on_evict(self, fn) -> None:
+        for sh in self.shards:  # ring-served evictions run on the shards
+            sh.on_evict = fn
+
+    def keys_for(self, tokens: list[int]) -> tuple[bytes, ...]:
+        return self.hasher.keys_for(tokens)
+
+    def match_prefix(self, tokens: list[int]) -> list[tuple[bytes, int, int]]:
+        return self.match_prefix_keys(self.keys_for(tokens))
+
+    def _split(self, keys):
+        key_lists, pos_lists = partition_keys(keys, self.n_shards)
+        return [(sh, kl, pl) for sh, kl, pl in zip(self.shards, key_lists, pos_lists) if kl]
+
+    def match_prefix_keys(self, keys) -> list[tuple[bytes, int, int]]:
+        if self.n_shards == 1:
+            return self.shards[0].match_prefix_keys(keys)
+        found: list[tuple[int, int] | None] = [None] * len(keys)
+        for sh, kl, pl in self._split(keys):
+            for (_, b, e), i in zip(sh.match_prefix_keys(kl), pl):
+                found[i] = (b, e)
+        out: list[tuple[bytes, int, int]] = []
+        for k, f in zip(keys, found):
+            if f is None:
+                break  # the first hole ends the global prefix
+            out.append((k, f[0], f[1]))
+        return out
+
+    def publish(self, key: bytes, block_id: int, epoch: int, n_tokens: int) -> None:
+        self.shards[shard_of_key(key, self.n_shards)].publish(key, block_id, epoch, n_tokens)
+
+    def publish_many(self, keys, block_ids, epochs, n_tokens: int) -> None:
+        if self.n_shards == 1:
+            return self.shards[0].publish_many(keys, block_ids, epochs, n_tokens)
+        for sh, kl, pl in self._split(keys):
+            sh.publish_many(kl, [block_ids[i] for i in pl], [epochs[i] for i in pl], n_tokens)
+
+    def lookup(self, key: bytes) -> PrefixEntry | None:
+        return self.shards[shard_of_key(key, self.n_shards)].lookup(key)
+
+    def lookup_many(self, keys) -> list[PrefixEntry | None]:
+        out: list[PrefixEntry | None] = [None] * len(keys)
+        for sh, kl, pl in self._split(keys):
+            for e, i in zip(sh.lookup_many(kl), pl):
+                out[i] = e
+        return out
+
+    def filter_unpublished(self, keys) -> list[int]:
+        if self.n_shards == 1:
+            return self.shards[0].filter_unpublished(keys)
+        out: list[int] = []
+        for sh, kl, pl in self._split(keys):
+            out.extend(pl[p] for p in sh.filter_unpublished(kl))
+        return sorted(out)
+
+    def evict_lru(self, n: int) -> list[int]:
+        if self.n_shards == 1:
+            return self.shards[0].evict_lru(n)
+        return evict_lru_pressure(self.shards, n)
+
+    def evict_blocks(self, block_ids) -> list[int]:
+        if self.n_shards == 1:
+            return self.shards[0].evict_blocks(block_ids)
+        return evict_blocks_sharded(self.shards, block_ids)
+
+    def keys_of_blocks(self, block_ids) -> list[bytes | None]:
+        out: list[bytes | None] = [None] * len(block_ids)
+        for sh in self.shards:
+            for i, k in enumerate(sh.keys_of_blocks(block_ids)):
+                if k is not None:
+                    out[i] = k
+        return out
+
+    def owners_of(self, block_ids) -> tuple[list[bytes], list[int], list[int]]:
+        if self.n_shards == 1:
+            return self.shards[0].owners_of(block_ids)
+        return merge_owners(block_ids, [sh.owners_of(block_ids) for sh in self.shards])
+
+    def remap_many(self, keys, old_ids, old_epochs, new_ids, new_epochs) -> list[bool]:
+        if self.n_shards == 1:
+            return self.shards[0].remap_many(keys, old_ids, old_epochs, new_ids, new_epochs)
+        ok = [False] * len(keys)
+        for sh, kl, pl in self._split(keys):
+            sub = sh.remap_many(kl, [old_ids[i] for i in pl], [old_epochs[i] for i in pl],
+                                [new_ids[i] for i in pl], [new_epochs[i] for i in pl])
+            for o, i in zip(sub, pl):
+                ok[i] = o
+        return ok
+
+    def n_entries(self) -> int:
+        return sum(sh.n_entries() for sh in self.shards)
+
+    def entries(self) -> list[PrefixEntry]:
+        """Every shard's entries, shard by shard."""
+        return [e for sh in self.shards for e in sh.entries()]
+
+    def stats(self) -> dict:
+        if self.n_shards == 1:
+            return self.shards[0].stats()
+        return merge_stats([sh.stats() for sh in self.shards])

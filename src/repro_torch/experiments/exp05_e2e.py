@@ -38,15 +38,18 @@ MODELED_NOTE = ("# exp05 rows: MODELED (the paper's CXL/RDMA fabric, core/fabric
                 "SimRunnerConfig calibrated to an H20); no device timed")
 
 
-def cluster_config(mode: str, super_block_tokens: int) -> ClusterConfig:
+def cluster_config(mode: str, super_block_tokens: int, **overrides) -> ClusterConfig:
     return ClusterConfig(n_engines=16, transfer_mode=mode, pool_blocks=262144,
-                         super_block_tokens=super_block_tokens)
+                         super_block_tokens=super_block_tokens, **overrides)
 
 
-def run_mode(name: str, n: int = 256, in_len: int = 15000):
-    """(populate stats, cache-hit summary, cluster) of one mode."""
+def run_mode(name: str, n: int = 256, in_len: int = 15000, **overrides):
+    """(populate stats, cache-hit summary, cluster) of one mode; ``overrides``
+    are further ``ClusterConfig`` fields (``index_rpc``, ``index_shards``).
+    The caller closes the cluster (its ring server threads)."""
     _, mode, sbt = next(m for m in MODES if m[0] == name)
-    return run_populate_then_hit(cluster_config(mode, sbt), qwen32b_layout(), n=n, in_len=in_len)
+    return run_populate_then_hit(cluster_config(mode, sbt, **overrides), qwen32b_layout(), n=n,
+                                 in_len=in_len)
 
 
 def rows_of(res: dict) -> list[tuple]:

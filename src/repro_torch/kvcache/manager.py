@@ -22,7 +22,7 @@ moves the pool's hotness clock and passes its keys to the ghost list's
 admission filter.
 
 The degraded mode of a remote metadata plane (``degraded_ok``) comes with
-the cross-process planes, ``ROADMAP.md`` queue 1 item 7e.
+the process transport and self-healing, ``ROADMAP.md`` queue 1 item 7e-ii.
 """
 
 from __future__ import annotations

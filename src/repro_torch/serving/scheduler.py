@@ -8,8 +8,8 @@ baseline routes requests toward the instance whose HBM already holds the
 prefix (locality first, load second), which is what RDMA-latency systems
 are forced to do.
 
-Every engine shares ONE pool and ONE in-process index; engines join and
-leave (``add_engine`` / ``remove_engine``) with no KV migration. The pool
+Every engine shares ONE pool and ONE index; engines join and leave
+(``add_engine`` / ``remove_engine``) with no KV migration. The pool
 is payload-free (its payload lies on ``meta``): the allocator, epochs and
 index run for real at the paper's size, and every time is MODELED. With
 ``tiering.enabled`` the pool is a ``tiering.TieredPool`` (``pool_blocks``
@@ -18,12 +18,23 @@ hears the index's evictions, and one ``MigrationEngine`` shared by every
 engine moves blocks along the chain, contending with the fetches in the
 pool devices' queues (the reference's ``model_contention`` default).
 
-``ClusterConfig`` holds the reference's fields that the in-process path
-reads, with the same defaults, and the switches of the cross-process
-planes (``index_rpc``, ``index_transport="process"``, a sharded index,
-``data_plane="shared"``, ``engine_processes``, ``selfheal``), which the
-port does not have yet: each raises a ``ValueError`` naming ``ROADMAP.md``
-queue 1 item 7e, with tiering on or off. Their own knobs come with them.
+The index is a ``PrefixIndex``, or with ``index_shards > 1`` a
+``ShardedPrefixIndex``. With ``index_rpc`` (``index_transport="thread"``)
+the engines and the migrator reach it over CXL-RPC rings instead: one
+``SlotRing`` of ``index_rpc_slots`` slots of ``index_rpc_payload`` bytes
+per shard, each served by a ``RingServer`` thread (``core/wire.ring_plane``),
+and every engine and the migrator share the plane's ``ShardedRemoteIndex``:
+the simulator runs in one thread, which owns the ring clients. ``run()``
+reads the co-located index's stats, as the reference does. ``close()`` (or
+leaving a ``with`` block) stops every server thread and returns those still
+alive.
+
+``ClusterConfig`` holds the reference's fields that these paths read, with
+the same defaults, and the switches of the planes the port does not have
+yet (``index_transport="process"`` and ``selfheal``: ``ROADMAP.md`` queue 1
+item 7e-ii; ``data_plane="shared"`` and ``engine_processes``: item
+7e-iii), each of which raises a ``ValueError`` naming its item, with
+tiering on or off. Their own knobs come with them.
 """
 
 from __future__ import annotations
@@ -33,16 +44,20 @@ from dataclasses import dataclass, field
 import numpy as np
 
 from repro_torch.core import fabric
-from repro_torch.core.index import PrefixIndex
+from repro_torch.core.index import PrefixIndex, ShardedPrefixIndex
 from repro_torch.core.pool import KVBlockLayout, KVBlockPool
+from repro_torch.core.rpc import RingClient, RingServer
 from repro_torch.core.transfer import PoolTransfer
+from repro_torch.core.wire import RingPlane, ring_plane
 from repro_torch.kvcache.hbm_cache import HbmPagedCache
 from repro_torch.kvcache.manager import FetchPlan, KVCacheManager
 from repro_torch.serving.engine import EngineInstance, SimRunner, SimRunnerConfig
 from repro_torch.serving.request import Request, summarize
 from repro_torch.tiering import MigrationEngine, TieredPool, TieringConfig
 
-ITEM_PLANES = "ROADMAP.md queue 1 item 7e (the cross-process planes)"
+ITEM_PROCESS = "ROADMAP.md queue 1 item 7e-ii (the process transport and self-healing)"
+ITEM_SHARED = "ROADMAP.md queue 1 item 7e-iii (the shared data plane and the engine workers)"
+
 
 @dataclass
 class ClusterConfig:
@@ -58,12 +73,16 @@ class ClusterConfig:
     block_tokens: int = 16
     straggler_cutover: float | None = None  # fetch-vs-recompute ratio
     runner: SimRunnerConfig = field(default_factory=SimRunnerConfig)
-    # refused (item 7e): the metadata plane behind CXL-RPC rings, in
-    # threads or processes, sharded, self-healing; the shared data plane;
-    # engine worker processes. The defaults are the in-process path.
+    # the metadata plane behind CXL-RPC rings served by threads: one batched
+    # round trip per metadata op; index_shards > 1 partitions the keys over
+    # S shards (S rings with index_rpc)
     index_rpc: bool = False
-    index_transport: str = "thread"
+    index_rpc_slots: int = 64
+    index_rpc_payload: int = 1 << 16
     index_shards: int = 1
+    # refused: the process transport and self-healing (item 7e-ii), the
+    # shared data plane and engine worker processes (item 7e-iii)
+    index_transport: str = "thread"
     data_plane: str = "private"
     engine_processes: int = 0
     selfheal: bool = False
@@ -79,12 +98,10 @@ def refuse_unported(cfg: ClusterConfig) -> None:
     if cfg.data_plane not in ("private", "shared"):
         raise ValueError(f"data_plane must be 'private' or 'shared', got {cfg.data_plane!r}")
     unported = [
-        ("index_rpc", cfg.index_rpc, ITEM_PLANES),
-        ("index_transport='process'", cfg.index_transport == "process", ITEM_PLANES),
-        (f"index_shards={cfg.index_shards}", cfg.index_shards != 1, ITEM_PLANES),
-        ("data_plane='shared'", cfg.data_plane == "shared", ITEM_PLANES),
-        (f"engine_processes={cfg.engine_processes}", bool(cfg.engine_processes), ITEM_PLANES),
-        ("selfheal", cfg.selfheal, ITEM_PLANES),
+        ("index_transport='process'", cfg.index_transport == "process", ITEM_PROCESS),
+        ("selfheal", cfg.selfheal, ITEM_PROCESS),
+        ("data_plane='shared'", cfg.data_plane == "shared", ITEM_SHARED),
+        (f"engine_processes={cfg.engine_processes}", bool(cfg.engine_processes), ITEM_SHARED),
     ]
     for name, on, item in unported:
         if on:
@@ -95,6 +112,16 @@ class Cluster:
     def __init__(self, cfg: ClusterConfig, layout: KVBlockLayout):
         refuse_unported(cfg)
         self.cfg = cfg
+        self.plane: RingPlane | None = None
+        try:
+            self._build(cfg, layout)
+        except BaseException:
+            self.close()
+            raise
+        self.requests: list[Request] = []
+        self._rr = 0
+
+    def _build(self, cfg: ClusterConfig, layout: KVBlockLayout) -> None:
         tcfg = cfg.tiering
         # payload-free: the reference's backing="meta"
         if tcfg.enabled:
@@ -102,19 +129,48 @@ class Cluster:
             spill = -(-spill // cfg.pool_shards) * cfg.pool_shards
             self.pool = TieredPool(layout, cfg.pool_blocks, spill, "meta", n_shards=cfg.pool_shards,
                                    cfg=tcfg)
-            self.index = PrefixIndex(self.pool)
-            # destroyed keys arm the ghost list's admission filter
-            self.index.on_evict = self.pool.policy.ghost_add
-            self.queues = fabric.PoolDeviceQueues()
-            self.migrator = MigrationEngine(self.pool, self.index, tcfg, queues=self.queues)
         else:
             self.pool = KVBlockPool(layout, cfg.pool_blocks, "meta", n_shards=cfg.pool_shards)
-            self.index = PrefixIndex(self.pool)
+        shards = cfg.index_shards
+        self.index = ShardedPrefixIndex(self.pool, shards) if shards > 1 else PrefixIndex(self.pool)
+        if cfg.index_rpc:  # one ring and one server thread per shard
+            self.plane = ring_plane(self.index, cfg.index_rpc_slots, cfg.index_rpc_payload)
+        if tcfg.enabled:
+            # destroyed keys arm the ghost list's admission filter; a
+            # ring-served eviction runs on the shard, so its hook fires too
+            self.index.on_evict = self.pool.policy.ghost_add
+            self.queues = fabric.PoolDeviceQueues()
+            # with index_rpc the migrator's owners_of / remap_many /
+            # evict_blocks cross the rings; only its copies touch the pool
+            self.migrator = MigrationEngine(self.pool, self._index_view(), tcfg,
+                                            queues=self.queues)
+        else:
             self.queues = None
             self.migrator = None
         self.engines: list[EngineInstance] = [self._make_engine(i) for i in range(cfg.n_engines)]
-        self.requests: list[Request] = []
-        self._rr = 0
+
+    def _index_view(self):
+        """The index as an engine or the migrator reaches it: the object
+        itself, or the client side of the rings."""
+        return self.index if self.plane is None else self.plane.remote
+
+    @property
+    def ring_clients(self) -> list[RingClient]:
+        """The ring clients (one per shard), whose ``stats`` count the round
+        trips; empty without ``index_rpc``."""
+        return [] if self.plane is None else list(self.plane.clients)
+
+    def close(self) -> list[RingServer]:
+        """Stop every ring server thread (idempotent); returns those still
+        alive, which a caller must treat as a failure. The clients and their
+        stats stay readable."""
+        return [] if self.plane is None else self.plane.close()
+
+    def __enter__(self) -> "Cluster":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
 
     def _make_engine(self, engine_id: int) -> EngineInstance:
         cfg = self.cfg
@@ -125,7 +181,7 @@ class Cluster:
         )
         hbm = HbmPagedCache(cfg.hbm_slots_per_engine, cfg.block_tokens)
         mgr = KVCacheManager(
-            self.pool, self.index, hbm, transfer,
+            self.pool, self._index_view(), hbm, transfer,
             recompute_cutover=cfg.straggler_cutover,
             prefill_tok_per_s=cfg.runner.prefill_tok_per_s,
             queues=self.queues,
@@ -211,7 +267,7 @@ def _no_offload_plan(mgr):
     return plan
 
 
-def refcounts_settled(pool, index: PrefixIndex) -> bool:
+def refcounts_settled(pool, index: PrefixIndex | ShardedPrefixIndex) -> bool:
     """Once no request is in flight, every pool block's refcount is what
     the index owns: 1 for a block an entry holds at its current epoch, 0
     for every other. A flat pool or a tier chain."""

@@ -25,10 +25,11 @@ Placement (write admission) is decided at allocation:
 
 Demotion and promotion along the chain are ``migrator.MigrationEngine``'s.
 The reference's cross-process export (``share_meta`` / ``share_data``)
-belongs to the cross-process planes (``ROADMAP.md`` queue 1 item 7e) and
+belongs to the shared data plane (``ROADMAP.md`` queue 1 item 7e-iii) and
 is not here, nor are the scalar payload calls (``write_block``,
-``read_block``, ``read_fragments``, ``validate_epoch``), which only the
-reference's coherent reader and writer call.
+``read_block``, ``read_fragments``, ``validate_epoch``): the port's
+coherent reader and writer (``core/coherence.py``) reach a pool through its
+batched calls.
 """
 
 from __future__ import annotations

@@ -14,7 +14,14 @@ requests:
   ``exp05_e2e.PINNED`` equal to the JAX run at the paper's 256 clients, and
   the port's own run at 256 equal to them, with every pool refcount back to
   what the index owns;
-* each ``ValueError`` refusal of a setting that is not ported yet.
+* the metadata plane behind CXL-RPC rings served by threads
+  (``index_rpc``, at 1 and 4 shards, chunked through small slots, under
+  pool pressure) and sharded in process (``index_shards``): each equal to
+  JAX's and to the in-process path; a tiered cluster whose migrator
+  crosses the rings equal to JAX's and to the co-located migrator; exp05's
+  beluga mode at 256 clients over 1 and 4 rings equal to ``PINNED``;
+* each ``ValueError`` refusal of a setting that is not ported yet, naming
+  its ``ROADMAP.md`` item (7e-ii or 7e-iii).
 
 Every number here is MODELED by the simulators; nothing runs on a device.
 """
@@ -264,20 +271,121 @@ def test_settled_check_sees_a_leaked_reference():
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"tiering": TieringConfig(enabled=True), "index_rpc": True}, "item 7e"),
-    ({"index_rpc": True}, "item 7e"),
-    ({"index_rpc": True, "index_transport": "process"}, "item 7e"),
-    ({"index_transport": "process"}, "item 7e"),
-    ({"index_shards": 4}, "item 7e"),
-    ({"data_plane": "shared"}, "item 7e"),
-    ({"engine_processes": 4}, "item 7e"),
-    ({"selfheal": True}, "item 7e"),
+    ({"index_rpc": True, "index_transport": "process"}, "item 7e-ii"),
+    ({"index_transport": "process"}, "item 7e-ii"),
+    ({"tiering": TieringConfig(enabled=True), "index_rpc": True, "selfheal": True},
+     "item 7e-ii"),
+    ({"data_plane": "shared"}, "item 7e-iii"),
+    ({"engine_processes": 4}, "item 7e-iii"),
+    ({"selfheal": True}, "item 7e-ii"),
     ({"index_transport": "carrier-pigeon"}, "must be 'thread' or 'process'"),
     ({"data_plane": "public"}, "must be 'private' or 'shared'"),
 ])
 def test_unported_settings_are_refused(kw, item):
     with pytest.raises(ValueError, match=item):
         Cluster(ClusterConfig(n_engines=1, pool_blocks=64, **kw), SIDES["port"].layout)
+
+
+# ---------------------------------------------------------------------------
+# the metadata plane behind rings (threads) and sharded
+# ---------------------------------------------------------------------------
+
+
+def _observed_closed(side, kw: dict):
+    c, s1, s2, orphans = _scenario(side, kw)
+    try:
+        return _observed(c, s1, s2, orphans), c
+    finally:
+        assert not c.close()  # no server thread outlived its stop
+
+
+@pytest.mark.parametrize("kw", [
+    # the settings the port refused before it had the plane
+    {"index_rpc": True},
+    {"index_rpc": True, "index_shards": 4},
+    {"index_shards": 4},
+    # under pool pressure (evictions cross the rings), slots so small that
+    # every chain goes in chunks, and shards that outnumber the pool's
+    {"index_rpc": True, "index_shards": 4, "pool_blocks": 256, "policy": "cache_aware"},
+    {"index_rpc": True, "index_rpc_slots": 4, "index_rpc_payload": 256, "index_shards": 2},
+    {"index_shards": 3, "pool_blocks": 256, "transfer_mode": "rdma",
+     "super_block_tokens": 256},
+])
+def test_metadata_plane_settings_equal_reference(kw):
+    want, _ = _observed_closed(SIDES["jax"], kw)
+    got, c = _observed_closed(SIDES["port"], kw)
+    for key in want:
+        assert got[key] == want[key], key
+    n_rings = kw.get("index_shards", 1) if kw.get("index_rpc") else 0
+    assert (c.plane is None) == (n_rings == 0)
+    assert c.plane is None or (len(c.plane.servers) == n_rings
+                               and not any(s.alive() for s in c.plane.servers))
+    assert len(c.ring_clients) == n_rings
+    assert all(cl.stats.requests > 0 and cl.stats.errors == 0 for cl in c.ring_clients)
+    if kw.get("index_rpc"):  # behind the ring, the in-process path's answers
+        plain = {k: v for k, v in kw.items() if k not in ("index_rpc", "index_rpc_slots",
+                                                         "index_rpc_payload")}
+        local, _ = _observed_closed(SIDES["port"], plain)
+        if "index_rpc_payload" in kw:  # a chunked match leaves later chunks uncounted
+            for d in (got, local):
+                for s in ("s1", "s2"):
+                    d[s]["index"] = {k: v for k, v in d[s]["index"].items() if k != "misses"
+                                     and k != "hit_rate"}
+        assert got == local
+
+
+@pytest.mark.parametrize("shards", [1, 2])
+def test_tiered_cluster_over_the_ring_equals_reference_and_colocated(shards):
+    """The migrator's owners_of / remap_many / evict_blocks over the rings:
+    the whole run equals JAX's over its rings and the co-located migrator's
+    (``tests/test_tiering.py:531-570`` holds JAX to the same)."""
+    from repro.tiering import TieringConfig as JTieringConfig
+
+    def run(side, **kw):
+        tcfg = (JTieringConfig if side is SIDES["jax"] else TieringConfig)(
+            enabled=True, spill_blocks=64, migrate_interval_s=0.01, migrate_batch_blocks=16)
+        cfg = side.ClusterConfig(n_engines=2, pool_blocks=64, pool_shards=32,
+                                 hbm_slots_per_engine=256, index_shards=shards, tiering=tcfg,
+                                 policy="cache_aware", **kw)
+        c = side.Cluster(cfg, side.layout)
+        try:
+            for i in range(48):
+                base = np.random.default_rng(i % 12).integers(0, 1000, size=256).tolist()
+                c.dispatch(side.Request(f"r{i}", base, 8, 0.05 * i))
+            stats = c.run()
+        finally:
+            alive = c.close()
+        assert not alive
+        every = np.arange(c.pool.n_blocks)
+        return {"timeline": [tuple(getattr(r, f) for f in TIMELINE) for r in c.requests],
+                "stats": stats, "refcounts": c.pool.refcounts[every].tolist(),
+                "epochs": c.pool.epochs[every].tolist()}, c
+
+    want, _ = run(SIDES["jax"], index_rpc=True, index_rpc_slots=8)
+    got, c = run(SIDES["port"], index_rpc=True, index_rpc_slots=8)
+    colocated, c0 = run(SIDES["port"])
+    assert got == want == colocated
+    t = got["stats"]["tiering"]
+    assert t["demotions"] > 0 and t["spill_evictions"] > 0
+    assert all(cl.stats.requests > 0 for cl in c.ring_clients)
+    assert c.migrator.index is not c.index and c0.migrator.index is c0.index
+    assert refcounts_settled(c.pool, c.index)
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_exp05_over_the_ring_at_256_equals_pins(shards):
+    """Table 5's beluga mode at the paper's 256 clients with the index
+    behind rings (phase 20 (i) of ``chip_smoke.py``): every summary number
+    equals ``PINNED`` (the in-process reference run), the per-shard entries
+    summing to the total, and every refcount back to what the index owns."""
+    s1, s2, c = exp05_e2e.run_mode("beluga", index_rpc=True, index_shards=shards)
+    assert not c.close()
+    per_shard = s1["index"].pop("shards", None)
+    assert exp05_e2e.pinned_mismatches("beluga", s1, s2) == []
+    assert (per_shard is None) == (shards == 1)
+    assert per_shard is None or sum(per_shard) == s1["index"]["entries"]
+    assert refcounts_settled(c.pool, c.index)
+    assert len(c.ring_clients) == shards and all(cl.stats.requests for cl in c.ring_clients)
 
 
 def test_cluster_config_fields_and_defaults_are_the_reference_s():
