@@ -353,17 +353,23 @@ Phases, each a hard check (any failure exits non-zero):
    the card; the spill media's latency is MODELED and is not this number)
    are timed with CUDA events and printed as GB/s beside the copy bound
    (2 x bytes / 3.35 TB/s), the card's name and power limit.
-20. the CXL-RPC metadata plane served by threads (``core/{rpc,wire}.py``,
-   ``experiments/ring_serve.py``). (i) On the card's host: exp05's beluga
-   mode at Table 5's size with ``index_rpc`` over 1 and 4 rings, each
-   summary number equal to ``exp05_e2e.PINNED`` (the in-process reference;
-   the per-shard entries summing to the total), every refcount back to the
-   index's, no round trip failed, every server thread stopped; exp11's
-   thread rows (host wall time of the card's machine); exp01 and exp02,
-   MODELED. (ii) Llama-3.1-8B at full width, all 32 layers: phase 4's six
-   requests twice more, on a ``RealEngine`` of phase 4's seed, each run on
-   a fresh pool, the engine's ``index`` field the client side of one ring
-   and of 4 rings (``core/wire.ring_plane``, one server thread a ring).
+20. the CXL-RPC metadata plane served by threads and by processes
+   (``core/{rpc,wire,procserver}.py``, ``experiments/ring_serve.py``). (i)
+   On the card's host: exp05's beluga mode at Table 5's size with
+   ``index_rpc`` over 1 and 4 rings, each summary number equal to
+   ``exp05_e2e.PINNED`` (the in-process reference; the per-shard entries
+   summing to the total), every refcount back to the index's, no round trip
+   failed, every server thread stopped; exp11's thread rows, its process
+   rows (one spawned service process a shard) and its chaos sweep (a
+   watched shard killed under load), host wall time of the card's machine,
+   every round trip answered and the chaos shard recovered; exp01 and
+   exp02, MODELED. (ii) Llama-3.1-8B at full width, all 32 layers: phase 4's six
+   requests behind one ring, and its requests 0, 1, 4 and 5 (the two cold
+   requests and the two full hits; the partial-hit tails, which decode
+   token by token, only over the one ring) behind 4 rings, on a
+   ``RealEngine`` of phase 4's seed, each run on a fresh pool, the
+   engine's ``index`` field the client side of the rings
+   (``core/wire.ring_plane``, one server thread a ring).
    Fails unless each run hits as phase 4 wants and gives the tokens, pool
    block ids and epochs of phase 4's run (its index a ``PrefixIndex`` in
    process, on a fresh pool), and its logits bit for bit; prints each
@@ -374,14 +380,27 @@ Phases, each a hard check (any failure exits non-zero):
    index calls' time outside their round trips at least posts x 1 ms above
    their fastest clean run's; the TTFTs printed beside the clean median),
    then under a 50 ms drop window, inside ``RingRetryPolicy``'s budget (the
-   match retried, the tokens unchanged). Prints the phase's wall time.
+   match retried, the tokens unchanged). (iv) The same engine on a fresh
+   pool whose metadata is shared, its index behind one shard service
+   process (spawned) under a ``ShardWatchdog`` with no probe thread: phase
+   4's requests 0, 1, 4 and 5 (two cold, two full hits), which must give
+   phase 4's tokens, pool block ids, epochs and logits bit for bit in
+   round trips [2, 2, 1, 1]; then ``kill -9`` of the service, one
+   ``check`` that respawns it from its journal, and the two full hits
+   again, 1024 of 1024 tokens hit and logits bit for bit; exactly one
+   restart, every kernel of the path launched, and after ``close`` no
+   child running and every segment and FIFO unlinked. Prints the respawn's
+   wall time and the journal records it replayed, each full hit's TTFT in
+   process, over the thread ring and over the process ring, the process
+   ring's share of the hit TTFT and its mean wait, beside the card's name
+   and power limit. Prints the phase's wall time.
 
 Prints the kernel table as one JSON line (the e4m3 paged instantiation as
 a row of its own, ``paged_attention_e4m3``, and the attention backward as
 ``flash_attention_bwd``, its launches from phase 13, and the SSD backward
 as ``ssd_chunk_bwd``, its launches from phase 14; each row's launches by
 path, ``mesh_train`` among them: rank 0's in phase 16, ``ring`` phase
-20's),
+20 (ii)-(iii)'s, ``ring_process`` (iv)'s),
 the card's name and power limit, and last ``{"ok": true, "device":
 {...}}``. Without a GPU it exits non-zero before doing anything.
 """
@@ -402,11 +421,31 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-from repro_torch.experiments.common import (  # noqa: E402
-    cycled_ms, device_ms, rounding_steps)
 from repro_torch.launch.mesh import (  # noqa: E402; one H100 SXM's data sheet
     HBM_BW as HBM_BYTES_PER_S, PEAK_FLOPS_BF16 as BF16_FLOP_PER_S,
     PEAK_FLOPS_F32 as F32_FLOP_PER_S, PEAK_FLOPS_TF32 as TF32_FLOP_PER_S)
+
+
+# the timing helpers import torch when first called, not with this module: a
+# spawned child (phase 20's shard services) imports this file as its main
+# module and must stay light
+def cycled_ms(*args, **kwargs):
+    from repro_torch.experiments import common
+
+    return common.cycled_ms(*args, **kwargs)
+
+
+def device_ms(*args, **kwargs):
+    from repro_torch.experiments import common
+
+    return common.device_ms(*args, **kwargs)
+
+
+def rounding_steps(*args, **kwargs):
+    from repro_torch.experiments import common
+
+    return common.rounding_steps(*args, **kwargs)
+
 
 FLASH_TOL = 2e-2  # bf16, tests/test_kernels.py:42
 # paged attention, bf16: kernel and plain version take the same inputs and
@@ -4024,13 +4063,25 @@ def phase_tiering() -> None:
     del pool, index, transfer, mgr, mig
 
 
-def phase_ring(cfg, local: list[dict]) -> dict:
-    """Phase 20: the CXL-RPC metadata plane in threads (module docstring).
-    (i) exp05 over the rings, exp11's thread rows, exp01 / exp02 on the
-    host; (ii) Llama-3.1-8B with its index behind one ring and behind 4,
-    held against ``local``, phase 4's run with its index in process; (iii)
-    the ring under a delay and a drop window. Returns the launches of (ii)
-    and (iii)."""
+def _segment_gone(name: str) -> bool:
+    from repro_torch.core.shm import attach_segment, close_segment
+
+    try:
+        seg = attach_segment(name)
+    except FileNotFoundError:
+        return True
+    close_segment(seg, unlink=False)
+    return False
+
+
+def phase_ring(cfg, local: list[dict]) -> tuple[dict, dict]:
+    """Phase 20: the CXL-RPC metadata plane in threads and in processes
+    (module docstring). (i) exp05 over the rings, exp11's rows, exp01 /
+    exp02 on the host; (ii) Llama-3.1-8B with its index behind one ring and
+    behind 4, held against ``local``, phase 4's run with its index in
+    process; (iii) the ring under a delay and a drop window; (iv) the index
+    behind a watched shard service process, killed and respawned. Returns
+    the launches of (ii) and (iii), and those of (iv)."""
     import torch
 
     from repro_torch.core.rpc import RingRetryPolicy
@@ -4067,8 +4118,13 @@ def phase_ring(cfg, local: list[dict]) -> dict:
     rows, res = exp11_rpc.run(fast=False)
     check(res["client_stats"]["errors"] == res["client_stats"]["timeouts"] == 0
           and all(cl["errors"] == cl["timeouts"] == 0 and all(cl["served_per_shard"])
-                  for cl in res["shard_sweep"]),
-          "exp11: every round trip answered (no error, no timeout), every shard served")
+                  for cl in res["shard_sweep"] + res["shard_sweep_process"]),
+          "exp11: every round trip answered (no error, no timeout), every shard served, "
+          "by threads and by service processes")
+    ch = res["chaos"]
+    check(ch["restarts"] == 1 and ch["recovery_s"] is not None,
+          f"exp11 chaos: the killed shard respawned once and served a full match again "
+          f"{ch['recovery_s']} s after the kill (host wall time)")
     print(f"  {exp11_rpc.HOST_NOTE}; the host of the {smi}")
     for row in rows:
         print("  " + ",".join(row))
@@ -4081,10 +4137,11 @@ def phase_ring(cfg, local: list[dict]) -> dict:
         print("  " + ",".join(row))
     t_i = time.perf_counter() - t0
 
-    # (ii) Llama-3.1-8B: phase 4's requests behind one ring, behind 4, each
-    # run on a fresh pool of an engine of phase 4's seed, against phase 4's
-    # run with the index in process
+    # (ii) Llama-3.1-8B: phase 4's requests behind one ring, and without the
+    # partial hits behind 4, each run on a fresh pool of an engine of phase
+    # 4's seed, against phase 4's run with the index in process
     t1 = time.perf_counter()
+    picks = [0, 1, 4, 5]  # the two cold requests and the two full hits
     eng = RealEngine.create(cfg, max_len=MAX_LEN, pool_blocks=POOL_BLOCKS, seed=0)
     _, prompts, want_hits = main_prompts(cfg)
     ops.reset_launch_counts()
@@ -4105,7 +4162,7 @@ def phase_ring(cfg, local: list[dict]) -> dict:
     check(not alive and not any(srv.alive() for srv in plane.servers),
           "the ring's server thread stopped")
     del plane
-    sharded, plane4 = rs.serve(eng, prompts, MAX_NEW, n_shards=4)
+    sharded, plane4 = rs.serve(eng, [prompts[i] for i in picks], MAX_NEW, n_shards=4)
     alive = plane4.close()
     check(not alive and len(plane4.servers) == 4
           and not any(srv.alive() for srv in plane4.servers),
@@ -4114,16 +4171,21 @@ def phase_ring(cfg, local: list[dict]) -> dict:
     torch.cuda.synchronize()
     launches = ops.launch_counts()
     t_ii = time.perf_counter() - t1 - t_iii
-    for name, run in (("in process (phase 4)", local), ("1 ring", ring), ("4 rings", sharded)):
-        check([r["hit_tokens"] for r in run] == want_hits,
-              f"Llama, index {name}: hit tokens {[r['hit_tokens'] for r in run]} == {want_hits}")
-    for name, run in (("1 ring", ring), ("4 rings", sharded)):
+    six = list(range(len(prompts)))
+    for name, run, idx in (("in process (phase 4)", local, six), ("1 ring", ring, six),
+                           ("4 rings", sharded, picks)):
+        want = [want_hits[i] for i in idx]
+        check([r["hit_tokens"] for r in run] == want,
+              f"Llama, index {name}: hit tokens {[r['hit_tokens'] for r in run]} == {want}")
+    for name, run, idx in (("1 ring", ring, six), ("4 rings", sharded, picks)):
+        ref = [local[i] for i in idx]
         same = all(a["tokens"] == b["tokens"] and a["block_ids"] == b["block_ids"]
-                   and a["epochs"] == b["epochs"] for a, b in zip(local, run))
-        bits = all(torch.equal(a["logits"], b["logits"]) for a, b in zip(local, run))
+                   and a["epochs"] == b["epochs"] for a, b in zip(ref, run))
+        bits = all(torch.equal(a["logits"], b["logits"]) for a, b in zip(ref, run))
         check(same and bits, f"Llama, index behind {name}: the same tokens, pool block ids "
-              "and epochs as phase 4's run with its index in process, logits bit for bit")
-        for i, r in enumerate(run):
+              f"and epochs as phase 4's run with its index in process (requests {idx}), "
+              "logits bit for bit")
+        for i, r in zip(idx, run):
             print(f"  {name} req {i}: hit {r['hit_tokens']}/{PROMPT}, ttft "
                   f"{r['ttft_s'] * 1e3:.2f} ms (in process {local[i]['ttft_s'] * 1e3:.2f}), "
                   f"{r['round_trips']} round trips, mean wait {r['mean_wait_s'] * 1e6:.1f} us, "
@@ -4165,12 +4227,63 @@ def phase_ring(cfg, local: list[dict]) -> dict:
         "mean_wait_us": [r["mean_wait_s"] * 1e6 for r in ring],
         "hit_ttft_ms": {"in_process": [r["ttft_s"] * 1e3 for r in local[4:]],
                         "ring": [r["ttft_s"] * 1e3 for r in ring[4:]],
-                        "rings_4": [r["ttft_s"] * 1e3 for r in sharded[4:]]},
+                        "rings_4": [r["ttft_s"] * 1e3 for r in sharded[2:]]},
         "ring_share_of_hit_ttft": share, "launches": launches}))
-    del eng, local, ring, sharded
+
+    # (iv) the index behind one shard service process under a watchdog
+    # (spawned, no probe thread): requests 0, 1, 4 and 5 on a fresh pool,
+    # then the service killed, respawned from its journal, the hits again
+    t4 = time.perf_counter()
+    ops.reset_launch_counts()
+    proc, pplane = rs.serve(eng, [prompts[i] for i in picks], MAX_NEW, n_shards=1,
+                            transport="process", watched=True)
+    try:
+        healed = rs.respawn(pplane)
+        again = rs.rerun(eng, pplane, prompts[4:], MAX_NEW)
+        restarts, adopted = pplane.restarts(), pplane.clients[0].stats.restarts
+        names, paths = pplane.segment_names(), pplane.doorbell_paths()
+    finally:
+        alive = pplane.close()
+    torch.cuda.synchronize()
+    launches_iv = ops.launch_counts()
+    t_iv = time.perf_counter() - t4
+    check(not alive and not any(s.running() for s in pplane.services)
+          and all(_segment_gone(n) for n in names) and not any(os.path.exists(p) for p in paths),
+          f"the shard service's children ended, its {len(names)} segments and {len(paths)} "
+          "FIFOs unlinked")
+    same = all(r["tokens"] == local[i]["tokens"] and r["block_ids"] == local[i]["block_ids"]
+               and r["epochs"] == local[i]["epochs"]
+               and torch.equal(r["logits"], local[i]["logits"]) for i, r in zip(picks, proc))
+    check(same and [r["hit_tokens"] for r in proc] == [want_hits[i] for i in picks],
+          "Llama, index behind a shard service process: requests 0, 1, 4, 5 give phase 4's "
+          "tokens, pool block ids, epochs and hits, logits bit for bit")
+    check([r["round_trips"] for r in proc] == [2, 2, 1, 1],
+          f"over the process ring: round trips {[r['round_trips'] for r in proc]} == [2, 2, 1, 1]")
+    check(restarts == adopted == 1 and healed["ready"]
+          and all(r["hit_tokens"] == PROMPT and r["tokens"] == local[4 + k]["tokens"]
+                  and torch.equal(r["logits"], local[4 + k]["logits"])
+                  for k, r in enumerate(again)),
+          f"after kill -9 and one respawn from {healed['replayed']} journal records: "
+          f"{[r['hit_tokens'] for r in again]} of {PROMPT} tokens hit, the tokens and logits "
+          f"of phase 4 bit for bit; {restarts} restart, the client on the new ring")
+    check(all(launches_iv[k] > 0 for k in LLAMA_KERNELS),
+          f"every kernel of the path launched in phase 20 (iv): {launches_iv}")
+    hits_iv = proc[2:]
+    print("  process ring: " + json.dumps({
+        "card": smi, "respawn_s": healed["respawn_s"], "journal_records": healed["replayed"],
+        "round_trips": [r["round_trips"] for r in proc],
+        "mean_wait_us": [r["mean_wait_s"] * 1e6 for r in proc],
+        "hit_ttft_ms": {"in_process": [r["ttft_s"] * 1e3 for r in local[4:]],
+                        "thread_ring": [r["ttft_s"] * 1e3 for r in ring[4:]],
+                        "process_ring": [r["ttft_s"] * 1e3 for r in hits_iv],
+                        "process_ring_after_respawn": [r["ttft_s"] * 1e3 for r in again]},
+        "process_ring_share_of_hit_ttft": [r["index_s"] / r["ttft_s"] for r in hits_iv],
+        "thread_ring_share_of_hit_ttft": [r["index_s"] / r["ttft_s"] for r in ring[4:]],
+        "launches": launches_iv}))
+    del eng, local, ring, sharded, proc, again
     print(f"  phase 20 in {time.perf_counter() - t0:.1f} s ((i) {t_i:.1f} s on the host, "
-          f"(ii) {t_ii:.1f} s, (iii) {t_iii:.1f} s)", flush=True)
-    return launches
+          f"(ii) {t_ii:.1f} s, (iii) {t_iii:.1f} s, (iv) {t_iv:.1f} s)", flush=True)
+    return launches, launches_iv
 
 
 def phase_roofline(seed: int = 0) -> dict:
@@ -4394,11 +4507,12 @@ def main() -> None:
     phase_tiering()
     gc.collect()
     torch.cuda.empty_cache()
-    print("[20] the CXL-RPC metadata plane in threads: exp05 over 1 and 4 rings, exp11, "
-          "exp01, exp02 on the card's host; Llama-3.1-8B full width with its index behind "
-          "1 ring and behind 4 against phase 4's run; the ring under delay and drop windows",
+    print("[20] the CXL-RPC metadata plane in threads and processes: exp05 over 1 and 4 "
+          "rings, exp11, exp01, exp02 on the card's host; Llama-3.1-8B full width with its "
+          "index behind 1 ring and behind 4 against phase 4's run; the ring under delay and "
+          "drop windows; the index behind a shard service process, killed and respawned",
           flush=True)
-    ring_launches = phase_ring(cfg, llama_in_process)
+    ring_launches, ring_process_launches = phase_ring(cfg, llama_in_process)
     del llama_in_process
     gc.collect()
     torch.cuda.empty_cache()
@@ -4408,7 +4522,7 @@ def main() -> None:
              "musicgen": musicgen_launches, "train": train_launches,
              "mamba2_train": ssm_train_launches, "mesh": mesh_launches,
              "mesh_train": mesh_train_launches, "roofline": roofline_launches,
-             "ring": ring_launches}
+             "ring": ring_launches, "ring_process": ring_process_launches}
     own = {"ssd_chunk": "mamba2", "sparse_kv_gather": "sparse",
            "paged_attention_e4m3": "qwen3_fp8", "flash_attention_bwd": "train",
            "ssd_chunk_bwd": "mamba2_train"}

@@ -7,15 +7,17 @@ engine. Kernels on the serving path are hand-written CUDA C++ for Hopper
 PyTorch version beside it that runs for tensors that lie on the CPU.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+Importing the package does not import torch: a shard service process
+(``core/procserver.py``) runs the metadata plane without it.
 """
 
 from __future__ import annotations
 
-import torch
 
-
-def resolve_device(device: str | torch.device | None) -> torch.device:
+def resolve_device(device: str | torch.device | None) -> torch.device:  # noqa: F821
     """``None`` means the card; without one, raise rather than run on the CPU."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

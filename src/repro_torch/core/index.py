@@ -59,11 +59,14 @@ import hashlib
 from collections import OrderedDict
 from dataclasses import dataclass
 from itertools import islice
-from typing import Callable
+from typing import TYPE_CHECKING, Callable
 
 import numpy as np
 
-from repro_torch.core.pool import KVBlockPool
+from repro_torch.core.shm import live_entries
+
+if TYPE_CHECKING:  # a shard service imports this module without torch
+    from repro_torch.core.pool import KVBlockPool
 
 ROOT = b"ROOT"
 _REQUEST_MEMO_MAX = 256  # chains remembered by keys_for, as the reference's
@@ -245,6 +248,16 @@ class PrefixIndex:
         for k, b, e, t in zip(keys, block_ids, epochs, n_tokens):
             self.publish(k, int(b), int(e), int(t))
         return len(keys)
+
+    def rebuild_from_journal(self, records) -> int:
+        """Replay journal records (``live_entries``' fold) into this fresh
+        index, one publish a surviving entry in journal order, without
+        checking epochs against the pool: an entry stale before the crash
+        comes back stale, as the reference's does. Returns the entries."""
+        live = live_entries(records)
+        for k, (bid, epoch, ntk) in live.items():
+            self.publish(k, bid, epoch, max(0, ntk))
+        return len(live)
 
     def seed_stats(self, hits: int, misses: int) -> None:
         """Set the hit / miss counters (a restarted shard's, from before)."""

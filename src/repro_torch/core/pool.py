@@ -14,6 +14,13 @@ dry it sweeps what is left by shard. The reference's non-interleaved FIFO
 batched epoch bump or snapshot: the calls through which a transfer, and a
 tier chain (``tiering/tiers.py``), reach a pool's bytes.
 
+``share_meta`` moves the epochs, refcounts and committed flags into one
+named segment of 13n bytes (int64 epochs at 0, int32 refcounts at 8n, bool
+committed at 12n: the reference's layout, so a service of either package
+attaches either pool), which a shard service process maps read-only
+(``core/procserver.PoolMetaView``); every later write to those arrays is in
+place. ``unshare_meta`` copies them back and unlinks the segment.
+
 The payload is one tensor of shape ``(n_blocks, 2L, block_tokens, hkv,
 hd)``: every layer's K and V fragments of a block, interleaved ``[k0, v0,
 k1, v1, ...]`` — the layout that ``kv_gather_write`` packs and
@@ -28,12 +35,14 @@ The port's engines are single-threaded, so the pool takes no lock.
 
 from __future__ import annotations
 
+import atexit
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.shm import close_segment, create_segment
 
 
 @dataclass(frozen=True)
@@ -118,6 +127,8 @@ class KVBlockPool:
         self._stamp = n_blocks
         self._n_free = n_blocks
         self._occ = [0] * n_shards
+        self._meta_segment = None
+        self._meta_spec: dict | None = None
         self.data = torch.zeros(
             (n_blocks, *layout.block_shape), dtype=PAYLOAD_DTYPES[layout.dtype_bytes],
             device=device,
@@ -131,6 +142,35 @@ class KVBlockPool:
     def payload_free(self) -> bool:
         """The payload lies on ``meta``: metadata only, no bytes."""
         return self.data.device.type == "meta"
+
+    # ------------------------------------------------------------------
+    def share_meta(self) -> dict:
+        """Move the metadata into a named segment (idempotent); returns the
+        attach spec, plain data: ``shm_name``, ``n_blocks``,
+        ``block_tokens``."""
+        if self._meta_spec is None:
+            seg, arrays = shared_meta_segment(self.n_blocks)
+            for dst, src in zip(arrays, (self.epochs, self.refcounts, self.committed)):
+                dst[:] = src
+            self.epochs, self.refcounts, self.committed = arrays
+            self._meta_segment = seg
+            self._meta_spec = {"shm_name": seg.name, "n_blocks": self.n_blocks,
+                               "block_tokens": self.layout.block_tokens}
+            atexit.register(self.unshare_meta)
+        return self._meta_spec
+
+    def unshare_meta(self) -> None:
+        """Copy the metadata back into private arrays and unlink the
+        segment; safe to repeat, and when never shared."""
+        seg = self._meta_segment
+        if seg is None:
+            return
+        self.epochs = np.array(self.epochs, np.int64)
+        self.refcounts = np.array(self.refcounts, np.int32)
+        self.committed = np.array(self.committed, bool)
+        self._meta_segment = self._meta_spec = None
+        close_segment(seg, unlink=True)
+        atexit.unregister(self.unshare_meta)
 
     # ------------------------------------------------------------------
     def free_blocks(self) -> int:
@@ -244,3 +284,12 @@ class KVBlockPool:
         """Vectorized committed + epoch check."""
         ids = np.asarray(block_ids, np.intp)
         return self.committed[ids] & (self.epochs[ids] == np.asarray(epochs))
+
+
+def shared_meta_segment(n: int):
+    """A zeroed segment of ``n`` blocks' metadata and its three views
+    (epochs int64 at 0, refcounts int32 at 8n, committed bool at 12n)."""
+    seg = create_segment(13 * n)
+    return seg, (np.frombuffer(seg.buf, np.int64, n, 0),
+                 np.frombuffer(seg.buf, np.int32, n, 8 * n),
+                 np.frombuffer(seg.buf, np.bool_, n, 12 * n))

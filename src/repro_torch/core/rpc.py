@@ -25,9 +25,13 @@ Single owner, no lock: the reference guards a client's free list with a
 lock so that threads may share one client. Here a client belongs to one
 thread; threads that share a ring each hold their own client over a
 disjoint ``slot_range``, as the reference's engine worker processes do. The
-server runs in a ``threading.Thread`` (``RingServer``), the thread
-transport; the process transport, with its doorbell, comes with
-``ROADMAP.md`` queue 1 item 7e-ii.
+server runs in a ``threading.Thread`` (``RingServer``, the thread
+transport, its doorbell a ``threading.Event``) or in a process of its own
+over a ring in a named segment (``core/procserver.ShardProcess``, the
+process transport, its doorbell a ``core/shm.FifoDoorbell``); ``drain_ready``
+serves both. A client that follows a ``core/procserver.ShardWatchdog``
+(``source``) moves itself onto the watchdog's newest ring when a call
+raises ``RingServiceDied`` (``follow``), on its own thread.
 
 ``RdmaRpcModel`` is the reference's ``ModeledRdmaRpc``: the same handler,
 its round trip priced by the paper's RDMA constants (MODELED).
@@ -83,6 +87,7 @@ class RingStats:
     errors: int = 0  # RESP_ERROR frames and dead services
     retries: int = 0  # attempts retried under a RingRetryPolicy
     restarts: int = 0  # ring swaps seen (adopt_ring)
+    degraded_ops: int = 0  # ops a degrading sharded client turned into holes
 
     @property
     def round_trips(self) -> int:
@@ -297,13 +302,21 @@ class RingClient:
 
     ``slot_range=(lo, hi)`` restricts the client to slots [lo, hi), so that
     several clients share a ring. ``liveness`` (a callable) turns a dead
-    service into a fast ``RingServiceDied`` instead of a full timeout."""
+    service into a fast ``RingServiceDied`` instead of a full timeout.
+    ``source`` is an object whose ``generation`` attribute names the newest
+    service (``number`` and ``service``, with ``ring``, ``alive`` and
+    ``producer()``): ``follow`` adopts it, and the client starts on
+    ``generation``."""
 
     def __init__(self, ring: SlotRing, liveness=None,
-                 slot_range: tuple[int, int] | None = None, doorbell=None):
+                 slot_range: tuple[int, int] | None = None, doorbell=None, source=None):
         self.ring = ring
         self.liveness = liveness
-        self.doorbell = doorbell  # the server's event: set on a post while armed
+        # the server's wakeup: set on a post while armed (a threading.Event
+        # or a FifoDoorbell producer)
+        self.doorbell = doorbell
+        self.source = source
+        self._generation = None if source is None else source.generation.number
         self._slot_range = (0, ring.n_slots) if slot_range is None else tuple(slot_range)
         lo, hi = self._slot_range
         if not 0 <= lo < hi <= ring.n_slots:
@@ -325,7 +338,11 @@ class RingClient:
     def adopt_ring(self, ring: SlotRing, liveness=None, doorbell=None) -> None:
         """Cut over to a fresh ring (a restarted service's, with its liveness
         probe and doorbell): the free list is full again, nothing stays
-        quarantined, the slot range is kept."""
+        quarantined, the slot range is kept. A FIFO doorbell left behind
+        is closed."""
+        old = self.doorbell
+        if old is not None and old is not doorbell and hasattr(old, "close"):
+            old.close()
         self.ring = ring
         self.liveness = liveness
         self.doorbell = doorbell
@@ -334,6 +351,22 @@ class RingClient:
         self._quarantined = set()
         self._t_posted = np.zeros(ring.n_slots, np.float64)
         self.stats.restarts += 1
+
+    def follow(self) -> bool:
+        """Adopt ``source``'s newest generation if this client is not on it
+        yet; True when it moved. Called by the client's owner."""
+        gen = None if self.source is None else self.source.generation
+        if gen is None or gen.number == self._generation:
+            return False
+        srv = gen.service
+        self.adopt_ring(srv.ring, liveness=srv.alive, doorbell=srv.producer())
+        self._generation = gen.number
+        return True
+
+    def close(self) -> None:
+        """Drop the client's FIFO doorbell handle, if it has one."""
+        if hasattr(self.doorbell, "close"):
+            self.doorbell.close()
 
     def _reclaim(self, slots) -> None:
         for s in slots:

@@ -46,12 +46,24 @@ stay serial, so the service refreshes exactly the global prefix; pure reads
 pipeline up to 8 chunks). ``ShardedRemoteIndex`` (``ShardedRpcIndexClient``)
 fronts S rings, one ``PrefixIndex`` shard behind each, and posts to every
 shard's ring before collecting any reply. A ``RingRetryPolicy`` retries a
-dead or swapped ring for every op, a timeout only for ops that may repeat.
-``on_evict`` hears the keys a ring-served eviction destroyed.
+dead or swapped ring for every op, a timeout only for ops that may repeat;
+a client that follows a shard watchdog (``RingClient.source``) moves onto
+the respawned service's ring before it retries. ``on_evict`` hears the keys
+a ring-served eviction destroyed.
+
+For a service in another process (``core/procserver.py``), which never
+writes the pool: ``on_freed`` releases the ids an eviction reply carries,
+in the pool-owning process; ``journal`` (``journals``, one a shard)
+records each publish, eviction and remap once its reply confirmed it
+(``core/shm.PublishJournal``), so a respawned service replays them; a
+sharded client with ``degrade`` turns a shard that stays down through its
+retries into holes in a match, which cuts the prefix there.
+
 ``ring_plane`` serves an index over S rings in threads of this process
-(``RingPlane``), the one place the thread transport is put together. The
-pool and journal ops (13-19, 21, 22) come with the process transport
-(``ROADMAP.md`` queue 1 item 7e-ii).
+(``RingPlane``), the one place the thread transport is put together
+(``core/procserver.process_plane`` is the process transport's). The pool
+and journal ops (13-19, 21, 22) belong to the shared data plane and the
+engine workers (``ROADMAP.md`` queue 1 item 7e-iii).
 """
 
 from __future__ import annotations
@@ -74,6 +86,8 @@ from repro_torch.core.index import (
     partition_keys,
 )
 from repro_torch.core.rpc import (
+    CTRL_BUSY_NS,
+    CTRL_SERVED,
     RingClient,
     RingRetryPolicy,
     RingServer,
@@ -405,11 +419,12 @@ def _evict_with_keys(index, fn) -> bytes:
     return _U32.pack(len(freed)) + _i64(freed) + _U32.pack(len(collected)) + b"".join(collected)
 
 
-def handle_request(index, buf: bytes, _depth: int = 0, _validated: bool = False) -> bytes:
+def handle_request(index, buf: bytes, _depth: int = 0, _validated: bool = False,
+                   ctrl=None) -> bytes:
     """Decode one message, run it against ``index``, encode the reply.
     ``_validated`` skips the checks ``prevalidate`` made. STATS reports the
-    service timer's two words as 0: the thread transport reads the ring's
-    ctrl words directly (``RingServer.served`` / ``busy_ns``)."""
+    service timer's two words from ``ctrl`` (the serving ring's control
+    words, ``CTRL_SERVED`` and ``CTRL_BUSY_NS``), 0 without it."""
     op, n = _header(buf)
     if op == OP_MATCH:
         keys, _ = _split_keys(buf, _HDR.size, n)
@@ -466,7 +481,9 @@ def handle_request(index, buf: bytes, _depth: int = 0, _validated: bool = False)
         return _evict_with_keys(index, lambda: index.evict_blocks(ids.tolist()))
     if op == OP_STATS:
         s = index.stats()
-        return _STATS.pack(s["entries"], s["hits"], s["misses"], 0, 0)
+        served = 0 if ctrl is None else int(ctrl[CTRL_SERVED])
+        busy = 0 if ctrl is None else int(ctrl[CTRL_BUSY_NS])
+        return _STATS.pack(s["entries"], s["hits"], s["misses"], served, busy)
     if op == OP_SNAPSHOT:
         _need(buf, _HDR.size + 4)
         (start,) = _U32.unpack_from(buf, _HDR.size)
@@ -488,22 +505,23 @@ def handle_request(index, buf: bytes, _depth: int = 0, _validated: bool = False)
         return _U32.pack(0)
     if op == OP_BATCH:
         _nested(_depth)
-        out = [handle_request(index, f, _depth + 1, _validated)
+        out = [handle_request(index, f, _depth + 1, _validated, ctrl)
                for f in _split_frames(buf, _HDR.size, n)]
         return _U32.pack(n) + b"".join(_U32.pack(len(r)) + r for r in out)
     raise WireFormatError(f"unknown op {op}")
 
 
-def make_index_handler(index, max_reply: int | None = None):
+def make_index_handler(index, max_reply: int | None = None, ctrl=None):
     """A ring server's handler over ``index``: the reply must fit
     ``max_reply`` (checked before anything runs), then ``prevalidate``,
-    then the ops."""
+    then the ops. ``ctrl`` (the serving ring's control words) feeds the
+    service timer to STATS."""
 
     def handler(payload: bytes) -> bytes:
         if max_reply is not None and reply_bound(payload) > max_reply:
             raise WireFormatError(f"reply would exceed {max_reply} B slot")
         prevalidate(index, payload)
-        return handle_request(index, payload, _validated=True)
+        return handle_request(index, payload, _validated=True, ctrl=ctrl)
 
     return handler
 
@@ -514,34 +532,42 @@ def make_index_handler(index, max_reply: int | None = None):
 def _call_with_retry(rpc, payload: bytes, retry: RingRetryPolicy | None, idempotent: bool,
                      timeout: float | None = None) -> bytes:
     """One round trip under ``retry``: a dead or swapped ring is retried for
-    every op, a timeout only for an op that may run twice (a timed-out
-    EVICT or REMAP may have applied)."""
+    every op (the journal makes a replayed mutation safe), a timeout only
+    for an op that may run twice (a timed-out EVICT or REMAP may have
+    applied). After a dead ring, a client that follows a watchdog moves
+    onto its newest ring and re-posts at once."""
     attempt = 0
     while True:
+        moved = False
         try:
             return rpc.call(payload) if timeout is None else rpc.call(payload, timeout)
         except RingServiceDied:
-            if retry is None:
+            if retry is None or attempt >= retry.max_retries:
                 raise
+            moved = rpc.follow()
         except TimeoutError:
-            if retry is None or not idempotent:
+            if retry is None or not idempotent or attempt >= retry.max_retries:
                 raise
         attempt += 1
-        if attempt > retry.max_retries:
-            raise
         rpc.stats.retries += 1
-        time.sleep(retry.backoff(attempt))
+        if not moved:
+            time.sleep(retry.backoff(attempt))
 
 
 class RemoteIndex:
     """The prefix index's surface over one ring (``RpcIndexClient``'s twin):
-    hashing runs here, and only keys cross the ring."""
+    hashing runs here, and only keys cross the ring. ``on_freed`` releases
+    an eviction's freed ids where the service cannot (another process);
+    ``journal`` records each confirmed publish, eviction and remap."""
 
     def __init__(self, rpc, block_tokens: int, hasher: ChainHasher | None = None,
-                 retry: RingRetryPolicy | None = None, on_evict=None):
+                 retry: RingRetryPolicy | None = None, on_evict=None, on_freed=None,
+                 journal=None):
         self.rpc = rpc
         self.retry = retry
         self.on_evict = on_evict  # hears the keys a ring-served eviction destroyed
+        self.on_freed = on_freed
+        self.journal = journal
         self.hasher = hasher if hasher is not None else ChainHasher(block_tokens)
         self.block_tokens = block_tokens
         max_payload = rpc.ring.payload_bytes
@@ -611,6 +637,9 @@ class RemoteIndex:
             end = off + self._max_publish
             self._call(encode_publish(keys[off:end], block_ids[off:end], epochs[off:end],
                                       n_tokens))
+            if self.journal is not None:
+                self.journal.append_publish(keys[off:end], block_ids[off:end],
+                                            epochs[off:end], n_tokens)
 
     def lookup_many(self, keys) -> list[PrefixEntry | None]:
         M = self._max_lookup
@@ -633,6 +662,11 @@ class RemoteIndex:
 
     def _evicted(self, msg: bytes) -> list[int]:
         got, gone = decode_evict_resp_keys(self._call(msg, idempotent=False))
+        if got:
+            if self.journal is not None:
+                self.journal.append_retract(got)
+            if self.on_freed is not None:
+                self.on_freed(got)
         if gone and self.on_evict is not None:
             self.on_evict(gone)
         return got
@@ -668,10 +702,15 @@ class RemoteIndex:
         ok: list[bool] = []
         for off in range(0, len(keys), M):
             end = off + M
-            ok.extend(decode_remap_resp(self._call(
+            sub = decode_remap_resp(self._call(
                 encode_remap(keys[off:end], old_ids[off:end], old_epochs[off:end],
                              new_ids[off:end], new_epochs[off:end]),
-                idempotent=False)))
+                idempotent=False))
+            if self.journal is not None and any(sub):
+                done = [off + i for i, o in enumerate(sub) if o]
+                self.journal.append_remap([keys[i] for i in done], [new_ids[i] for i in done],
+                                          [new_epochs[i] for i in done])
+            ok.extend(sub)
         return ok
 
     def evict_blocks(self, block_ids) -> list[int]:
@@ -722,10 +761,15 @@ class ShardedRemoteIndex:
     reference's ``ShardedRpcIndexClient``): the same routing and merges as
     ``core/index.ShardedPrefixIndex``, and each fan-out posts to every
     shard's ring before it collects a reply. S=1 sends what one
-    ``RemoteIndex`` sends."""
+    ``RemoteIndex`` sends. ``journals`` holds a shard's journal (or None)
+    per ring; with ``degrade``, a match whose shard stays down through its
+    retries (a dead or swapped ring, a timeout) takes that shard's positions
+    as holes, counted in ``degraded_ops`` and the ring client's stats; any
+    other failure still raises."""
 
     def __init__(self, rpcs, block_tokens: int, hasher: ChainHasher | None = None,
-                 retry: RingRetryPolicy | None = None, on_evict=None):
+                 retry: RingRetryPolicy | None = None, on_evict=None, on_freed=None,
+                 journals=None, degrade: bool = False):
         if not rpcs:
             raise ValueError("need at least one rpc transport")
         self.rpcs = list(rpcs)
@@ -733,18 +777,25 @@ class ShardedRemoteIndex:
         self.block_tokens = block_tokens
         self.hasher = hasher if hasher is not None else ChainHasher(block_tokens)
         self.retry = retry
+        self.degrade = degrade
+        self.degraded_ops = 0
+        self.journals = [None] * self.n_shards if journals is None else list(journals)
         self.shards = [RemoteIndex(r, block_tokens, hasher=self.hasher, retry=retry,
-                                   on_evict=on_evict) for r in self.rpcs]
+                                   on_evict=on_evict, on_freed=on_freed, journal=j)
+                       for r, j in zip(self.rpcs, self.journals)]
         # rings may differ in slot size: a fan-out takes the tightest
         for name in ("_max_match", "_max_publish", "_max_lookup", "_max_owners", "_max_remap"):
             setattr(self, name, min(getattr(s, name) for s in self.shards))
 
     def _fanout(self, msgs: dict[int, bytes], idempotent: bool = True,
-                timeout: float = 5.0) -> dict[int, bytes]:
+                timeout: float = 5.0, failed: set[int] | None = None) -> dict[int, bytes]:
         """Post every shard's request, then collect every reply. A failed
         post stops posting; what was posted is still collected. A shard
         that failed transiently, or was never posted, gets its retries
-        (``RingRetryPolicy``); then the first failure left is raised."""
+        (``RingRetryPolicy``; one more attempt without one when ``failed``
+        is given); then the first failure left is raised, unless ``failed``
+        is given and every failure left is transient: those shards are
+        added to it and left out of the answer."""
         slots: dict[int, int] = {}
         errs: dict[int, BaseException] = {}
         for s, m in msgs.items():
@@ -761,16 +812,25 @@ class ShardedRemoteIndex:
                 errs[s] = e
         for s in msgs:
             e = errs.get(s)
-            if s in out or self.retry is None or (e is not None and not isinstance(e, _TRANSIENT)):
+            if s in out or (e is not None and not isinstance(e, _TRANSIENT)):
                 continue
             if isinstance(e, TimeoutError) and not idempotent:
                 continue  # it may have applied: surface it
+            if self.retry is None and failed is None:
+                continue
             try:
                 out[s] = _call_with_retry(self.rpcs[s], msgs[s], self.retry, idempotent, timeout)
                 errs.pop(s, None)
             except BaseException as e2:  # noqa: BLE001 - raised below
                 errs[s] = e2
-        if len(out) < len(msgs):
+        missing = [s for s in msgs if s not in out]
+        if missing and failed is not None and all(
+                isinstance(errs[s], _TRANSIENT) for s in missing if s in errs):
+            for s in missing:
+                failed.add(s)
+                self.rpcs[s].stats.degraded_ops += 1
+            self.degraded_ops += len(missing)
+        elif missing:
             for s in msgs:
                 if s in errs:
                     raise errs[s]
@@ -780,21 +840,26 @@ class ShardedRemoteIndex:
     def keys_for(self, tokens: list[int]) -> tuple[bytes, ...]:
         return self.hasher.keys_for(tokens)
 
-    def _rounds(self, keys, M: int, encode, idempotent: bool = True):
+    def _rounds(self, keys, M: int, encode, idempotent: bool = True,
+                failed: set[int] | None = None):
         """Chunk rounds over the shards' sub-chains, each round one fan-out:
-        yields (a shard's keys, their positions in ``keys``, the chunk's
-        offset, the reply); ``encode(keys, positions, lo, hi)`` builds a
-        shard's chunk. A shard leaves when its sub-chain is done, or when the
-        caller sends False for its reply (a match's short chunk)."""
+        yields (the shard, its keys, their positions in ``keys``, the
+        chunk's offset, the reply); ``encode(keys, positions, lo, hi)``
+        builds a shard's chunk. A shard leaves when its sub-chain is done,
+        when the caller sends False for its reply (a match's short chunk),
+        or when it lands in ``failed`` (``_fanout``)."""
         key_lists, pos_lists = partition_keys(keys, self.n_shards)
         offs = [0] * self.n_shards
         active = {s for s in range(self.n_shards) if key_lists[s]}
         while active:
             resp = self._fanout({s: encode(key_lists[s], pos_lists[s], offs[s], offs[s] + M)
-                                 for s in sorted(active)}, idempotent)
+                                 for s in sorted(active)}, idempotent, failed=failed)
             for s in sorted(active):
+                if s not in resp:  # degraded: its positions stay holes
+                    active.discard(s)
+                    continue
                 o = offs[s]
-                more = yield key_lists[s], pos_lists[s], o, resp[s]
+                more = yield s, key_lists[s], pos_lists[s], o, resp[s]
                 offs[s] = o + min(M, len(key_lists[s]) - o)
                 if more is False or offs[s] >= len(key_lists[s]):
                     active.discard(s)
@@ -804,13 +869,21 @@ class ShardedRemoteIndex:
 
     def match_prefix_keys(self, keys) -> list[tuple[bytes, int, int]]:
         if self.n_shards == 1:
-            return self.shards[0].match_prefix_keys(keys)
+            if not self.degrade:
+                return self.shards[0].match_prefix_keys(keys)
+            try:
+                return self.shards[0].match_prefix_keys(keys)
+            except _TRANSIENT:  # the one shard is down: every position a hole
+                self.degraded_ops += 1
+                self.rpcs[0].stats.degraded_ops += 1
+                return []
         found: list[tuple[int, int] | None] = [None] * len(keys)
         M = self._max_match
-        rounds = self._rounds(keys, M, lambda kl, pl, lo, hi: encode_match(kl[lo:hi]))
+        rounds = self._rounds(keys, M, lambda kl, pl, lo, hi: encode_match(kl[lo:hi]),
+                              failed=set() if self.degrade else None)
         step = next(rounds, None)
         while step is not None:
-            kl, pl, o, resp = step
+            _, kl, pl, o, resp = step
             ids, eps = decode_match_resp(resp)
             for j, (b, e) in enumerate(zip(ids.tolist(), eps.tolist())):
                 found[pl[o + j]] = (b, e)
@@ -832,14 +905,18 @@ class ShardedRemoteIndex:
             return encode_publish(kl[lo:hi], [block_ids[i] for i in sel],
                                   [epochs[i] for i in sel], n_tokens)
 
-        for _ in self._rounds(keys, self._max_publish, encode):
-            pass
+        M = self._max_publish
+        for s, kl, pl, o, _ in self._rounds(keys, M, encode):
+            if self.journals[s] is not None:
+                sel = pl[o : o + M]
+                self.journals[s].append_publish(kl[o : o + M], [block_ids[i] for i in sel],
+                                                [epochs[i] for i in sel], n_tokens)
 
     def lookup_many(self, keys) -> list[PrefixEntry | None]:
         if self.n_shards == 1:
             return self.shards[0].lookup_many(keys)
         out: list[PrefixEntry | None] = [None] * len(keys)
-        for _, pl, o, resp in self._rounds(
+        for _, _, pl, o, resp in self._rounds(
                 keys, self._max_lookup, lambda kl, pl, lo, hi: encode_lookup(kl[lo:hi])):
             ids, eps, ntk = decode_lookup_resp(resp)
             for j, (b, e, t) in enumerate(zip(ids.tolist(), eps.tolist(), ntk.tolist())):
@@ -851,7 +928,7 @@ class ShardedRemoteIndex:
         if self.n_shards == 1:
             return self.shards[0].filter_unpublished(keys)
         out: list[int] = []
-        for _, pl, o, resp in self._rounds(
+        for _, _, pl, o, resp in self._rounds(
                 keys, self._max_lookup, lambda kl, pl, lo, hi: encode_filter(kl[lo:hi])):
             out.extend(pl[o + p] for p in decode_filter_resp(resp))
         return sorted(out)
@@ -885,9 +962,15 @@ class ShardedRemoteIndex:
                                 [new_epochs[i] for i in sel])
 
         ok = [False] * len(keys)
-        for _, pl, o, resp in self._rounds(keys, self._max_remap, encode, idempotent=False):
-            for v, i in zip(decode_remap_resp(resp), pl[o : o + self._max_remap]):
+        M = self._max_remap
+        for s, _, pl, o, resp in self._rounds(keys, M, encode, idempotent=False):
+            sub = decode_remap_resp(resp)
+            for v, i in zip(sub, pl[o : o + M]):
                 ok[i] = v
+            if self.journals[s] is not None and any(sub):
+                done = [i for v, i in zip(sub, pl[o : o + M]) if v]
+                self.journals[s].append_remap([keys[i] for i in done], [new_ids[i] for i in done],
+                                              [new_epochs[i] for i in done])
         return ok
 
     def evict_blocks(self, block_ids) -> list[int]:
@@ -901,17 +984,9 @@ class ShardedRemoteIndex:
         return merge_stats([s.stats() for s in self.shards])
 
 
-@dataclass
-class RingPlane:
-    """An index served over S rings by S ``RingServer`` threads: ``backing``
-    is what they serve (shard s behind ring s), ``remote`` the index's
-    surface over them, ``clients`` one ``RingClient`` a ring. The clients
-    have one owner, so ``remote`` is used from one thread."""
-
-    backing: object  # PrefixIndex | ShardedPrefixIndex
-    remote: ShardedRemoteIndex
-    clients: list[RingClient] = field(default_factory=list)
-    servers: list[RingServer] = field(default_factory=list)
+class ClientTotals:
+    """A plane's round trips, ring wait and retries, summed over its
+    ``clients`` (one ``RingClient`` a ring)."""
 
     def round_trips(self) -> int:
         return sum(c.stats.requests for c in self.clients)
@@ -921,6 +996,19 @@ class RingPlane:
 
     def retries(self) -> int:
         return sum(c.stats.retries for c in self.clients)
+
+
+@dataclass
+class RingPlane(ClientTotals):
+    """An index served over S rings by S ``RingServer`` threads: ``backing``
+    is what they serve (shard s behind ring s), ``remote`` the index's
+    surface over them, ``clients`` one ``RingClient`` a ring. The clients
+    have one owner, so ``remote`` is used from one thread."""
+
+    backing: object  # PrefixIndex | ShardedPrefixIndex
+    remote: ShardedRemoteIndex
+    clients: list[RingClient] = field(default_factory=list)
+    servers: list[RingServer] = field(default_factory=list)
 
     def close(self, timeout: float = 5.0) -> list[RingServer]:
         """Stop and join every server thread (idempotent); returns those

@@ -23,9 +23,10 @@ Serving side (the metadata plane behind CXL-RPC rings, ``core/rpc.py``):
     call ``.kill()`` on a supervisor (or the allocator hook), windows wrap a
     ring client's ``post`` (``core.rpc.RingClient``), the one call that
     both a serial ``call`` and a pipelined round go through, so the index
-    client's own retry policy absorbs the fault. The port has no process
-    supervisor yet (``ROADMAP.md`` queue 1 item 7e-ii); kills reach
-    whatever object the caller passes.
+    client's own retry policy absorbs the fault. A kill reaches a
+    ``core/procserver.ShardWatchdog`` (its ``kill`` crashes the current
+    service process, which the watchdog respawns from the journal) or any
+    object with a ``kill``.
 """
 
 from __future__ import annotations

@@ -1,9 +1,9 @@
 """Exp #11 (Fig. 15) on the port: the CXL-RPC metadata plane, real index
-ops over the shared-memory ring, served by threads.
+ops over the shared-memory ring, served by threads and by processes.
 
-Twin of ``benchmarks/exp11_rpc.py``'s thread rows. A ``PrefixIndex`` is
-served through the wire codec (``core/wire.py``) by a ``RingServer`` thread,
-and a ``RemoteIndex`` sends the traffic a request really makes:
+Twin of ``benchmarks/exp11_rpc.py``. A ``PrefixIndex`` is served through the
+wire codec (``core/wire.py``) by a ``RingServer`` thread, and a
+``RemoteIndex`` sends the traffic a request really makes:
 
   * ``match_prefix`` at QD=1 for one key, and for a paper-scale chain
     (15,000 tokens: 937 keys) in one framed message;
@@ -11,21 +11,25 @@ and a ``RemoteIndex`` sends the traffic a request really makes:
     single-key ops, and as 937 round trips; ``publish_many`` likewise;
   * several client threads over one ring, each with its own ``RingClient``
     over a disjoint ``slot_range`` (the port's clients have one owner);
-  * the shard sweep: the same multi-client load against S in {1, 2, 4}
-    rings (one ``PrefixIndex`` shard and one server thread each,
+  * the shard sweep, for both transports: the same multi-client load against
+    S in {1, 2, 4} rings (one ``PrefixIndex`` shard each, served by a thread
+    of this process, or by a service process of its own over the pool's
+    shared metadata, ``core/procserver.ShardProcess``;
     ``ShardedRemoteIndex`` posting to every ring before it collects), wall
     keys/s and CAPACITY keys/s = chain keys over the bottleneck shard's
     service time, read from the ring's own busy-ns counter around a
     single-threaded run of each shard's sub-chain;
+  * the chaos sweep: a ``kill -9`` of one of two watched shards
+    (``core/procserver.ShardWatchdog``) under match load, the outage
+    served with holes and retries until the respawned shard, rebuilt from
+    its journal, answers a full match (``recovery_s``);
   * the paper's CXL and RDMA round trips (Fig. 15), MODELED.
 
 Every time but the MODELED row is host wall time, measured here: on the
-card's machine it is the wall time of that machine's host CPU, and threads
-share one interpreter's GIL, so wall keys/s stays near one thread's rate
-whatever S. The reference's process rows (one service process per shard)
-and its chaos sweep need the process transport: ``shard_sweep(...,
-transport="process")`` and ``chaos_sweep`` raise a ``ValueError`` naming
-``ROADMAP.md`` queue 1 item 7e-ii.
+card's machine it is the wall time of that machine's host CPU. Threads
+share one interpreter's GIL, so the thread rows' wall keys/s stays near one
+thread's rate whatever S; the process rows' service side owns its cores,
+and the client threads, which share one interpreter, cap them.
 
     python -m repro_torch.experiments.exp11_rpc [--fast] [--json PATH]
 """
@@ -40,14 +44,15 @@ import time
 from repro_torch.core import fabric, wire
 from repro_torch.core.index import PrefixIndex, ShardedPrefixIndex, partition_keys
 from repro_torch.core.pool import KVBlockLayout, KVBlockPool
+from repro_torch.core.procserver import ShardProcess, process_plane
 from repro_torch.core.rpc import RingClient, RingServer, SlotRing
 from repro_torch.experiments.common import emit
 
-ITEM_PROCESS = "ROADMAP.md queue 1 item 7e-ii (the process transport and self-healing)"
 LAYOUT = KVBlockLayout(block_tokens=16, n_layers_kv=4, n_kv_heads=2, head_dim=8)
 N_SLOTS, PAYLOAD = 64, 1 << 16
-HOST_NOTE = ("# exp11 rows: host wall time of this machine's CPU (ring served by a thread), "
-             "except modeled_rtt_comparison: MODELED (the paper's Fig. 15)")
+HOST_NOTE = ("# exp11 rows: host wall time of this machine's CPU (rings served by threads, "
+             "or by processes in the shard_sweep_process and chaos rows), except "
+             "modeled_rtt_comparison: MODELED (the paper's Fig. 15)")
 
 
 def _best(fn, iters: int, repeat: int = 3) -> float:
@@ -71,21 +76,23 @@ def _pool() -> KVBlockPool:
     return KVBlockPool(LAYOUT, 65536, "meta", n_shards=32)
 
 
-def _run_clients(rings, keys, n_threads: int, per: int, hasher) -> float:
-    """``n_threads`` threads, each with its own clients (slot range i + 1
-    of every ring; range 0 is the caller's), matching ``keys`` ``per``
-    times. Returns the wall seconds."""
-    parts = slot_ranges(N_SLOTS, n_threads + 1)
+def _run_clients(make_clients, keys, n_threads: int, per: int, hasher) -> float:
+    """``n_threads`` threads, thread i with its own clients
+    (``make_clients(i)``), matching ``keys`` ``per`` times. Returns the wall
+    seconds."""
     errors: list[BaseException] = []
 
     def worker(i: int) -> None:
+        clients = make_clients(i)
         try:
-            p = wire.ShardedRemoteIndex([RingClient(r, slot_range=parts[i + 1]) for r in rings],
-                                        LAYOUT.block_tokens, hasher=hasher)
+            p = wire.ShardedRemoteIndex(clients, LAYOUT.block_tokens, hasher=hasher)
             for _ in range(per):
                 p.match_prefix_keys(keys)
         except BaseException as e:  # noqa: BLE001 - re-raised in the caller
             errors.append(e)
+        finally:
+            for c in clients:
+                c.close()
 
     ts = [threading.Thread(target=worker, args=(i,)) for i in range(n_threads)]
     t0 = time.perf_counter()
@@ -99,35 +106,56 @@ def _run_clients(rings, keys, n_threads: int, per: int, hasher) -> float:
     return dt
 
 
+def _thread_shards(pool, n_shards: int):
+    """(servers, ring i's client over a slot range) of S server threads."""
+    sidx = ShardedPrefixIndex(pool, n_shards)
+    servers = []
+    for shard in sidx.shards:
+        ring = SlotRing(N_SLOTS, PAYLOAD)
+        servers.append(RingServer(ring, wire.make_index_handler(shard, max_reply=PAYLOAD)))
+    return servers, lambda rng: [RingClient(srv.ring, slot_range=rng) for srv in servers]
+
+
+def _process_shards(pool, n_shards: int):
+    """(services, their clients over a slot range) of S service processes
+    over ``pool``'s shared metadata."""
+    spec = pool.share_meta()
+    servers = [ShardProcess(spec, N_SLOTS, PAYLOAD) for _ in range(n_shards)]
+    return servers, lambda rng: [srv.client(rng) for srv in servers]
+
+
 def shard_sweep(n_tokens: int, fast: bool, transport: str = "thread",
                 shard_counts: tuple = (1, 2, 4)) -> list[dict]:
-    """Multi-client batched-match throughput against the shard count, with
-    one server thread per shard. ``transport="process"`` is not ported."""
-    if transport != "thread":
-        raise ValueError(f"exp11 shard sweep over transport={transport!r} is not ported yet: "
-                         f"{ITEM_PROCESS}")
+    """Multi-client batched-match throughput against the shard count, each
+    shard served by a thread (``transport="thread"``) or a service process
+    (``"process"``)."""
+    shards_of = {"thread": _thread_shards, "process": _process_shards}.get(transport)
+    if shards_of is None:
+        raise ValueError(f"unknown transport {transport!r}")
     n_threads, per = (4, 10) if fast else (8, 30)
     svc_iters = 20 if fast else 50
     parts = slot_ranges(N_SLOTS, n_threads + 1)
     cells = []
     for n_shards in shard_counts:
         pool = _pool()
-        sidx = ShardedPrefixIndex(pool, n_shards)
-        rings, servers = [], []
+        servers, clients_of = shards_of(pool, n_shards)
+        clients = []
         try:
-            for shard in sidx.shards:
-                ring = SlotRing(N_SLOTS, PAYLOAD)
-                rings.append(ring)
-                servers.append(RingServer(
-                    ring, wire.make_index_handler(shard, max_reply=ring.payload_bytes)).start())
-            clients = [RingClient(r, slot_range=parts[0]) for r in rings]
-            proxy = wire.ShardedRemoteIndex(clients, LAYOUT.block_tokens, hasher=sidx.hasher)
+            for srv in servers:
+                srv.start()
+            if transport == "process" and not all(srv.wait_ready() for srv in servers):
+                raise RuntimeError("a shard service never became ready")
+            clients = clients_of(parts[0])
+            proxy = wire.ShardedRemoteIndex(clients, LAYOUT.block_tokens,
+                                            on_freed=pool.release if transport == "process"
+                                            else None)
             keys = proxy.keys_for(list(range(n_tokens)))
             blocks = pool.allocate(len(keys))
             proxy.publish_many(list(keys), blocks, pool.write_blocks(blocks), 16)
             for _ in range(5):  # warm
                 proxy.match_prefix_keys(keys)
-            dt = _run_clients(rings, keys, n_threads, per, sidx.hasher)
+            dt = _run_clients(lambda i: clients_of(parts[i + 1]), keys, n_threads, per,
+                              proxy.hasher)
             served = [srv.served for srv in servers]
             # each shard's service time, from the ring's own busy-ns counter
             # around a single-threaded run of its sub-chain
@@ -141,8 +169,14 @@ def shard_sweep(n_tokens: int, fast: bool, transport: str = "thread",
                     cl.call(msg)
                 service_s.append((srv.busy_ns - b0) / svc_iters / 1e9)
         finally:
+            for c in clients:
+                c.close()
             for srv in servers:
-                srv.stop()
+                if transport == "thread":
+                    srv.stop()
+                else:
+                    srv.close()
+            pool.unshare_meta()  # a no-op for the thread transport
         cells.append({
             "transport": transport, "n_shards": n_shards, "n_clients": n_threads,
             "chains": n_threads * per, "wall_s": dt,
@@ -157,13 +191,60 @@ def shard_sweep(n_tokens: int, fast: bool, transport: str = "thread",
 
 
 def chaos_sweep(n_tokens: int, fast: bool, n_shards: int = 2) -> dict:
-    """The reference kills a supervised shard service under load; the port
-    has no service process to kill yet."""
-    raise ValueError(f"exp11 chaos sweep is not ported yet: {ITEM_PROCESS}")
+    """``kill -9`` one of ``n_shards`` watched shards under match load and
+    time the service through kill, journal rebuild and adoption against the
+    steady state: steady keys/s (one client, before the kill), outage keys/s
+    (keys matched between the kill and the first full match, over that
+    window), ``recovery_s`` (kill to the first full match), post-recovery
+    keys/s, and the restart, retry and degraded counts. The watchdogs run
+    their probe threads (10 ms); the client retries and degrades."""
+    pool = _pool()
+    plane = process_plane(pool, n_shards, N_SLOTS, PAYLOAD, selfheal=True,
+                          journal_capacity=65536, probe_interval=0.01)
+    proxy, wds = plane.remote, plane.services
+    try:
+        keys = proxy.keys_for(list(range(n_tokens)))
+        blocks = pool.allocate(len(keys))
+        proxy.publish_many(list(keys), blocks, pool.write_blocks(blocks), 16)
+        for _ in range(5):
+            proxy.match_prefix_keys(keys)
+        iters = 20 if fast else 80
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            proxy.match_prefix_keys(keys)
+        steady_s = (time.perf_counter() - t0) / iters
+        t_kill = time.perf_counter()
+        wds[0].kill()
+        matched = chains = 0
+        recovery_s = None
+        while time.perf_counter() - t_kill < 30.0:
+            hits = proxy.match_prefix_keys(keys)
+            chains += 1
+            matched += len(hits)
+            if len(hits) == len(keys):
+                recovery_s = time.perf_counter() - t_kill
+                break
+        window_s = time.perf_counter() - t_kill
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            proxy.match_prefix_keys(keys)
+        post_s = (time.perf_counter() - t0) / iters
+        return {
+            "n_shards": n_shards, "n_keys": len(keys),
+            "steady_keys_per_s": len(keys) / steady_s,
+            "outage_keys_per_s": matched / window_s,
+            "outage_chains": chains, "recovery_s": recovery_s,
+            "post_recovery_keys_per_s": len(keys) / post_s,
+            "restarts": plane.restarts(), "rpc_retries": plane.retries(),
+            "rpc_degraded_ops": sum(c.stats.degraded_ops for c in plane.clients),
+            "journal_records": [len(w.journal) for w in wds],
+        }
+    finally:
+        plane.close()
 
 
 def run(fast: bool = False) -> tuple[list[tuple], dict]:
-    """(rows, results) of the thread rows."""
+    """(rows, results) of every section, the reference's rows."""
     n_tokens = 2048 if fast else 15000
     pool = _pool()
     idx = PrefixIndex(pool)
@@ -214,7 +295,8 @@ def run(fast: bool = False) -> tuple[list[tuple], dict]:
                             "batched_keys_per_s": n_keys / batched_match_s,
                             "speedup": per_key_match_s / batched_match_s}
 
-        dt = _run_clients([ring], keys, n_threads, per, idx.hasher)
+        dt = _run_clients(lambda i: [RingClient(ring, slot_range=parts[i + 1])], keys,
+                          n_threads, per, idx.hasher)
         results["threaded"] = {"n_threads": n_threads, "chains_per_s": n_threads * per / dt,
                                "keys_per_s": n_threads * per * n_keys / dt}
         results["modeled_rtt_us"] = {"cxl": fabric.CXL_RPC_RTT * 1e6,
@@ -227,17 +309,22 @@ def run(fast: bool = False) -> tuple[list[tuple], dict]:
     finally:
         server.stop()
 
-    # the sweep runs at paper-scale chains, as the reference's
+    # the sweeps run at paper-scale chains, as the reference's
     results["shard_sweep"] = shard_sweep(15000, fast)
-    by_s = {c["n_shards"]: c for c in results["shard_sweep"]}
-    results["shard_scaling_s4_vs_s1"] = {
-        "capacity": by_s[4]["capacity_keys_per_s"] / by_s[1]["capacity_keys_per_s"],
-        "wall": by_s[4]["wall_keys_per_s"] / by_s[1]["wall_keys_per_s"]}
+    results["shard_sweep_process"] = shard_sweep(15000, fast, "process")
+    results["chaos"] = chaos_sweep(15000, fast)
+    results["shard_scaling_s4_vs_s1"] = {}
+    sweeps = {"thread": results["shard_sweep"], "process": results["shard_sweep_process"]}
+    for transport, cells in sweeps.items():
+        by_s = {c["n_shards"]: c for c in cells}
+        results["shard_scaling_s4_vs_s1"][transport] = {
+            "capacity": by_s[4]["capacity_keys_per_s"] / by_s[1]["capacity_keys_per_s"],
+            "wall": by_s[4]["wall_keys_per_s"] / by_s[1]["wall_keys_per_s"]}
     return rows_of(results), results
 
 
 def rows_of(results: dict) -> list[tuple]:
-    """The reference's thread rows, in its order and format."""
+    """The reference's rows, in its order and format."""
     m, p, t = results["match"], results["publish"], results["threaded"]
     cxl, rc, ud = (results["modeled_rtt_us"][k] for k in ("cxl", "rdma_rc", "rdma_ud"))
     cs = results["client_stats"]
@@ -260,17 +347,30 @@ def rows_of(results: dict) -> list[tuple]:
          f"requests_ok={cs['requests_ok']};errors={cs['errors']};"
          f"timeouts={cs['timeouts']} (failed round-trips counted + waited)"),
     ]
-    for c in results["shard_sweep"]:
-        rows.append((f"exp11.shard_sweep.s{c['n_shards']}",
-                     f"{1e6 * c['wall_s'] / c['chains']:.1f}",
-                     f"wall={c['wall_keys_per_s']:.0f}keys/s;"
-                     f"capacity={c['capacity_keys_per_s']:.0f}keys/s;"
-                     f"bottleneck_service_us={max(c['shard_service_us']):.0f};"
-                     f"clients={c['n_clients']};errors={c['errors']}"))
+    for tag in ("shard_sweep", "shard_sweep_process"):
+        for c in results[tag]:
+            rows.append((f"exp11.{tag}.s{c['n_shards']}",
+                         f"{1e6 * c['wall_s'] / c['chains']:.1f}",
+                         f"wall={c['wall_keys_per_s']:.0f}keys/s;"
+                         f"capacity={c['capacity_keys_per_s']:.0f}keys/s;"
+                         f"bottleneck_service_us={max(c['shard_service_us']):.0f};"
+                         f"clients={c['n_clients']};errors={c['errors']}"))
     sc = results["shard_scaling_s4_vs_s1"]
-    rows.append(("exp11.shard_scaling", f"{sc['capacity']:.2f}",
-                 f"S4/S1 capacity={sc['capacity']:.2f}x (>=1.5x floor);"
-                 f"wall thread={sc['wall']:.2f}x (GIL-capped)"))
+    rows.append(("exp11.shard_scaling", f"{sc['thread']['capacity']:.2f}",
+                 f"S4/S1 capacity={sc['thread']['capacity']:.2f}x (>=1.5x floor);"
+                 f"wall thread={sc['thread']['wall']:.2f}x (GIL-capped) vs "
+                 f"process={sc['process']['wall']:.2f}x (service owns its cores; "
+                 f"client side is the residual cap on few-core hosts)"))
+    ch = results["chaos"]
+    rows.append(("exp11.chaos_recovery", f"{(ch['recovery_s'] or -1) * 1e3:.0f}",
+                 f"kill->rebuild->recover={ch['recovery_s']:.3f}s;"
+                 f"steady={ch['steady_keys_per_s']:.0f}keys/s;"
+                 f"outage={ch['outage_keys_per_s']:.0f}keys/s;"
+                 f"post={ch['post_recovery_keys_per_s']:.0f}keys/s;"
+                 f"restarts={ch['restarts']};retries={ch['rpc_retries']};"
+                 f"degraded={ch['rpc_degraded_ops']}"
+                 if ch["recovery_s"] is not None
+                 else "shard NEVER recovered within the 30s chaos window"))
     return rows
 
 

@@ -1,25 +1,31 @@
 """``RealEngine`` with its prefix index behind CXL-RPC rings (``chip_smoke.py``
-phase 20 (ii)-(iii); ``tests/test_torch_fault_tolerance.py`` runs it on a
-reduced config on the CPU).
+phase 20 (ii)-(iv); ``tests/test_torch_fault_tolerance.py`` and
+``tests/test_torch_selfheal.py`` run it on a reduced config on the CPU).
 
 The paper's deployment shape: engines reach the index over CXL-RPC. Here
 the engine's ``index`` field is swapped, as any caller could, for the
-client side of a ``core/wire.RingPlane`` of S rings, each served by a
-``RingServer`` thread over a ``PrefixIndex`` shard of the engine's pool;
-``RealEngine`` itself is unchanged. The server threads park on a doorbell
-when idle (``core/rpc.py``), which a post wakes.
+client side of S rings; ``RealEngine`` itself is unchanged. Each ring is
+served either by a ``RingServer`` thread over a ``PrefixIndex`` shard of
+the engine's pool (``core/wire.RingPlane``, the thread transport; the
+threads park on a doorbell when idle), or by a shard service process of
+its own over the pool's shared metadata (``core/procserver.ProcessPlane``,
+the process transport), optionally under a ``ShardWatchdog`` with no probe
+thread, whose owner restarts a dead shard with ``check``.
 
-  * ``serve(eng, prompts, max_new, n_shards)`` serves prompts on a fresh
-    pool with a ``PrefixIndex`` (``n_shards`` 0) or a ``RingPlane`` of
+  * ``serve(eng, prompts, max_new, n_shards, transport, watched)`` serves
+    prompts on a fresh pool with a ``PrefixIndex`` (``n_shards`` 0) or over
     ``n_shards`` rings whose client retries under a ``RingRetryPolicy``,
     and returns per request the tokens, the logits, the hit tokens, the
     block ids and epochs the index holds for the prompt's chain afterwards
     (``chain_state``), the TTFT, the host time spent in index calls, the
     ring round trips, and the clients' wait on them (post to answer;
     ``mean_wait_s`` a round trip);
-  * ``faulted(eng, plane, prompts, plan)`` serves prompts again through
-    ``plane`` under a ``FaultPlan`` (delay and drop windows on the ring
-    clients' posts, ``distributed/fault_tolerance.py``).
+  * ``faulted(eng, plane, prompts, plan)`` serves prompts again through a
+    thread plane under a ``FaultPlan`` (delay and drop windows on the ring
+    clients' posts, ``distributed/fault_tolerance.py``);
+  * ``respawn(plane)`` kills a watched plane's first shard service
+    (``kill -9``) and restarts it from its journal with one ``check``;
+    ``rerun(eng, plane, prompts)`` serves prompts again through a plane.
 
 Times are the host's clock (``time.perf_counter``).
 """
@@ -30,6 +36,7 @@ import time
 
 from repro_torch.core.index import PrefixIndex, ShardedPrefixIndex
 from repro_torch.core.pool import KVBlockPool
+from repro_torch.core.procserver import ProcessPlane, process_plane
 from repro_torch.core.rpc import RingRetryPolicy
 from repro_torch.core.wire import RingPlane, ring_plane
 from repro_torch.distributed.fault_tolerance import FaultInjector, FaultPlan
@@ -75,7 +82,8 @@ class _TimedIndex:
         return timed
 
 
-def _generate_all(eng, prompts, max_new: int, plane: RingPlane | None, backing) -> list[dict]:
+def _generate_all(eng, prompts, max_new: int, plane: RingPlane | ProcessPlane | None,
+                  backing) -> list[dict]:
     out = []
     timed = _TimedIndex(eng.index)
     eng.index = timed
@@ -86,12 +94,14 @@ def _generate_all(eng, prompts, max_new: int, plane: RingPlane | None, backing) 
             timed.spent = 0.0
             toks, info = eng.generate(p, max_new=max_new)
             n_rt = (plane.round_trips() - rt0) if plane else 0
+            # read before chain_state, whose lookup crosses a process plane's ring
+            wait = (plane.total_wait() - w0) if plane else 0.0
             ids, epochs = chain_state(backing, p, eng.pool.layout.block_tokens)
             out.append({
                 "tokens": toks, "logits": info["logits"].cpu(), "hit_tokens": info["hit_tokens"],
                 "block_ids": ids, "epochs": epochs,
                 "ttft_s": info["ttft_s"], "index_s": timed.spent, "round_trips": n_rt,
-                "wait_s": (plane.total_wait() - w0) if plane else 0.0,
+                "wait_s": wait,
             })
             out[-1]["mean_wait_s"] = out[-1]["wait_s"] / n_rt if n_rt else 0.0
     finally:
@@ -99,23 +109,54 @@ def _generate_all(eng, prompts, max_new: int, plane: RingPlane | None, backing) 
     return out
 
 
-def serve(eng, prompts, max_new: int, n_shards: int = 0) -> tuple[list[dict], RingPlane | None]:
+def serve(eng, prompts, max_new: int, n_shards: int = 0, transport: str = "thread",
+          watched: bool = False) -> tuple[list[dict], RingPlane | ProcessPlane | None]:
     """Serve ``prompts`` on ``eng`` with a fresh pool and a fresh index: a
-    ``PrefixIndex`` (``n_shards`` 0), or the client side of a ``RingPlane``
-    of ``n_shards`` rings over the new pool, which is returned still
-    serving (the caller closes it)."""
+    ``PrefixIndex`` (``n_shards`` 0), or the client side of ``n_shards``
+    rings over the new pool, served by threads (``transport="thread"``) or
+    by shard service processes (``"process"``, each under a
+    ``ShardWatchdog`` without a probe thread when ``watched``). The plane
+    is returned still serving (the caller closes it)."""
     pool = fresh_pool(eng)
     if not n_shards:
         eng.index = PrefixIndex(pool)
         return _generate_all(eng, prompts, max_new, None, eng.index), None
-    backing = ShardedPrefixIndex(pool, n_shards) if n_shards > 1 else PrefixIndex(pool)
-    plane = ring_plane(backing, N_SLOTS, PAYLOAD, retry=RingRetryPolicy())
+    if transport == "process":
+        plane = process_plane(pool, n_shards, N_SLOTS, PAYLOAD, selfheal=watched,
+                              retry=RingRetryPolicy(), probe=False)
+        backing = plane.remote
+    else:
+        backing = ShardedPrefixIndex(pool, n_shards) if n_shards > 1 else PrefixIndex(pool)
+        plane = ring_plane(backing, N_SLOTS, PAYLOAD, retry=RingRetryPolicy())
     eng.index = plane.remote
     try:
         return _generate_all(eng, prompts, max_new, plane, backing), plane
     except BaseException:
         plane.close()
         raise
+
+
+def rerun(eng, plane: RingPlane | ProcessPlane, prompts, max_new: int) -> list[dict]:
+    """Serve ``prompts`` again through ``plane`` (its services running, its
+    pool the engine's)."""
+    eng.index = plane.remote
+    backing = plane.remote if isinstance(plane, ProcessPlane) else plane.backing
+    return _generate_all(eng, prompts, max_new, plane, backing)
+
+
+def respawn(plane: ProcessPlane) -> dict:
+    """``kill -9`` the first shard's service of a watched plane, then one
+    ``check`` restarts it from the journal; returns the restart's wall
+    time (kill to the new service ready) and the journal records it
+    replayed."""
+    wd = plane.services[0]
+    records = len(wd.journal)
+    t0 = time.perf_counter()
+    wd.kill()
+    if not wd.check():
+        raise RuntimeError("the watchdog did not restart the killed shard")
+    return {"respawn_s": time.perf_counter() - t0, "replayed": records,
+            "ready": wd.generation.service.ready}
 
 
 def faulted(eng, plane: RingPlane, prompts, max_new: int, plan: FaultPlan) -> list[dict]:

@@ -21,8 +21,13 @@ the shared ``queues``; a fetch made counts its blocks per tier; a writeback
 moves the pool's hotness clock and passes its keys to the ghost list's
 admission filter.
 
-The degraded mode of a remote metadata plane (``degraded_ok``) comes with
-the process transport and self-healing, ``ROADMAP.md`` queue 1 item 7e-ii.
+With ``degraded_ok`` (a self-healing plane, ``serving/scheduler``'s
+``selfheal``) an index op that fails with a transient transport fault
+(``TRANSIENT_FAULTS``: a dead or swapped ring after the client's own
+retries, or a timeout) is absorbed and counted in ``ManagerStats.
+degraded_ops``: the match becomes all-miss (the request recomputes), and a
+writeback is skipped, its freshly allocated blocks handed back when the
+publish failed. A handler's in-band error (``RingError``) still raises.
 """
 
 from __future__ import annotations
@@ -33,8 +38,13 @@ import torch
 
 from repro_torch.core.index import PrefixIndex
 from repro_torch.core.pool import PAYLOAD_DTYPES, KVBlockPool, PoolExhausted
+from repro_torch.core.rpc import RingServiceDied
 from repro_torch.core.transfer import PoolTransfer
 from repro_torch.kvcache.hbm_cache import HbmPagedCache, OutOfHbmBlocks
+
+TRANSIENT_FAULTS = (RingServiceDied, TimeoutError)
+# an index op the degraded mode absorbed (distinct from any answer)
+_DEGRADED = object()
 
 @dataclass
 class FetchPlan:
@@ -54,6 +64,7 @@ class ManagerStats:
     writebacks: int = 0
     recompute_cutovers: int = 0
     pool_evictions: int = 0
+    degraded_ops: int = 0  # index ops absorbed while the plane was down
 
 
 class KVCacheManager:
@@ -66,6 +77,7 @@ class KVCacheManager:
         recompute_cutover: float | None = None,
         prefill_tok_per_s: float = 8000.0,
         queues=None,
+        degraded_ok: bool = False,
     ):
         self.pool = pool  # a KVBlockPool or a tiering.TieredPool
         self.index = index
@@ -76,7 +88,18 @@ class KVCacheManager:
         # the pool devices' fabric.PoolDeviceQueues, shared with the
         # migrator on a tiered pool: a fetch queues behind migration traffic
         self.queues = queues
+        self.degraded_ok = degraded_ok
         self.stats = ManagerStats()
+
+    def _index_op(self, fn):
+        """``fn()``, or ``_DEGRADED`` for a transient fault in degraded mode."""
+        if not self.degraded_ok:
+            return fn()
+        try:
+            return fn()
+        except TRANSIENT_FAULTS:
+            self.stats.degraded_ops += 1
+            return _DEGRADED
 
     # ------------------------------------------------------------------
     def plan_fetch(self, tokens: list[int], now: float = 0.0) -> FetchPlan:
@@ -85,7 +108,9 @@ class KVCacheManager:
         decay and the queues' backlog."""
         bt = self.pool.layout.block_tokens
         keys = self.index.keys_for(tokens)
-        hits = self.index.match_prefix_keys(keys)
+        hits = self._index_op(lambda: self.index.match_prefix_keys(keys))
+        if hits is _DEGRADED:
+            hits = []  # the plane is down: all-miss, the request recomputes
         n_hit = len(hits) * bt
         n_miss = len(tokens) - n_hit
         lat = 0.0
@@ -167,7 +192,9 @@ class KVCacheManager:
         if keys is None:
             keys = self.index.keys_for(tokens)
         # only blocks not already in the pool need writing
-        missing = self.index.filter_unpublished(keys)
+        missing = self._index_op(lambda: self.index.filter_unpublished(keys))
+        if missing is _DEGRADED:
+            return 0  # the plane is down: skip the offload
         new_keys = [(i, keys[i]) for i in missing]
         if not new_keys:
             return 0
@@ -180,7 +207,9 @@ class KVCacheManager:
         try:
             block_ids = alloc()
         except PoolExhausted:
-            freed = self.index.evict_lru(len(new_keys) * 2)
+            freed = self._index_op(lambda: self.index.evict_lru(len(new_keys) * 2))
+            if freed is _DEGRADED:
+                return 0
             self.stats.pool_evictions += len(freed)
             try:
                 block_ids = alloc()
@@ -191,7 +220,12 @@ class KVCacheManager:
             kv_payload = torch.zeros((len(new_keys), *lay.block_shape),
                                      dtype=PAYLOAD_DTYPES[lay.dtype_bytes], device=self.pool.device)
         epochs = self.transfer.gather_write(block_ids, kv_payload)
-        self.index.publish_many([key for _, key in new_keys], block_ids, epochs, bt)
+        published = self._index_op(lambda: self.index.publish_many(
+            [key for _, key in new_keys], block_ids, epochs, bt))
+        if published is _DEGRADED:
+            # blocks the index never learned of could never be evicted
+            self.pool.release(block_ids)
+            return 0
         self.stats.writebacks += 1
         return len(new_keys)
 

@@ -19,22 +19,39 @@ engine moves blocks along the chain, contending with the fetches in the
 pool devices' queues (the reference's ``model_contention`` default).
 
 The index is a ``PrefixIndex``, or with ``index_shards > 1`` a
-``ShardedPrefixIndex``. With ``index_rpc`` (``index_transport="thread"``)
-the engines and the migrator reach it over CXL-RPC rings instead: one
-``SlotRing`` of ``index_rpc_slots`` slots of ``index_rpc_payload`` bytes
-per shard, each served by a ``RingServer`` thread (``core/wire.ring_plane``),
-and every engine and the migrator share the plane's ``ShardedRemoteIndex``:
-the simulator runs in one thread, which owns the ring clients. ``run()``
-reads the co-located index's stats, as the reference does. ``close()`` (or
-leaving a ``with`` block) stops every server thread and returns those still
-alive.
+``ShardedPrefixIndex``. With ``index_rpc`` the engines and the migrator
+reach it over CXL-RPC rings instead, one ring of ``index_rpc_slots`` slots
+of ``index_rpc_payload`` bytes per shard, and every engine and the migrator
+share the plane's ``ShardedRemoteIndex``: the simulator runs in one thread,
+which owns the ring clients.
+
+  * ``index_transport="thread"``: each ring is served by a ``RingServer``
+    thread of this process over the co-located index
+    (``core/wire.ring_plane``); ``run()`` reads that index's stats, as the
+    reference does.
+  * ``index_transport="process"``: the pool's metadata moves into a named
+    segment and each shard's index is built inside its own service process
+    (``core/procserver.process_plane``); no index object stays here
+    (``index`` is None), ``run()`` reads the stats over the wire, evictions'
+    freed ids are released here (``on_freed``), and on a tiered pool the
+    eviction replies' keys arm the ghost list. With ``selfheal`` each shard
+    runs under a ``ShardWatchdog`` (its probe thread every
+    ``supervisor_probe_interval`` s, a journal of ``journal_capacity``
+    records, no periodic warm snapshot), the client journals, retries and
+    degrades, and so do the managers (``degraded_ok``). ``selfheal``
+    outside the process transport is ignored, as the reference ignores it.
+
+``close()`` (or leaving a ``with`` block) stops every server thread or
+service process, unlinks every segment and FIFO, and returns what is still
+running; a construction that fails halfway leaves nothing behind.
+``shm_segment_names()`` and ``doorbell_paths()`` name what the process
+transport created.
 
 ``ClusterConfig`` holds the reference's fields that these paths read, with
-the same defaults, and the switches of the planes the port does not have
-yet (``index_transport="process"`` and ``selfheal``: ``ROADMAP.md`` queue 1
-item 7e-ii; ``data_plane="shared"`` and ``engine_processes``: item
-7e-iii), each of which raises a ``ValueError`` naming its item, with
-tiering on or off. Their own knobs come with them.
+the same defaults. The shared data plane and the engine workers
+(``data_plane="shared"``, ``engine_processes``) are not ported yet and
+raise a ``ValueError`` naming ``ROADMAP.md`` queue 1 item 7e-iii, with
+tiering on or off.
 """
 
 from __future__ import annotations
@@ -46,7 +63,8 @@ import numpy as np
 from repro_torch.core import fabric
 from repro_torch.core.index import PrefixIndex, ShardedPrefixIndex
 from repro_torch.core.pool import KVBlockLayout, KVBlockPool
-from repro_torch.core.rpc import RingClient, RingServer
+from repro_torch.core.procserver import ProcessPlane, process_plane
+from repro_torch.core.rpc import RingClient
 from repro_torch.core.transfer import PoolTransfer
 from repro_torch.core.wire import RingPlane, ring_plane
 from repro_torch.kvcache.hbm_cache import HbmPagedCache
@@ -55,7 +73,6 @@ from repro_torch.serving.engine import EngineInstance, SimRunner, SimRunnerConfi
 from repro_torch.serving.request import Request, summarize
 from repro_torch.tiering import MigrationEngine, TieredPool, TieringConfig
 
-ITEM_PROCESS = "ROADMAP.md queue 1 item 7e-ii (the process transport and self-healing)"
 ITEM_SHARED = "ROADMAP.md queue 1 item 7e-iii (the shared data plane and the engine workers)"
 
 
@@ -73,46 +90,47 @@ class ClusterConfig:
     block_tokens: int = 16
     straggler_cutover: float | None = None  # fetch-vs-recompute ratio
     runner: SimRunnerConfig = field(default_factory=SimRunnerConfig)
-    # the metadata plane behind CXL-RPC rings served by threads: one batched
-    # round trip per metadata op; index_shards > 1 partitions the keys over
-    # S shards (S rings with index_rpc)
+    # the metadata plane behind CXL-RPC rings: one batched round trip per
+    # metadata op; index_shards > 1 partitions the keys over S shards (S
+    # rings with index_rpc), each served by a thread or a process of its own
     index_rpc: bool = False
     index_rpc_slots: int = 64
     index_rpc_payload: int = 1 << 16
     index_shards: int = 1
-    # refused: the process transport and self-healing (item 7e-ii), the
-    # shared data plane and engine worker processes (item 7e-iii)
-    index_transport: str = "thread"
+    index_transport: str = "thread"  # thread | process
+    # the self-healing plane (process transport only): a watchdog a shard
+    selfheal: bool = False
+    journal_capacity: int = 8192  # records a shard's journal
+    supervisor_probe_interval: float = 0.02  # s between probe steps
+    # refused: the shared data plane and engine worker processes (item 7e-iii)
     data_plane: str = "private"
     engine_processes: int = 0
-    selfheal: bool = False
     # the tiered pool (Exp #13): disabled, the flat pool's path unchanged
     tiering: TieringConfig = field(default_factory=TieringConfig)
 
 
 def refuse_unported(cfg: ClusterConfig) -> None:
-    """Raise for a setting whose piece the port does not have yet."""
+    """Raise for a setting the reference refuses, or whose piece the port
+    does not have yet (item 7e-iii)."""
     if cfg.index_transport not in ("thread", "process"):
         raise ValueError(
             f"index_transport must be 'thread' or 'process', got {cfg.index_transport!r}")
+    if cfg.index_transport == "process" and not cfg.index_rpc:
+        raise ValueError("index_transport='process' requires index_rpc=True")
     if cfg.data_plane not in ("private", "shared"):
         raise ValueError(f"data_plane must be 'private' or 'shared', got {cfg.data_plane!r}")
-    unported = [
-        ("index_transport='process'", cfg.index_transport == "process", ITEM_PROCESS),
-        ("selfheal", cfg.selfheal, ITEM_PROCESS),
-        ("data_plane='shared'", cfg.data_plane == "shared", ITEM_SHARED),
-        (f"engine_processes={cfg.engine_processes}", bool(cfg.engine_processes), ITEM_SHARED),
-    ]
-    for name, on, item in unported:
+    for name, on in (("data_plane='shared'", cfg.data_plane == "shared"),
+                     (f"engine_processes={cfg.engine_processes}", bool(cfg.engine_processes))):
         if on:
-            raise ValueError(f"ClusterConfig {name} is not ported yet: {item}")
+            raise ValueError(f"ClusterConfig {name} is not ported yet: {ITEM_SHARED}")
 
 
 class Cluster:
     def __init__(self, cfg: ClusterConfig, layout: KVBlockLayout):
         refuse_unported(cfg)
         self.cfg = cfg
-        self.plane: RingPlane | None = None
+        self.plane: RingPlane | ProcessPlane | None = None
+        self._closed = False
         try:
             self._build(cfg, layout)
         except BaseException:
@@ -132,13 +150,25 @@ class Cluster:
         else:
             self.pool = KVBlockPool(layout, cfg.pool_blocks, "meta", n_shards=cfg.pool_shards)
         shards = cfg.index_shards
-        self.index = ShardedPrefixIndex(self.pool, shards) if shards > 1 else PrefixIndex(self.pool)
-        if cfg.index_rpc:  # one ring and one server thread per shard
-            self.plane = ring_plane(self.index, cfg.index_rpc_slots, cfg.index_rpc_payload)
+        if cfg.index_rpc and cfg.index_transport == "process":
+            # no index here: each shard's is built in its service process,
+            # and an eviction reply's keys arm the ghost list
+            self.index = None
+            self.plane = process_plane(
+                self.pool, shards, cfg.index_rpc_slots, cfg.index_rpc_payload,
+                selfheal=cfg.selfheal, journal_capacity=cfg.journal_capacity,
+                probe_interval=cfg.supervisor_probe_interval,
+                on_evict=self.pool.policy.ghost_add if tcfg.enabled else None)
+        else:
+            self.index = (ShardedPrefixIndex(self.pool, shards) if shards > 1
+                          else PrefixIndex(self.pool))
+            if cfg.index_rpc:  # one ring and one server thread per shard
+                self.plane = ring_plane(self.index, cfg.index_rpc_slots, cfg.index_rpc_payload)
+            if tcfg.enabled:
+                # destroyed keys arm the ghost list's admission filter; a
+                # ring-served eviction runs on the shard, so its hook fires too
+                self.index.on_evict = self.pool.policy.ghost_add
         if tcfg.enabled:
-            # destroyed keys arm the ghost list's admission filter; a
-            # ring-served eviction runs on the shard, so its hook fires too
-            self.index.on_evict = self.pool.policy.ghost_add
             self.queues = fabric.PoolDeviceQueues()
             # with index_rpc the migrator's owners_of / remap_many /
             # evict_blocks cross the rings; only its copies touch the pool
@@ -160,10 +190,28 @@ class Cluster:
         trips; empty without ``index_rpc``."""
         return [] if self.plane is None else list(self.plane.clients)
 
-    def close(self) -> list[RingServer]:
-        """Stop every ring server thread (idempotent); returns those still
-        alive, which a caller must treat as a failure. The clients and their
-        stats stay readable."""
+    def _owned_plane(self) -> ProcessPlane | None:
+        plane = self.plane
+        return plane if isinstance(plane, ProcessPlane) and not self._closed else None
+
+    def shm_segment_names(self) -> list[str]:
+        """The named segments the process transport holds (the pool's
+        metadata, every ring of every generation, the journals); empty once
+        closed."""
+        plane = self._owned_plane()
+        return [] if plane is None else plane.segment_names()
+
+    def doorbell_paths(self) -> list[str]:
+        """The FIFO paths the process transport holds; empty once closed."""
+        plane = self._owned_plane()
+        return [] if plane is None else plane.doorbell_paths()
+
+    def close(self) -> list:
+        """Stop every ring server thread or service process, unlink what
+        they used (idempotent); returns the threads or services still
+        running, which a caller must treat as a failure. The clients and
+        their stats stay readable."""
+        self._closed = True
         return [] if self.plane is None else self.plane.close()
 
     def __enter__(self) -> "Cluster":
@@ -185,6 +233,7 @@ class Cluster:
             recompute_cutover=cfg.straggler_cutover,
             prefill_tok_per_s=cfg.runner.prefill_tok_per_s,
             queues=self.queues,
+            degraded_ok=cfg.selfheal and self.index is None,  # watched shards
         )
         if cfg.transfer_mode == "none":
             # no pool offload: disable prefix reuse entirely
@@ -225,9 +274,16 @@ class Cluster:
             end = until
         start = min((r.arrival for r in self.requests), default=0.0)
         stats = summarize(self.requests, end - start)
-        stats["index"] = self.index.stats()
+        # the co-located index's counters, as the reference reads them; in
+        # the process transport, over the wire
+        stats["index"] = (self.index if self.index is not None else self.plane.remote).stats()
         stats["pool_free"] = self.pool.free_blocks()
         stats["shard_occupancy_max"] = max(self.pool.shard_occupancy() or [0])
+        if isinstance(self.plane, ProcessPlane) and self.cfg.selfheal:
+            stats["selfheal"] = {
+                "restarts": self.plane.restarts(), "rpc_retries": self.plane.retries(),
+                "rpc_degraded_ops": sum(c.stats.degraded_ops for c in self.plane.clients),
+                "manager_degraded_ops": sum(e.manager.stats.degraded_ops for e in self.engines)}
         if self.migrator is not None:
             stats["tiering"] = self.pool.stats_dict()
             stats["tiering"]["migrator_steps"] = self.migrator.steps

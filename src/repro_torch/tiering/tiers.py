@@ -24,9 +24,13 @@ Placement (write admission) is decided at allocation:
   and either end overflows into the other before the pool is exhausted.
 
 Demotion and promotion along the chain are ``migrator.MigrationEngine``'s.
-The reference's cross-process export (``share_meta`` / ``share_data``)
-belongs to the shared data plane (``ROADMAP.md`` queue 1 item 7e-iii) and
-is not here, nor are the scalar payload calls (``write_block``,
+``share_meta`` moves every tier's metadata into one segment laid out over
+the global id space, byte for byte a flat pool's of ``n_blocks``, so that a
+shard service process attaches it as it would a flat pool's
+(``core/procserver.PoolMetaView``); each tier's arrays become slices of
+it. The payload export (``share_data``) belongs to the shared data plane
+(``ROADMAP.md`` queue 1 item 7e-iii) and is not here, nor are the scalar
+payload calls (``write_block``,
 ``read_block``, ``read_fragments``, ``validate_epoch``): the port's
 coherent reader and writer (``core/coherence.py``) reach a pool through its
 batched calls.
@@ -34,13 +38,15 @@ batched calls.
 
 from __future__ import annotations
 
+import atexit
 import bisect
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from repro_torch.core.pool import KVBlockLayout, KVBlockPool, PoolExhausted
+from repro_torch.core.pool import KVBlockLayout, KVBlockPool, PoolExhausted, shared_meta_segment
+from repro_torch.core.shm import close_segment
 from repro_torch.tiering.policy import HotnessTracker
 from repro_torch.tiering.stats import TierStats
 
@@ -139,9 +145,48 @@ class TieredPool:
         # down-chain blocks whose heat crossed the promotion threshold, fed
         # by touch_demand and drained by the migrator
         self.promote_pending: set[int] = set()
+        self._meta_segment = None
+        self._meta_spec: dict | None = None
+        self._rebuild_views()
+
+    def _rebuild_views(self) -> None:
         self.refcounts = _TierView([t.refcounts for t in self.tiers], self._starts)
         self.epochs = _TierView([t.epochs for t in self.tiers], self._starts)
         self.committed = _TierView([t.committed for t in self.tiers], self._starts)
+
+    # ------------------------------------------------------------------
+    def share_meta(self) -> dict:
+        """Every tier's metadata in one named segment over the global id
+        space (idempotent); returns the attach spec of a flat pool of
+        ``n_blocks``. The chain's views become the segment's arrays."""
+        if self._meta_spec is None:
+            seg, arrays = shared_meta_segment(self.n_blocks)
+            for t, o in zip(self.tiers, self._starts.tolist()):
+                tn = t.n_blocks
+                for whole, name in zip(arrays, ("epochs", "refcounts", "committed")):
+                    whole[o : o + tn] = getattr(t, name)
+                    setattr(t, name, whole[o : o + tn])
+            self.epochs, self.refcounts, self.committed = arrays
+            self._meta_segment = seg
+            self._meta_spec = {"shm_name": seg.name, "n_blocks": self.n_blocks,
+                               "block_tokens": self.layout.block_tokens}
+            atexit.register(self.unshare_meta)
+        return self._meta_spec
+
+    def unshare_meta(self) -> None:
+        """Copy the metadata back into private per-tier arrays and unlink;
+        safe to repeat, and when never shared."""
+        seg = self._meta_segment
+        if seg is None:
+            return
+        for t in self.tiers:
+            t.epochs = np.array(t.epochs, np.int64)
+            t.refcounts = np.array(t.refcounts, np.int32)
+            t.committed = np.array(t.committed, bool)
+        self._rebuild_views()
+        self._meta_segment = self._meta_spec = None
+        close_segment(seg, unlink=True)
+        atexit.unregister(self.unshare_meta)
 
     # ------------------------------------------------------------------
     @property

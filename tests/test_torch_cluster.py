@@ -21,7 +21,8 @@ requests:
   crosses the rings equal to JAX's and to the co-located migrator; exp05's
   beluga mode at 256 clients over 1 and 4 rings equal to ``PINNED``;
 * each ``ValueError`` refusal of a setting that is not ported yet, naming
-  its ``ROADMAP.md`` item (7e-ii or 7e-iii).
+  its ``ROADMAP.md`` item (7e-iii), and the reference's own refusals
+  (the process transport without ``index_rpc``, unknown transports).
 
 Every number here is MODELED by the simulators; nothing runs on a device.
 """
@@ -270,14 +271,24 @@ def test_settled_check_sees_a_leaked_reference():
 # ---------------------------------------------------------------------------
 
 
+# the process transport and self-healing are ported. The four cases that
+# refused them keep their ids (a test whose check changes keeps its name)
+# and now check: kw0 and kw2, that the shared data plane and the engine
+# workers are still refused (item 7e-iii) with the process transport and
+# selfheal on; kw1 and kw5, the reference's own "index_transport='process'
+# requires index_rpc=True", without and with selfheal
 @pytest.mark.parametrize("kw,item", [
-    ({"index_rpc": True, "index_transport": "process"}, "item 7e-ii"),
-    ({"index_transport": "process"}, "item 7e-ii"),
-    ({"tiering": TieringConfig(enabled=True), "index_rpc": True, "selfheal": True},
-     "item 7e-ii"),
+    pytest.param({"index_rpc": True, "index_transport": "process", "data_plane": "shared"},
+                 "item 7e-iii", id="kw0-item 7e-ii"),
+    pytest.param({"index_transport": "process"}, "requires index_rpc=True",
+                 id="kw1-item 7e-ii"),
+    pytest.param({"tiering": TieringConfig(enabled=True), "index_rpc": True,
+                  "index_transport": "process", "selfheal": True, "engine_processes": 4},
+                 "item 7e-iii", id="kw2-item 7e-ii"),
     ({"data_plane": "shared"}, "item 7e-iii"),
     ({"engine_processes": 4}, "item 7e-iii"),
-    ({"selfheal": True}, "item 7e-ii"),
+    pytest.param({"selfheal": True, "index_transport": "process"},
+                 "requires index_rpc=True", id="kw5-item 7e-ii"),
     ({"index_transport": "carrier-pigeon"}, "must be 'thread' or 'process'"),
     ({"data_plane": "public"}, "must be 'private' or 'shared'"),
 ])

@@ -16,8 +16,9 @@
 * the coherent writer and reader against JAX's over payload pools, by
   bytes, modeled costs, stale epochs and retries;
 * the exp01 / exp02 twins' rows string-equal to ``benchmarks/``'s; exp11's
-  thread rows (reduced), its MODELED constants, and its process rows and
-  chaos sweep refused; ``examples/pool_demo.py``'s twin on the CPU.
+  rows (reduced), its MODELED constants, an unknown transport and a chaos
+  sweep without a shard refused; ``examples/pool_demo.py``'s twin on the
+  CPU.
 """
 
 from __future__ import annotations
@@ -502,24 +503,33 @@ def test_fabric_prices_equal_reference():
 def test_exp11_thread_rows_and_refusals():
     rows, res = exp11_rpc.run(fast=True)
     names = [r[0] for r in rows]
+    # the process rows and the chaos sweep are ported: the reference's whole
+    # list (test_torch_procserver.py checks those sections' results)
     assert names == ["exp11.match_prefix_rtt_qd1", "exp11.match_prefix_chain",
                      "exp11.publish_many_chain", "exp11.threaded_match",
                      "exp11.modeled_rtt_comparison", "exp11.client_accounting",
                      "exp11.shard_sweep.s1", "exp11.shard_sweep.s2", "exp11.shard_sweep.s4",
-                     "exp11.shard_scaling"]
+                     "exp11.shard_sweep_process.s1", "exp11.shard_sweep_process.s2",
+                     "exp11.shard_sweep_process.s4", "exp11.shard_scaling",
+                     "exp11.chaos_recovery"]
     c = jfabric.DEFAULT
     assert rows[4] == ("exp11.modeled_rtt_comparison", f"{c.cxl_rpc_rtt*1e6:.2f}",
                        f"cxl=2.11us vs rdma_rc={c.rdma_rc_rpc_rtt*1e6:.2f}us "
                        f"vs rdma_ud={c.rdma_ud_rpc_rtt*1e6:.2f}us (4.0x, Fig. 15)")
     assert res["n_keys"] == 128 and res["match"]["speedup"] > 1.0
     assert res["client_stats"]["errors"] == res["client_stats"]["timeouts"] == 0
-    for cell in res["shard_sweep"]:
+    for cell in res["shard_sweep"] + res["shard_sweep_process"]:
         assert cell["errors"] == cell["timeouts"] == 0 and all(cell["served_per_shard"])
         assert cell["capacity_keys_per_s"] > 0
-    with pytest.raises(ValueError, match="item 7e-ii"):
-        exp11_rpc.shard_sweep(256, True, transport="process")
-    with pytest.raises(ValueError, match="item 7e-ii"):
-        exp11_rpc.chaos_sweep(256, True)
+    ch = res["chaos"]  # a watched shard killed under load recovers
+    assert ch["restarts"] == 1 and ch["recovery_s"] is not None and ch["n_keys"] == 937
+    # both transports are ported (test_torch_procserver.py runs the process
+    # rows and the chaos sweep): an unknown transport, and a chaos sweep
+    # without a shard, are refused
+    with pytest.raises(ValueError, match="unknown transport"):
+        exp11_rpc.shard_sweep(256, True, transport="carrier-pigeon")
+    with pytest.raises(ValueError, match="at least one"):
+        exp11_rpc.chaos_sweep(256, True, n_shards=0)
 
 
 def test_pool_demo_runs_on_the_cpu(capsys):
