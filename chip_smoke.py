@@ -278,7 +278,7 @@ Phases, each a hard check (any failure exits non-zero):
    ``experiments/mesh_train_probe.py``): each run's one-device reference
    on the same weights and phase 13's batches (4 x 2048 tokens from batch
    1 on), ``OptimizerConfig()``, remat "full" (olmo-1b's is phase 13's
-   run: its 4 losses must equal phase 13 (ii)'s, bit for bit), its weights
+   run: its loss must equal phase 13 (ii)'s first, bit for bit), its weights
    parked on disk; then ONE world of 4 gloo ranks on the card, every rank on
    its shards: the collectives' forwards and backwards on CUDA tensors
    against CPU tensors; (i) olmo-1b, all 16 layers, mesh 1x4 (4 heads a
@@ -394,6 +394,25 @@ Phases, each a hard check (any failure exits non-zero):
    process, over the thread ring and over the process ring, the process
    ring's share of the hit TTFT and its mean wait, beside the card's name
    and power limit. Prints the phase's wall time.
+21. the shared data plane and the engine worker processes
+   (``core/shmpool.py``, ``serving/engineproc.py``,
+   ``experiments/exp14_procengine.py``), on the card's host: prints
+   ``/dev/shm``'s free bytes, then exp14 at its full size (160 requests of
+   4096 tokens, 4096 pool blocks of 32 KiB: a 128 MiB segment). Fails
+   unless the private in-process, shared in-process and one-worker runs give
+   the same ``run()`` dict and its parity numbers equal
+   ``exp14_procengine.PINNED["full"]`` (the JAX package's run; integers
+   exactly, times within 1e-12 relative); unless at N = 1, 2 and 4 workers
+   every request is done, every pool refcount is accounted for (the
+   index's, or a block another worker's publish of the same key replaced)
+   and no block moved twice (bytes moved at most N = 1's); unless the chaos
+   drill (``chaos_sweep(fast=True)``: a worker killed, the allocator moved
+   to a fresh ring) restarts each once and finishes every request; and
+   unless afterwards no segment or FIFO any run made is left and no child
+   process lives. Prints the sweep's and the drill's rows, host wall time
+   of the card's machine beside the card's name and power limit (the
+   parity numbers are the simulator's virtual time: MODELED), and the
+   phase's wall time.
 
 Prints the kernel table as one JSON line (the e4m3 paged instantiation as
 a row of its own, ``paged_attention_e4m3``, and the attention backward as
@@ -4286,6 +4305,79 @@ def phase_ring(cfg, local: list[dict]) -> tuple[dict, dict]:
     return launches, launches_iv
 
 
+def phase_procengine() -> None:
+    """Phase 21: exp14 on the card's host, the parity and the sweep at full
+    size, the chaos drill at --fast; no kernel is launched."""
+    import multiprocessing
+
+    from repro_torch.experiments import exp14_procengine as exp14
+
+    t0 = time.perf_counter()
+    seg_bytes = 4096 * exp14._layout().block_bytes
+    print(f"  /dev/shm: {shutil.disk_usage('/dev/shm').free} bytes free; a full-size pool "
+          f"segment is {seg_bytes} bytes", flush=True)
+    shm_before = set(os.listdir("/dev/shm"))
+    tmp = tempfile.gettempdir()
+    fifos_before = {f for f in os.listdir(tmp) if f.startswith("beluga-doorbell-")}
+    cell, worker1 = exp14.parity(fast=False)
+    check(cell["bit_identical"], "exp14 parity: the private in-process, the shared in-process "
+          "and the one-worker runs give the same run() dict (160 requests of 4096 tokens, "
+          f"4096 pool blocks, a {seg_bytes} B segment)")
+    nums = {k: cell[k] for k in exp14.PARITY_KEYS}
+    check(cell["pinned_mismatches"] == [], f"exp14 parity numbers {nums} equal "
+          "exp14_procengine.PINNED['full'] (the JAX package's run; integers exactly, times "
+          "within 1e-12 relative)" + (f": {cell['pinned_mismatches']}" if
+                                      cell["pinned_mismatches"] else ""))
+    sweep = exp14.sweep(False, worker1)
+    check(exp14.one_engine_settled(cell, sweep),
+          "exp14 one engine (the private and shared in-process runs, one worker): every pool "
+          "refcount accounted for, none left by a key published twice")
+    most = sweep[0]["bytes_moved_total"]
+    hygiene = cell["hygiene"] + [c["hygiene"] for c in sweep]
+    for c in sweep:
+        h = c["hygiene"]
+        check(c["n_done"] == 160 and h["settled"] and h["left"] == []
+              and c["bytes_moved_total"] <= most,
+              f"exp14 N={c['n_workers']}: 160 of 160 requests done, every pool refcount "
+              f"accounted for ({h['overwritten']} blocks of a key another worker published "
+              f"again), {c['bytes_moved_total']} bytes moved <= N=1's {most}, nothing left "
+              "running")
+    ch = exp14.chaos_sweep(fast=True)
+    check(ch["restarts"] == 1 and ch["allocator_restarts"] == 1 and ch["n_done"] == 48
+          and ch["settled"],
+          f"exp14 chaos (--fast, 2 workers): the killed worker restarted once "
+          f"({ch['leases_released']} leases released), the allocator moved once, 48 of 48 "
+          f"requests done, every pool refcount accounted for ({ch['overwritten']} blocks "
+          "of a key another worker published again, each named by the journals)")
+    names = [n for h in hygiene for n in h["names"]]
+    paths = [p for h in hygiene for p in h["paths"]]
+    left_shm = set(os.listdir("/dev/shm")) - shm_before
+    left_fifos = {f for f in os.listdir(tmp) if f.startswith("beluga-doorbell-")} - fifos_before
+    check(all(_segment_gone(n) for n in names) and not any(os.path.exists(p) for p in paths)
+          and not left_shm and not left_fifos and not multiprocessing.active_children(),
+          f"exp14: the {len(names)} segments and {len(paths)} FIFOs its runs named are gone, "
+          "nothing new is left under /dev/shm or the FIFOs' directory, and no child process "
+          "lives")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"  {exp14.HOST_NOTE}; the card's machine: {smi}")
+    for c in sweep:
+        print(f"  procengine.N{c['n_workers']}: wall_s={c['wall_s']!r} "
+              f"qps_wall={c['qps_wall']!r} per_engine_mb_s={c['per_engine_mb_s']!r} "
+              f"bytes_moved_total={c['bytes_moved_total']} hit_tokens={c['hit_tokens']} "
+              "(host wall time)")
+    print(f"  procengine.chaos: recovery_s={ch['recovery_s']!r} steady_qps_wall="
+          f"{ch['steady_qps_wall']!r} outage_qps_wall={ch['outage_qps_wall']!r} "
+          f"post_qps_wall={ch['post_qps_wall']!r} worker_boot_s={ch['worker_boot_s']!r} "
+          "(host wall time)")
+    report = {"card": smi, "host_cores": os.cpu_count(), "parity": nums,
+              "sweep": [{k: v for k, v in c.items() if k != "hygiene"} for c in sweep],
+              "chaos": ch}
+    print(f"  procengine: {json.dumps(report)}")
+    print(f"  phase 21 in {time.perf_counter() - t0:.1f} s of wall time on the host (the parity "
+          "numbers are MODELED; no device)", flush=True)
+
+
 def phase_roofline(seed: int = 0) -> dict:
     """The launch tooling held against the card (module docstring, phase
     17), the card's arguments drawn from ``seed``; returns the kernel
@@ -4516,6 +4608,9 @@ def main() -> None:
     del llama_in_process
     gc.collect()
     torch.cuda.empty_cache()
+    print("[21] the shared data plane and engine worker processes: exp14 on the card's host, "
+          "parity and N = 1, 2, 4 workers at full size, the chaos drill at --fast", flush=True)
+    phase_procengine()
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
              "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches,
              "qwen3_fp8": qwen3_fp8_launches, "internvl2": internvl_launches,

@@ -21,6 +21,17 @@ attaches either pool), which a shard service process maps read-only
 (``core/procserver.PoolMetaView``); every later write to those arrays is in
 place. ``unshare_meta`` copies them back and unlinks the segment.
 
+``share_data`` moves the payload itself into one named segment of
+``(n_blocks, block_bytes)`` rows, the reference's byte layout, and implies
+``share_meta``: an engine worker process (``serving/engineproc.py``) maps it
+(``core/shmpool.SharedPoolSegment``) and moves blocks by plain loads and
+stores, while allocation stays with this pool behind a ring. The payload
+must lie on the CPU (``device="cpu"``, the twin of the reference's
+``backing="numpy"``); the pool's ``data`` becomes a tensor over the
+segment, built through numpy so that the mapping cannot be dropped while a
+view of it lives (``close`` raises ``BufferError`` then). ``unshare_data``
+copies the payload back and unlinks the segment.
+
 The payload is one tensor of shape ``(n_blocks, 2L, block_tokens, hkv,
 hd)``: every layer's K and V fragments of a block, interleaved ``[k0, v0,
 k1, v1, ...]`` — the layout that ``kv_gather_write`` packs and
@@ -127,8 +138,11 @@ class KVBlockPool:
         self._stamp = n_blocks
         self._n_free = n_blocks
         self._occ = [0] * n_shards
+        self.alloc_count = 0  # blocks handed out, ever
         self._meta_segment = None
         self._meta_spec: dict | None = None
+        self._data_segment = None
+        self._data_spec: dict | None = None
         self.data = torch.zeros(
             (n_blocks, *layout.block_shape), dtype=PAYLOAD_DTYPES[layout.dtype_bytes],
             device=device,
@@ -171,6 +185,37 @@ class KVBlockPool:
         self._meta_segment = self._meta_spec = None
         close_segment(seg, unlink=True)
         atexit.unregister(self.unshare_meta)
+
+    def share_data(self) -> dict:
+        """Move the payload into a named segment (idempotent; implies
+        ``share_meta``); returns the attach spec, plain data in the
+        reference's keys: ``data_shm_name``, ``meta`` (``share_meta``'s
+        spec), ``n_blocks`` and the layout's five numbers. A payload off the
+        CPU raises, as the reference's non-numpy backing does."""
+        if self._data_spec is None:
+            if self.data.device.type != "cpu":
+                raise ValueError("share_data requires device='cpu' (the reference's "
+                                 f"backing='numpy'), not {self.data.device.type!r}")
+            meta = self.share_meta()
+            seg, view = shared_data_segment(self.n_blocks, self.layout)
+            view.copy_(self.data)
+            self.data = view
+            self._data_segment = seg
+            self._data_spec = data_spec(seg.name, meta, self.n_blocks, self.layout)
+            atexit.register(self.unshare_data)
+        return self._data_spec
+
+    def unshare_data(self) -> None:
+        """Copy the payload back into a private tensor and unlink the
+        segment; safe to repeat, and when never shared. ``share_meta`` is
+        left as it is."""
+        seg = self._data_segment
+        if seg is None:
+            return
+        self.data = self.data.clone()  # the last view of the segment goes
+        self._data_segment = self._data_spec = None
+        close_segment(seg, unlink=True)
+        atexit.unregister(self.unshare_data)
 
     # ------------------------------------------------------------------
     def free_blocks(self) -> int:
@@ -216,6 +261,7 @@ class KVBlockPool:
         ids = np.asarray(out, np.intp)
         self.refcounts[ids] = 1
         self.committed[ids] = False
+        self.alloc_count += n
         return out
 
     def retain(self, block_ids: list[int]) -> None:
@@ -293,3 +339,20 @@ def shared_meta_segment(n: int):
     return seg, (np.frombuffer(seg.buf, np.int64, n, 0),
                  np.frombuffer(seg.buf, np.int32, n, 8 * n),
                  np.frombuffer(seg.buf, np.bool_, n, 12 * n))
+
+
+def shared_data_segment(n: int, layout: KVBlockLayout):
+    """A zeroed segment of ``n`` rows of ``layout.block_bytes`` and a payload
+    tensor over it, shape ``(n, *layout.block_shape)``, whose numpy base
+    holds the segment's buffer while any view of it lives."""
+    seg = create_segment(n * layout.block_bytes)
+    raw = torch.from_numpy(np.frombuffer(seg.buf, np.uint8))
+    return seg, raw.view(PAYLOAD_DTYPES[layout.dtype_bytes]).view(n, *layout.block_shape)
+
+
+def data_spec(name: str, meta: dict, n: int, layout: KVBlockLayout) -> dict:
+    """``share_data``'s attach spec, the reference's keys."""
+    return {"data_shm_name": name, "meta": meta, "n_blocks": n,
+            "block_tokens": layout.block_tokens, "n_layers_kv": layout.n_layers_kv,
+            "n_kv_heads": layout.n_kv_heads, "head_dim": layout.head_dim,
+            "dtype_bytes": layout.dtype_bytes}

@@ -163,31 +163,39 @@ def _service_main(spec: ShardSpec) -> None:
         finally:
             journal.close()
     handler = make_index_handler(index, max_reply=spec.payload_bytes, ctrl=ring.ctrl)
-    bell.open_read()  # a producer that sees the armed word finds a reader
-    ring.ctrl[CTRL_READY] = 1
-    idle = 0
     try:
-        while not ring.ctrl[CTRL_STOP]:
-            if drain_ready(ring, handler):
-                idle = 0
-                continue
-            idle += 1
-            if idle < SPIN_PASSES:
-                time.sleep(0)
-                continue
-            ring.ctrl[CTRL_DOORBELL] = 1  # arm, scan once more, then park
-            try:
-                if drain_ready(ring, handler):
-                    idle = 0
-                    continue
-                bell.wait(PARK_S)
-            finally:
-                ring.ctrl[CTRL_DOORBELL] = 0
+        serve(ring, handler, bell)
     finally:
         handler = None  # drop the ctrl view before the ring's mapping goes
         bell.close()
         ring.close()
         pool.close()
+
+
+def serve(ring: SlotRing, handler, bell: FifoDoorbell) -> None:
+    """A service process's loop: set ``CTRL_READY``, then serve ``ring``
+    until ``CTRL_STOP``; after ``SPIN_PASSES`` empty passes that only yield,
+    arm ``CTRL_DOORBELL``, scan once more and park on ``bell`` for at most
+    ``PARK_S``, so that a stop with no wakeup still ends the loop."""
+    bell.open_read()  # a producer that sees the armed word finds a reader
+    ring.ctrl[CTRL_READY] = 1
+    idle = 0
+    while not ring.ctrl[CTRL_STOP]:
+        if drain_ready(ring, handler):
+            idle = 0
+            continue
+        idle += 1
+        if idle < SPIN_PASSES:
+            time.sleep(0)
+            continue
+        ring.ctrl[CTRL_DOORBELL] = 1  # arm, scan once more, then park
+        try:
+            if drain_ready(ring, handler):
+                idle = 0
+                continue
+            bell.wait(PARK_S)
+        finally:
+            ring.ctrl[CTRL_DOORBELL] = 0
 
 
 def _exited(proc) -> bool:
@@ -419,10 +427,12 @@ class ShardWatchdog:
         """Any generation's child has not exited."""
         return any(s.running() for s in list(self._services))
 
-    def client(self) -> RingClient:
-        """An engine-side client that follows this watchdog's generations."""
+    def client(self, slot_range: tuple[int, int] | None = None) -> RingClient:
+        """An engine-side client that follows this watchdog's generations,
+        over ``slot_range`` (within ``client_range``, all of it by default)."""
         srv = self.generation.service
-        return RingClient(srv.ring, liveness=srv.alive, slot_range=self.client_range,
+        return RingClient(srv.ring, liveness=srv.alive,
+                          slot_range=self.client_range if slot_range is None else slot_range,
                           doorbell=srv.producer(), source=self)
 
     # -- totals over the generations ------------------------------------------
@@ -572,15 +582,19 @@ class ProcessPlane(ClientTotals):
 def process_plane(pool, n_shards: int, n_slots: int, payload_bytes: int, *,
                   selfheal: bool = False, retry: RingRetryPolicy | None = None,
                   journal_capacity: int = 4096, probe_interval: float = 0.02,
-                  probe: bool = True, on_evict=None) -> ProcessPlane:
+                  probe: bool = True, on_evict=None,
+                  client_range: tuple[int, int] | None = None) -> ProcessPlane:
     """Serve an index of ``pool`` (a ``KVBlockPool`` or ``TieredPool``,
     whose metadata this shares) from ``n_shards`` service processes, each
     behind a ring of ``n_slots`` slots of ``payload_bytes``, and put a
     ``ShardedRemoteIndex`` over them whose ``on_freed`` is the pool's
     release. With ``selfheal`` each shard runs under a ``ShardWatchdog``
     (its probe thread with ``probe``) and the client journals, retries
-    (``retry``, a default ``RingRetryPolicy`` if None) and degrades. Every
-    service boots at once; nothing is left running if a step fails."""
+    (``retry``, a default ``RingRetryPolicy`` if None) and degrades. The
+    plane's clients take ``client_range`` of each ring's slots (every slot a
+    client may use by default), so that engine worker processes can hold the
+    rest. Every service boots at once; nothing is left running if a step
+    fails."""
     spec = pool.share_meta()
     plane = ProcessPlane(pool, spec["shm_name"])
     try:
@@ -596,7 +610,7 @@ def process_plane(pool, n_shards: int, n_slots: int, payload_bytes: int, *,
         for svc in plane.services:
             if not svc.wait_ready():
                 raise RuntimeError("a shard service never became ready")
-        plane.clients = [svc.client() for svc in plane.services]
+        plane.clients = [svc.client(client_range) for svc in plane.services]
         if selfheal and retry is None:
             retry = RingRetryPolicy()
         plane.remote = ShardedRemoteIndex(

@@ -210,16 +210,20 @@ class SlotRing:
 
 def drain_ready(ring: SlotRing, handler) -> int:
     """One vectorised pass over a ring: serve every REQ_READY slot; returns
-    how many. A handler's exception goes back in-band as RESP_ERROR."""
+    how many. A handler's exception goes back in-band as RESP_ERROR. A
+    handler with a true ``wants_slot`` attribute also gets the slot: on a
+    ring whose slots are partitioned between clients, it names the poster
+    (``core/wire.make_pool_handler``'s lease ledger)."""
     status = ring.status
     ready = np.nonzero(status == REQ_READY)[0]
     if not len(ready):
         return 0
+    wants_slot = getattr(handler, "wants_slot", False)
     t_ns = time.perf_counter_ns()
     for i in ready.tolist():
         payload = ring.read_req(i)
         try:
-            ring.write_resp(i, handler(payload))
+            ring.write_resp(i, handler(payload, i) if wants_slot else handler(payload))
             status[i] = RESP_READY
         except Exception as e:  # noqa: BLE001 - relayed to the caller in-band
             msg = _truncate_utf8(f"{type(e).__name__}: {e}".encode(), ring.payload_bytes)

@@ -164,6 +164,11 @@ class FifoDoorbell:
             self._wfd = None
             return False
 
+    def clear(self) -> None:
+        """Nothing to do: ``wait`` drained the wakeups. A ``core/rpc.
+        RingServer`` thread parks on a FIFO, which a worker process can
+        ring, as it does on a ``threading.Event``."""
+
     def close(self) -> None:
         """Drop the descriptors (the creator also unlinks the path); safe to
         repeat."""

@@ -61,9 +61,14 @@ retries into holes in a match, which cuts the prefix there.
 
 ``ring_plane`` serves an index over S rings in threads of this process
 (``RingPlane``), the one place the thread transport is put together
-(``core/procserver.process_plane`` is the process transport's). The pool
-and journal ops (13-19, 21, 22) belong to the shared data plane and the
-engine workers (``ROADMAP.md`` queue 1 item 7e-iii).
+(``core/procserver.process_plane`` is the process transport's).
+
+The pool and journal ops (13-19, 21, 22, at the end of this module) carry
+what an engine worker process (``serving/engineproc.py``) cannot do on the
+shared payload segment itself: the allocator's calls, which stay with the
+pool-owning process behind a ring of its own (``make_pool_handler``,
+``RemotePool``), and the appends to the shard journals that process owns
+(``JournalProxy``).
 """
 
 from __future__ import annotations
@@ -89,6 +94,7 @@ from repro_torch.core.rpc import (
     CTRL_BUSY_NS,
     CTRL_SERVED,
     RingClient,
+    RingError,
     RingRetryPolicy,
     RingServer,
     RingServiceDied,
@@ -110,6 +116,17 @@ OP_STATS = 10
 OP_SNAPSHOT = 11
 OP_RESTORE = 12
 OP_SEED_STATS = 20
+# the allocator plane and the journal proxy (an engine worker's ring to the
+# pool-owning process)
+OP_POOL_ALLOC = 13
+OP_POOL_RETAIN = 14
+OP_POOL_RELEASE = 15
+OP_POOL_FREE = 16
+OP_JRNL_PUBLISH = 17
+OP_JRNL_RETRACT = 18
+OP_JRNL_REMAP = 19
+OP_POOL_ALLOC_KEYS = 21
+OP_POOL_TOUCH = 22
 
 _HDR = struct.Struct("<BI")  # op, count
 _U32 = struct.Struct("<I")
@@ -369,7 +386,11 @@ def _check_match_keys(keys: list[bytes]) -> None:
 
 
 def _check_block_ids(index, ids: np.ndarray, what: str) -> None:
-    if len(ids) and (ids.min() < 0 or ids.max() >= index.pool.n_blocks):
+    _check_pool_ids(index.pool, ids, what)
+
+
+def _check_pool_ids(pool, ids: np.ndarray, what: str) -> None:
+    if len(ids) and (ids.min() < 0 or ids.max() >= pool.n_blocks):
         raise WireFormatError(f"{what} block id out of pool range")
 
 
@@ -1048,3 +1069,345 @@ def _send(gen, value):
         return gen.send(value)
     except StopIteration:
         return None
+
+
+
+# ---------------------------------------------------------------------------
+# the allocator plane: an engine worker's ring to the pool-owning process
+# ---------------------------------------------------------------------------
+#     POOL_ALLOC      := n:u32                          -> n:u32 ids[n*i64]
+#     POOL_ALLOC_KEYS := n:u32 keys[n*16]               -> n:u32 ids[n*i64]
+#     POOL_TOUCH      := op:u8 n:u32 now:f64 ids[n*i64] -> k:u32 counts[k*i32]
+#     POOL_RETAIN     := n:u32 ids[n*i64]               -> n:u32
+#     POOL_RELEASE    := n:u32 ids[n*i64]               -> n:u32
+#     POOL_FREE       := n:u32 (ignored)                -> free:u64 alloc_count:u64
+#     JRNL_PUBLISH    := op:u8 n:u32 shard:u32 n_tokens:i32 keys ids epochs -> n:u32
+#     JRNL_RETRACT    := op:u8 n:u32 shard:u32 ids[n*i64]                  -> n:u32
+#     JRNL_REMAP      := op:u8 n:u32 shard:u32 keys ids epochs             -> n:u32
+#
+# ALLOC_KEYS passes a writeback's keys to a tier chain's ghost list; TOUCH
+# is a tier chain's demand signal and returns the touched blocks per tier.
+# An exhausted pool answers in-band (RESP_ERROR "PoolExhausted: ..."), and
+# ``RemotePool`` raises ``PoolExhausted`` again, so the manager's
+# evict-and-retry runs across the process boundary.
+_POOL_FREE_RESP = struct.Struct("<QQ")
+_POOL_TOUCH_HDR = struct.Struct("<BId")  # op, count, virtual now
+_JRNL_PUB_HDR = struct.Struct("<BIIi")  # op, count, shard, n_tokens
+_JRNL_HDR = struct.Struct("<BII")  # op, count, shard
+_MAX_TIERS = 16  # a TOUCH reply's room: counts for a chain of this many tiers
+_EXHAUSTED = ("PoolExhausted", "OutOfPoolMemory")  # the port's name, the reference's
+
+
+def encode_pool_alloc(n: int) -> bytes:
+    return _HDR.pack(OP_POOL_ALLOC, n)
+
+
+def encode_pool_alloc_keys(keys) -> bytes:
+    return _HDR.pack(OP_POOL_ALLOC_KEYS, len(keys)) + _join_keys(keys)
+
+
+def encode_pool_touch(block_ids, now: float) -> bytes:
+    return _POOL_TOUCH_HDR.pack(OP_POOL_TOUCH, len(block_ids), now) + _i64(block_ids)
+
+
+def encode_pool_retain(block_ids) -> bytes:
+    return _HDR.pack(OP_POOL_RETAIN, len(block_ids)) + _i64(block_ids)
+
+
+def encode_pool_release(block_ids) -> bytes:
+    return _HDR.pack(OP_POOL_RELEASE, len(block_ids)) + _i64(block_ids)
+
+
+def encode_pool_free() -> bytes:
+    return _HDR.pack(OP_POOL_FREE, 0)
+
+
+def encode_jrnl_publish(shard: int, keys, block_ids, epochs, n_tokens: int) -> bytes:
+    n = len(keys)
+    if not n == len(block_ids) == len(epochs):
+        raise WireFormatError("journal publish arrays disagree on length")
+    return _JRNL_PUB_HDR.pack(OP_JRNL_PUBLISH, n, shard, n_tokens) + _join_keys(keys) + \
+        _i64(block_ids) + _i64(epochs)
+
+
+def encode_jrnl_retract(shard: int, block_ids) -> bytes:
+    return _JRNL_HDR.pack(OP_JRNL_RETRACT, len(block_ids), shard) + _i64(block_ids)
+
+
+def encode_jrnl_remap(shard: int, keys, new_ids, new_epochs) -> bytes:
+    n = len(keys)
+    if not n == len(new_ids) == len(new_epochs):
+        raise WireFormatError("journal remap arrays disagree on length")
+    return _JRNL_HDR.pack(OP_JRNL_REMAP, n, shard) + _join_keys(keys) + _i64(new_ids) + \
+        _i64(new_epochs)
+
+
+def decode_pool_alloc_resp(buf: bytes) -> list[int]:
+    return _split(buf, 4, _count(buf), np.int64)[0].tolist()
+
+
+def decode_pool_touch_resp(buf: bytes) -> tuple[int, ...]:
+    return tuple(_split(buf, 4, _count(buf), np.int32)[0].tolist())
+
+
+def decode_pool_free_resp(buf: bytes) -> tuple[int, int]:
+    """(free blocks, blocks ever allocated)."""
+    _need(buf, _POOL_FREE_RESP.size)
+    return _POOL_FREE_RESP.unpack_from(buf)
+
+
+def pool_reply_bound(buf: bytes) -> int:
+    """Worst-case reply size of a pool or journal op, without running it:
+    an ALLOC whose ids could not ship fails before a block leaves the free
+    stacks."""
+    op, n = _header(buf)
+    if op in (OP_POOL_ALLOC, OP_POOL_ALLOC_KEYS):
+        if op == OP_POOL_ALLOC_KEYS:
+            _need(buf, _HDR.size + KEY_BYTES * n)
+        return 4 + 8 * n
+    if op == OP_POOL_TOUCH:
+        _need(buf, _POOL_TOUCH_HDR.size + 8 * n)
+        return 4 + 4 * _MAX_TIERS
+    if op in (OP_POOL_RETAIN, OP_POOL_RELEASE):
+        _need(buf, _HDR.size + 8 * n)
+        return 4
+    if op == OP_POOL_FREE:
+        return _POOL_FREE_RESP.size
+    if op == OP_JRNL_PUBLISH:
+        _need(buf, _JRNL_PUB_HDR.size + (KEY_BYTES + 16) * n)
+        return 4
+    if op == OP_JRNL_RETRACT:
+        _need(buf, _JRNL_HDR.size + 8 * n)
+        return 4
+    if op == OP_JRNL_REMAP:
+        _need(buf, _JRNL_HDR.size + (KEY_BYTES + 16) * n)
+        return 4
+    raise WireFormatError(f"unknown pool op {op}")
+
+
+def handle_pool_request(pool, buf: bytes) -> bytes:
+    """Run one allocator op against the pool that owns the free stacks."""
+    op, n = _header(buf)
+    if op == OP_POOL_ALLOC:
+        ids = pool.allocate(n)  # PoolExhausted goes back in-band
+        return _U32.pack(len(ids)) + _i64(ids)
+    if op == OP_POOL_ALLOC_KEYS:
+        keys, _ = _split_keys(buf, _HDR.size, n)
+        ids = pool.allocate(n, keys=keys)  # a tier chain's ghost list hears them
+        return _U32.pack(len(ids)) + _i64(ids)
+    if op == OP_POOL_TOUCH:
+        _need(buf, _POOL_TOUCH_HDR.size)
+        _, n, now = _POOL_TOUCH_HDR.unpack_from(buf)
+        ids, _ = _split(buf, _POOL_TOUCH_HDR.size, n, np.int64)
+        _check_pool_ids(pool, ids, "POOL_TOUCH")
+        counts = pool.touch_demand(ids.tolist(), now)
+        return _U32.pack(len(counts)) + np.asarray(counts, np.int32).tobytes()
+    if op in (OP_POOL_RETAIN, OP_POOL_RELEASE):
+        ids, _ = _split(buf, _HDR.size, n, np.int64)
+        _check_pool_ids(pool, ids, "POOL_RETAIN" if op == OP_POOL_RETAIN else "POOL_RELEASE")
+        if op == OP_POOL_RETAIN:
+            pool.retain(ids.tolist())
+        else:
+            pool.release(ids.tolist())
+        return _U32.pack(n)
+    if op == OP_POOL_FREE:
+        return _POOL_FREE_RESP.pack(pool.free_blocks(), pool.alloc_count)
+    raise WireFormatError(f"unknown pool op {op}")
+
+
+def handle_journal_request(buf: bytes, journals, ledger=None, worker: int | None = None) -> bytes:
+    """Append one proxied record to the pool-owning process's shard
+    journal. A JRNL_PUBLISH also ends the posting worker's lease on the
+    published blocks in ``ledger``: their allocation ref now belongs to the
+    index, so the worker's death must not release them."""
+    op, n = _header(buf)
+    if op == OP_JRNL_PUBLISH:
+        _need(buf, _JRNL_PUB_HDR.size)
+        _, n, shard, n_tokens = _JRNL_PUB_HDR.unpack_from(buf)
+        keys, off = _split_keys(buf, _JRNL_PUB_HDR.size, n)
+        ids, off = _split(buf, off, n, np.int64)
+        eps, _ = _split(buf, off, n, np.int64)
+        _journal_of(journals, shard).append_publish(keys, ids.tolist(), eps.tolist(), n_tokens)
+        if ledger is not None and worker is not None:
+            ledger.on_publish(worker, ids.tolist())
+        return _U32.pack(n)
+    if op in (OP_JRNL_RETRACT, OP_JRNL_REMAP):
+        _need(buf, _JRNL_HDR.size)
+        _, n, shard = _JRNL_HDR.unpack_from(buf)
+        journal = _journal_of(journals, shard)
+        if op == OP_JRNL_RETRACT:
+            journal.append_retract(_split(buf, _JRNL_HDR.size, n, np.int64)[0].tolist())
+        else:
+            keys, off = _split_keys(buf, _JRNL_HDR.size, n)
+            ids, off = _split(buf, off, n, np.int64)
+            eps, _ = _split(buf, off, n, np.int64)
+            journal.append_remap(keys, ids.tolist(), eps.tolist())
+        return _U32.pack(n)
+    raise WireFormatError(f"unknown journal op {op}")
+
+
+def _journal_of(journals, shard: int):
+    if shard >= len(journals):
+        raise WireFormatError(f"journal shard {shard} out of range")
+    return journals[shard]
+
+
+def make_pool_handler(pool, max_reply: int | None = None, *, ledger=None, slot_owner=None,
+                      journals=None):
+    """The allocator ring's handler over ``pool``: the reply must fit
+    ``max_reply`` (checked before anything runs), then the op.
+
+    With ``ledger`` (a ``core/shmpool.LeaseLedger``) or ``journals`` the
+    handler also takes the posting slot (``wants_slot``): ``slot_owner(slot)``
+    names the worker whose slot partition it is (None for a slot no worker
+    owns), every ALLOC, RETAIN and RELEASE of a worker is mirrored into the
+    ledger, and the journal ops append to ``journals`` (one a shard). The
+    thread that serves this handler is the only one that mutates the pool
+    and a live worker's leases, so it takes no lock."""
+    def check(payload: bytes) -> None:
+        if max_reply is not None and pool_reply_bound(payload) > max_reply:
+            raise WireFormatError(f"reply would exceed {max_reply} B slot")
+
+    if ledger is None and journals is None:
+        def handler(payload: bytes) -> bytes:
+            check(payload)
+            return handle_pool_request(pool, payload)
+
+        return handler
+
+    jrnls = [] if journals is None else list(journals)
+
+    def slot_handler(payload: bytes, slot: int) -> bytes:
+        check(payload)
+        op, n = _header(payload)
+        worker = None if slot_owner is None else slot_owner(slot)
+        if op in (OP_JRNL_PUBLISH, OP_JRNL_RETRACT, OP_JRNL_REMAP):
+            return handle_journal_request(payload, jrnls, ledger, worker)
+        reply = handle_pool_request(pool, payload)
+        if ledger is None or worker is None:
+            return reply
+        if op in (OP_POOL_ALLOC, OP_POOL_ALLOC_KEYS):
+            ledger.on_alloc(worker, decode_pool_alloc_resp(reply), pool)
+        elif op == OP_POOL_RETAIN:
+            ledger.on_retain(worker, _split(payload, _HDR.size, n, np.int64)[0].tolist(), pool)
+        elif op == OP_POOL_RELEASE:
+            ledger.on_release(worker, _split(payload, _HDR.size, n, np.int64)[0].tolist())
+        return reply
+
+    slot_handler.wants_slot = True
+    return slot_handler
+
+
+class JournalProxy:
+    """A shard journal held by the pool-owning process, as a worker appends
+    to it (the reference's ``RemoteJournal``): the append calls an index
+    client makes once a reply confirmed a mutation, each shipped over the
+    worker's allocator ring with its shard. Appends fold idempotently
+    (``core/shm.live_entries``), so a dead or swapped ring, or a timeout, is
+    retried under ``retry``."""
+
+    def __init__(self, rpc, shard: int, max_payload: int | None = None,
+                 retry: RingRetryPolicy | None = None):
+        self.rpc = rpc
+        self.shard = shard
+        self.retry = retry
+        if max_payload is None:
+            max_payload = rpc.ring.payload_bytes
+        self._max_pub = max(1, (max_payload - 24) // (KEY_BYTES + 16))
+        self._max_ids = max(1, (max_payload - 24) // 8)
+
+    def _call(self, payload: bytes) -> bytes:
+        return _call_with_retry(self.rpc, payload, self.retry, idempotent=True)
+
+    def append_publish(self, keys, block_ids, epochs, n_tokens: int) -> None:
+        M = self._max_pub
+        for off in range(0, len(keys), M):
+            end = off + M
+            self._call(encode_jrnl_publish(self.shard, keys[off:end], block_ids[off:end],
+                                           epochs[off:end], n_tokens))
+
+    def append_retract(self, block_ids) -> None:
+        M = self._max_ids
+        for off in range(0, len(block_ids), M):
+            self._call(encode_jrnl_retract(self.shard, block_ids[off : off + M]))
+
+    def append_remap(self, keys, new_ids, new_epochs) -> None:
+        M = self._max_pub
+        for off in range(0, len(keys), M):
+            end = off + M
+            self._call(encode_jrnl_remap(self.shard, keys[off:end], new_ids[off:end],
+                                         new_epochs[off:end]))
+
+
+class RemotePool:
+    """The allocator's calls over a ring to the pool-owning process (the
+    reference's ``PoolRpcClient``), one round trip a call, chunked at the
+    slot's capacity. An allocation is atomic across its chunks: when a
+    later chunk finds the pool exhausted, the earlier chunks' blocks go back
+    before ``PoolExhausted`` is raised (recognised in the in-band error by
+    the port's name or the reference's)."""
+
+    def __init__(self, rpc, n_blocks: int, max_payload: int | None = None):
+        self.rpc = rpc
+        self.n_blocks = n_blocks
+        if max_payload is None:
+            max_payload = rpc.ring.payload_bytes
+        self._max_ids = max(1, (max_payload - 16) // 8)
+        self._max_keyed = max(1, (max_payload - 16) // KEY_BYTES)
+
+    def _call(self, payload: bytes) -> bytes:
+        try:
+            return self.rpc.call(payload)
+        except RingServiceDied:
+            raise
+        except RingError as e:
+            name, _, detail = str(e).partition(": ")
+            if name in _EXHAUSTED:
+                from repro_torch.core.pool import PoolExhausted  # torch: a worker's side
+
+                raise PoolExhausted(detail or str(e)) from e
+            raise
+
+    def allocate(self, n: int, keys=None) -> list[int]:
+        from repro_torch.core.pool import PoolExhausted  # torch: a worker's side
+
+        out: list[int] = []
+        M = self._max_ids if keys is None else self._max_keyed
+        try:
+            while len(out) < n:
+                k = min(n - len(out), M)
+                msg = (encode_pool_alloc(k) if keys is None
+                       else encode_pool_alloc_keys(keys[len(out) : len(out) + k]))
+                out.extend(decode_pool_alloc_resp(self._call(msg)))
+        except PoolExhausted:
+            if out:
+                self.release(out)  # no partial allocation leaks
+            raise
+        return out
+
+    def touch_demand(self, block_ids, now: float) -> tuple[int, ...]:
+        """A tier chain's demand signal, run where the chain is; the
+        touched blocks per tier, summed over the chunks."""
+        totals: list[int] = []
+        M = self._max_ids
+        for off in range(0, len(block_ids), M):
+            counts = decode_pool_touch_resp(self._call(encode_pool_touch(block_ids[off : off + M],
+                                                                         now)))
+            totals += [0] * (len(counts) - len(totals))
+            for i, c in enumerate(counts):
+                totals[i] += c
+        return tuple(totals) if totals else (0, 0)
+
+    def retain(self, block_ids) -> None:
+        for off in range(0, len(block_ids), self._max_ids):
+            self._call(encode_pool_retain(block_ids[off : off + self._max_ids]))
+
+    def release(self, block_ids) -> None:
+        for off in range(0, len(block_ids), self._max_ids):
+            self._call(encode_pool_release(block_ids[off : off + self._max_ids]))
+
+    def free_blocks(self) -> int:
+        return decode_pool_free_resp(self._call(encode_pool_free()))[0]
+
+    def alloc_count(self) -> int:
+        return decode_pool_free_resp(self._call(encode_pool_free()))[1]

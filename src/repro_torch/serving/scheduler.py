@@ -41,39 +41,86 @@ which owns the ring clients.
     degrades, and so do the managers (``degraded_ok``). ``selfheal``
     outside the process transport is ignored, as the reference ignores it.
 
-``close()`` (or leaving a ``with`` block) stops every server thread or
-service process, unlinks every segment and FIFO, and returns what is still
-running; a construction that fails halfway leaves nothing behind.
+The pool's payload lies on ``device``: ``"meta"`` (payload-free, the
+reference's ``backing="meta"``, the default) or ``"cpu"`` (real payload
+rows, the twin of ``backing="numpy"``).
+
+  * ``data_plane="shared"`` (``device="cpu"``) moves the payload into one
+    named segment (``KVBlockPool.share_data``); engines in this process use
+    the pool as before, over the shared rows.
+  * ``engine_processes=N`` (with the shared data plane, the process
+    transport, ``N == n_engines`` and ``policy="round_robin"``) runs each
+    engine in a worker process of its own (``serving/engineproc.py``),
+    which moves blocks on the shared segment, reaches the allocator over a
+    ring served by a thread of this process (``core/wire.
+    make_pool_handler``) and the index over the shard rings; the slots of
+    every ring are partitioned between this process (part 0 of the index
+    rings, the last slot of the allocator's) and the workers. ``run()``
+    starts every worker's clock before it collects any, folds the workers'
+    results into ``requests`` and then drives the migrator here, between
+    rounds. With ``selfheal`` each worker runs under an
+    ``EngineWorkerSupervisor``: a dead worker's leases are reconciled from
+    the ``LeaseLedger`` the allocator's handler keeps, it is respawned and
+    its requests not yet done are replayed; a shard respawned by its
+    watchdog reaches the workers as a ``WCMD_ADOPT`` before the next
+    command (``CutoverForwarder``); ``restart_allocator()`` moves the
+    allocator to a fresh ring under the workers.
+
+One thread owns the pool at a time: with workers, the allocator's server
+thread, while any worker holds a command; the thread that drives the
+cluster, between rounds (the migrator, stats). So a worker is restarted,
+and its leases reconciled, only when no other worker holds a command: a
+run that found its worker dead is run again (``rerun``) after every
+worker's run was collected. The reconcile waits until the dead worker's
+slots on the allocator ring hold no request; if the allocator's thread has
+not served them by ``LEASE_DRAIN_S``, the allocator moves to a fresh ring
+first, so that none of them is served later under the respawned worker,
+which takes the same slots. The releases go over the ring, from the slot
+no worker owns.
+
+``close()`` (or leaving a ``with`` block) stops every worker, server thread
+and service process, unlinks every segment and FIFO, and returns what is
+still running; a construction that fails halfway leaves nothing behind.
 ``shm_segment_names()`` and ``doorbell_paths()`` name what the process
-transport created.
+transport, the shared data plane and the workers created.
 
 ``ClusterConfig`` holds the reference's fields that these paths read, with
-the same defaults. The shared data plane and the engine workers
-(``data_plane="shared"``, ``engine_processes``) are not ported yet and
-raise a ``ValueError`` naming ``ROADMAP.md`` queue 1 item 7e-iii, with
-tiering on or off.
+the same defaults; ``refuse`` raises the reference's refusals, in its order
+and with its words (a payload off the CPU is its non-numpy backing).
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 
-from repro_torch.core import fabric
+from repro_torch.core import diag, fabric
 from repro_torch.core.index import PrefixIndex, ShardedPrefixIndex
 from repro_torch.core.pool import KVBlockLayout, KVBlockPool
-from repro_torch.core.procserver import ProcessPlane, process_plane
-from repro_torch.core.rpc import RingClient
+from repro_torch.core.procserver import ProcessPlane, ShardWatchdog, process_plane
+from repro_torch.core.rpc import REQ_READY, CTRL_STOP, RingClient, RingRetryPolicy, RingServer, SlotRing
+from repro_torch.core.shm import FifoDoorbell
+from repro_torch.core.shmpool import LeaseLedger
 from repro_torch.core.transfer import PoolTransfer
-from repro_torch.core.wire import RingPlane, ring_plane
+from repro_torch.core.wire import RemotePool, RingPlane, make_pool_handler, ring_plane
 from repro_torch.kvcache.hbm_cache import HbmPagedCache
 from repro_torch.kvcache.manager import FetchPlan, KVCacheManager
 from repro_torch.serving.engine import EngineInstance, SimRunner, SimRunnerConfig
+from repro_torch.serving.engineproc import (
+    PLANE_INDEX,
+    PLANE_POOL,
+    CutoverForwarder,
+    EngineWorkerHost,
+    EngineWorkerSupervisor,
+    partition_slots,
+    worker_context,
+)
 from repro_torch.serving.request import Request, summarize
 from repro_torch.tiering import MigrationEngine, TieredPool, TieringConfig
 
-ITEM_SHARED = "ROADMAP.md queue 1 item 7e-iii (the shared data plane and the engine workers)"
+LEASE_DRAIN_S = 5.0  # a dead worker's requests left on the allocator ring are served by then
 
 
 @dataclass
@@ -102,16 +149,20 @@ class ClusterConfig:
     selfheal: bool = False
     journal_capacity: int = 8192  # records a shard's journal
     supervisor_probe_interval: float = 0.02  # s between probe steps
-    # refused: the shared data plane and engine worker processes (item 7e-iii)
+    # the payload in one named segment ("shared", device="cpu"), and engines
+    # in worker processes of their own over it (one a modeled GPU)
     data_plane: str = "private"
     engine_processes: int = 0
     # the tiered pool (Exp #13): disabled, the flat pool's path unchanged
     tiering: TieringConfig = field(default_factory=TieringConfig)
 
 
-def refuse_unported(cfg: ClusterConfig) -> None:
-    """Raise for a setting the reference refuses, or whose piece the port
-    does not have yet (item 7e-iii)."""
+def refuse(cfg: ClusterConfig, device: str) -> None:
+    """Raise the reference's refusals of a setting (its ``Cluster._build``),
+    in its order and with its words; a payload on ``device`` other than
+    ``"cpu"`` is its non-numpy backing."""
+    if device not in ("meta", "cpu"):
+        raise ValueError(device)
     if cfg.index_transport not in ("thread", "process"):
         raise ValueError(
             f"index_transport must be 'thread' or 'process', got {cfg.index_transport!r}")
@@ -119,37 +170,59 @@ def refuse_unported(cfg: ClusterConfig) -> None:
         raise ValueError("index_transport='process' requires index_rpc=True")
     if cfg.data_plane not in ("private", "shared"):
         raise ValueError(f"data_plane must be 'private' or 'shared', got {cfg.data_plane!r}")
-    for name, on in (("data_plane='shared'", cfg.data_plane == "shared"),
-                     (f"engine_processes={cfg.engine_processes}", bool(cfg.engine_processes))):
-        if on:
-            raise ValueError(f"ClusterConfig {name} is not ported yet: {ITEM_SHARED}")
+    if cfg.data_plane == "shared" and device != "cpu":
+        raise ValueError("data_plane='shared' requires backing='numpy' "
+                         "(payload bytes must exist to be shared)")
+    if cfg.engine_processes:
+        if cfg.data_plane != "shared":
+            raise ValueError("engine_processes requires data_plane='shared'")
+        if not (cfg.index_rpc and cfg.index_transport == "process"):
+            raise ValueError("engine_processes requires index_rpc=True and "
+                             "index_transport='process'")
+        if cfg.engine_processes != cfg.n_engines:
+            raise ValueError("engine_processes must equal n_engines (one worker per modeled GPU)")
+        if cfg.policy != "round_robin":
+            raise NotImplementedError("engine workers support policy='round_robin' only "
+                                      "(load/clock live inside the worker processes)")
 
 
 class Cluster:
-    def __init__(self, cfg: ClusterConfig, layout: KVBlockLayout):
-        refuse_unported(cfg)
+    def __init__(self, cfg: ClusterConfig, layout: KVBlockLayout, device: str = "meta"):
+        refuse(cfg, device)
         self.cfg = cfg
         self.plane: RingPlane | ProcessPlane | None = None
+        self.pool = None
+        self.workers: list = []  # EngineWorkerHost / EngineWorkerSupervisor
+        self._pool_server: RingServer | None = None  # the allocator's (workers)
+        self._pool_ring: SlotRing | None = None
+        self._pool_doorbell: FifoDoorbell | None = None
+        self._pool_client: RemotePool | None = None  # the slot no worker owns
+        self._pool_rings: list[tuple[str, str]] = []  # every allocator generation
+        self._forwarders: list[CutoverForwarder] = []
+        self._ledger: LeaseLedger | None = None
+        self._data_spec: dict | None = None  # the shared data plane's attach spec
+        self.allocator_restarts = 0
         self._closed = False
+        self.requests: list[Request] = []
+        self._rr = 0
         try:
-            self._build(cfg, layout)
+            self._build(cfg, layout, device)
         except BaseException:
             self.close()
             raise
-        self.requests: list[Request] = []
-        self._rr = 0
 
-    def _build(self, cfg: ClusterConfig, layout: KVBlockLayout) -> None:
+    def _build(self, cfg: ClusterConfig, layout: KVBlockLayout, device: str) -> None:
         tcfg = cfg.tiering
-        # payload-free: the reference's backing="meta"
         if tcfg.enabled:
             spill = tcfg.spill_blocks or 4 * cfg.pool_blocks
             spill = -(-spill // cfg.pool_shards) * cfg.pool_shards
-            self.pool = TieredPool(layout, cfg.pool_blocks, spill, "meta", n_shards=cfg.pool_shards,
+            self.pool = TieredPool(layout, cfg.pool_blocks, spill, device, n_shards=cfg.pool_shards,
                                    cfg=tcfg)
         else:
-            self.pool = KVBlockPool(layout, cfg.pool_blocks, "meta", n_shards=cfg.pool_shards)
+            self.pool = KVBlockPool(layout, cfg.pool_blocks, device, n_shards=cfg.pool_shards)
         shards = cfg.index_shards
+        if cfg.engine_processes:
+            worker_context()  # the workers' forkserver, before any thread that spawns
         if cfg.index_rpc and cfg.index_transport == "process":
             # no index here: each shard's is built in its service process,
             # and an eviction reply's keys arm the ghost list
@@ -158,7 +231,8 @@ class Cluster:
                 self.pool, shards, cfg.index_rpc_slots, cfg.index_rpc_payload,
                 selfheal=cfg.selfheal, journal_capacity=cfg.journal_capacity,
                 probe_interval=cfg.supervisor_probe_interval,
-                on_evict=self.pool.policy.ghost_add if tcfg.enabled else None)
+                on_evict=self.pool.policy.ghost_add if tcfg.enabled else None,
+                client_range=self._index_parts()[0] if cfg.engine_processes else None)
         else:
             self.index = (ShardedPrefixIndex(self.pool, shards) if shards > 1
                           else PrefixIndex(self.pool))
@@ -177,8 +251,159 @@ class Cluster:
         else:
             self.queues = None
             self.migrator = None
-        self.engines: list[EngineInstance] = [self._make_engine(i) for i in range(cfg.n_engines)]
+        if cfg.data_plane == "shared":
+            self._data_spec = self.pool.share_data()
+        if cfg.engine_processes:
+            self._build_workers(cfg, self._data_spec)
+            self.engines = self.workers
+        else:
+            self.engines: list[EngineInstance] = [self._make_engine(i)
+                                                  for i in range(cfg.n_engines)]
 
+    # ------------------------------------------------------------------
+    # engine worker processes
+    # ------------------------------------------------------------------
+    def _index_parts(self) -> list[tuple[int, int]]:
+        """An index ring's slots a client may use (a watched ring's last
+        slot is its watchdog's), in N + 1 parts: this process's, then worker
+        i's at i + 1."""
+        cfg = self.cfg
+        hi = cfg.index_rpc_slots - 1 if cfg.selfheal else cfg.index_rpc_slots
+        return partition_slots(hi, cfg.engine_processes + 1)
+
+    def _pool_parts(self) -> list[tuple[int, int]]:
+        """The allocator ring's slots, worker i's at i; the last slot is
+        this process's (the reconcile's releases)."""
+        return partition_slots(self.cfg.index_rpc_slots - 1, self.cfg.engine_processes)
+
+    def _slot_owner(self, slot: int) -> int | None:
+        for w, (lo, hi) in enumerate(self._pool_parts()):
+            if lo <= slot < hi:
+                return w
+        return None
+
+    def _start_allocator(self) -> None:
+        """The allocator's ring, its FIFO doorbell (which workers ring) and
+        the thread that serves it, published together; this process's
+        client takes the last slot."""
+        cfg = self.cfg
+        ring = SlotRing.create_shared(cfg.index_rpc_slots, cfg.index_rpc_payload)
+        bell = FifoDoorbell.create()
+        self._pool_rings.append((ring.shm_name, bell.path))
+        bell.open_read()  # before the first park: a worker's ring finds a reader
+        if cfg.selfheal:
+            handler = make_pool_handler(
+                self.pool, max_reply=cfg.index_rpc_payload, ledger=self._ledger,
+                slot_owner=self._slot_owner, journals=[s.journal for s in self.plane.services])
+        else:
+            handler = make_pool_handler(self.pool, max_reply=cfg.index_rpc_payload)
+        self._pool_server = RingServer(ring, handler, doorbell=bell).start()
+        self._pool_ring, self._pool_doorbell = ring, bell
+        n = cfg.index_rpc_slots
+        rpc = RingClient(ring, slot_range=(n - 1, n), doorbell=FifoDoorbell.attach(bell.path))
+        if self._pool_client is None:
+            self._pool_client = RemotePool(rpc, self.pool.n_blocks)
+        else:
+            self._pool_client.rpc.close()
+            self._pool_client.rpc = rpc
+
+    def _worker_spec_kwargs(self, i: int, data_spec: dict) -> dict:
+        """Worker ``i``'s spec from the current ring generations, at boot and
+        at every respawn."""
+        cfg = self.cfg
+        services = [s.generation.service if isinstance(s, ShardWatchdog) else s
+                    for s in self.plane.services]
+        return dict(
+            engine_id=i, pool_spec=data_spec,
+            pool_ring_name=self._pool_ring.shm_name, pool_slots=cfg.index_rpc_slots,
+            pool_payload=cfg.index_rpc_payload, pool_doorbell_name=self._pool_doorbell.path,
+            pool_slot_range=self._pool_parts()[i],
+            index_ring_names=tuple(s.spec.ring_name for s in services),
+            index_slots=cfg.index_rpc_slots, index_payload=cfg.index_rpc_payload,
+            index_doorbell_names=tuple(s.spec.doorbell_path for s in services),
+            index_slot_range=self._index_parts()[i + 1],
+            hbm_slots=cfg.hbm_slots_per_engine, transfer_mode=cfg.transfer_mode,
+            super_block_tokens=cfg.super_block_tokens, straggler_cutover=cfg.straggler_cutover,
+            runner=cfg.runner, selfheal=cfg.selfheal,
+            retry=RingRetryPolicy() if cfg.selfheal else None)
+
+    def _build_workers(self, cfg: ClusterConfig, data_spec: dict) -> None:
+        """The allocator's service and one worker process a modeled GPU,
+        booted at once; under selfheal, supervised workers and a cutover
+        forwarder for each (shard, worker)."""
+        if cfg.selfheal:
+            self._ledger = LeaseLedger()
+        self._start_allocator()
+        for i in range(cfg.engine_processes):
+            if cfg.selfheal:
+                worker = EngineWorkerSupervisor(
+                    lambda i=i: self._worker_spec_kwargs(i, data_spec),
+                    on_worker_death=self._reconcile_worker_leases)
+            else:
+                worker = EngineWorkerHost(self._worker_spec_kwargs(i, data_spec))
+            self.workers.append(worker)
+            worker.start()
+        for worker in self.workers:
+            if not worker.wait_ready():
+                raise RuntimeError(f"engine worker {worker.engine_id} failed to boot")
+        if cfg.selfheal:
+            self._forwarders = [CutoverForwarder(w, PLANE_INDEX, s, source=svc)
+                                for s, svc in enumerate(self.plane.services)
+                                for w in self.workers]
+
+    def _forward_cutovers(self) -> None:
+        """Carry every shard generation a watchdog published since the last
+        command into the workers."""
+        for f in self._forwarders:
+            f.forward()
+
+    def _reconcile_worker_leases(self, engine_id: int) -> dict:
+        """A supervisor's ``on_worker_death``, when no other worker holds a
+        command: once the dead worker's slots on the allocator ring hold no
+        request (or, past ``LEASE_DRAIN_S``, the allocator moved to a fresh
+        ring, which retires them), release its leases by the ledger's epoch
+        rules, probing the index from here and releasing over the ring from
+        the slot no worker owns."""
+        lo, hi = self._pool_parts()[engine_id]
+        deadline = time.monotonic() + LEASE_DRAIN_S
+        while (self._pool_ring.status[lo:hi] == REQ_READY).any():
+            if time.monotonic() > deadline:
+                diag.note("scheduler.reconcile.drain_timeout")
+                self._move_allocator(skip=engine_id)
+                break
+            time.sleep(1e-3)
+        return self._ledger.reconcile(engine_id, self.pool,
+                                      owners_of=self.plane.remote.owners_of,
+                                      release=self._pool_client.release)
+
+    def restart_allocator(self) -> None:
+        """Move the allocator to a fresh ring under the workers (the
+        allocator outage drill): the pool's state never leaves this process,
+        only the transport moves. Between rounds, so that no worker posts
+        meanwhile."""
+        if self._pool_ring is None:
+            raise RuntimeError("no allocator service to restart")
+        self._move_allocator()
+        self.allocator_restarts += 1
+
+    def _move_allocator(self, skip: int | None = None) -> None:
+        """Stop the old server (a request still on its ring is never
+        served), start the new one, move every worker's client but
+        ``skip``'s (``WCMD_ADOPT``; a respawn's spec names the new ring),
+        then retire the old ring with its ``CTRL_STOP`` set."""
+        old_server, old_ring, old_bell = self._pool_server, self._pool_ring, self._pool_doorbell
+        if not old_server.stop():
+            raise TimeoutError("the allocator's server thread did not stop")
+        self._start_allocator()
+        for worker in self.workers:
+            if worker.engine_id != skip:
+                CutoverForwarder(worker, PLANE_POOL).adopt_ring(
+                    self._pool_ring, bell_path=self._pool_doorbell.path)
+        old_ring.ctrl[CTRL_STOP] = 1  # a client that missed the cutover fails fast
+        old_ring.close()
+        old_bell.close()
+
+    # ------------------------------------------------------------------
     def _index_view(self):
         """The index as an engine or the migrator reaches it: the object
         itself, or the client side of the rings."""
@@ -190,29 +415,54 @@ class Cluster:
         trips; empty without ``index_rpc``."""
         return [] if self.plane is None else list(self.plane.clients)
 
-    def _owned_plane(self) -> ProcessPlane | None:
-        plane = self.plane
-        return plane if isinstance(plane, ProcessPlane) and not self._closed else None
-
     def shm_segment_names(self) -> list[str]:
-        """The named segments the process transport holds (the pool's
-        metadata, every ring of every generation, the journals); empty once
-        closed."""
-        plane = self._owned_plane()
-        return [] if plane is None else plane.segment_names()
+        """The named segments this cluster holds (the pool's metadata and
+        payload, every ring of every generation, the journals, the
+        workers' command rings); empty once closed."""
+        if self._closed:
+            return []
+        names = self.plane.segment_names() if isinstance(self.plane, ProcessPlane) else []
+        spec = self._data_spec
+        if spec is not None:
+            names.append(spec["data_shm_name"])
+            if spec["meta"]["shm_name"] not in names:
+                names.append(spec["meta"]["shm_name"])
+        names += [name for name, _ in self._pool_rings]
+        return names + [n for w in self.workers for n in w.segment_names()]
 
     def doorbell_paths(self) -> list[str]:
-        """The FIFO paths the process transport holds; empty once closed."""
-        plane = self._owned_plane()
-        return [] if plane is None else plane.doorbell_paths()
+        """The FIFO paths this cluster holds; empty once closed."""
+        if self._closed:
+            return []
+        paths = self.plane.doorbell_paths() if isinstance(self.plane, ProcessPlane) else []
+        paths += [path for _, path in self._pool_rings]
+        return paths + [p for w in self.workers for p in w.doorbell_paths()]
 
     def close(self) -> list:
-        """Stop every ring server thread or service process, unlink what
-        they used (idempotent); returns the threads or services still
-        running, which a caller must treat as a failure. The clients and
-        their stats stay readable."""
+        """Stop every worker, server thread and service process, unlink
+        what they used (idempotent); returns what still runs, which a caller
+        must treat as a failure. The ring clients and their stats stay
+        readable."""
+        if self._closed:
+            return []
         self._closed = True
-        return [] if self.plane is None else self.plane.close()
+        # the workers first: they hold every other plane's segments
+        for w in self.workers:
+            w.close()
+        left = [w for w in self.workers if w.running()]
+        if self._pool_server is not None and not self._pool_server.stop():
+            left.append(self._pool_server)
+        if self._pool_client is not None:
+            self._pool_client.rpc.close()
+        if self._pool_ring is not None:
+            self._pool_ring.close()
+            self._pool_doorbell.close()
+        if self.plane is not None:
+            left += self.plane.close()
+        if self.pool is not None:
+            self.pool.unshare_data()
+            self.pool.unshare_meta()
+        return left
 
     def __enter__(self) -> "Cluster":
         return self
@@ -260,13 +510,35 @@ class Cluster:
 
     def dispatch(self, req: Request) -> EngineInstance:
         eng = self._select_engine(req)
-        eng.submit(req)
+        if self.workers:
+            # a worker echoes the parent's index back with the results
+            self._forward_cutovers()
+            eng.submit_indexed(req, len(self.requests))
+        else:
+            eng.submit(req)
         self.requests.append(req)
         return eng
 
     # ------------------------------------------------------------------
     def run(self, until: float | None = None) -> dict:
-        if until is None:
+        if self.workers:
+            # every worker's clock starts before any reply is collected: the
+            # N drains run at once, against the one shared segment
+            self._forward_cutovers()
+            tokens = [w.post_run(until) for w in self.workers]
+            clocks = [w.collect_run(t) for w, t in zip(self.workers, tokens)]
+            # a supervised worker that died under its run restarts only now,
+            # with every other worker idle: its restart reconciles its leases
+            clocks = [w.rerun(t) if clock is None else clock
+                      for w, t, clock in zip(self.workers, tokens, clocks)]
+            end = until if until is not None else max(clocks, default=0.0)
+            for w in self.workers:
+                w.apply_results(self.requests)
+            if self.migrator is not None:
+                # the migrator stays with the pool; the workers only signal
+                # demand over the ring. Driven here, between rounds
+                self.migrator.run_until(end)
+        elif until is None:
             end = max(e.drain() for e in self.engines)
         else:
             for e in self.engines:
@@ -280,10 +552,20 @@ class Cluster:
         stats["pool_free"] = self.pool.free_blocks()
         stats["shard_occupancy_max"] = max(self.pool.shard_occupancy() or [0])
         if isinstance(self.plane, ProcessPlane) and self.cfg.selfheal:
+            if self.workers:  # the managers are in the workers: their counters come back
+                mgr_degraded = sum(w.stats_dict()["manager"]["degraded_ops"]
+                                   for w in self.workers)
+            else:
+                mgr_degraded = sum(e.manager.stats.degraded_ops for e in self.engines)
             stats["selfheal"] = {
                 "restarts": self.plane.restarts(), "rpc_retries": self.plane.retries(),
                 "rpc_degraded_ops": sum(c.stats.degraded_ops for c in self.plane.clients),
-                "manager_degraded_ops": sum(e.manager.stats.degraded_ops for e in self.engines)}
+                "manager_degraded_ops": mgr_degraded}
+            if self.workers:
+                stats["selfheal"]["worker_restarts"] = sum(w.restarts for w in self.workers)
+                stats["selfheal"]["allocator_restarts"] = self.allocator_restarts
+                stats["selfheal"]["leases_released"] = sum(
+                    r["released"] for w in self.workers for r in w.reconciled if r is not None)
         if self.migrator is not None:
             stats["tiering"] = self.pool.stats_dict()
             stats["tiering"]["migrator_steps"] = self.migrator.steps
@@ -296,6 +578,8 @@ class Cluster:
     def remove_engine(self, engine_id: int) -> list[Request]:
         """Simulate an instance failure: requeue its in-flight requests,
         each routed and resubmitted once; ``requests`` keeps its order."""
+        if self.workers:
+            raise NotImplementedError("elastic scaling with engine worker processes (ROADMAP)")
         eng = self.engines[engine_id]
         orphans = list(eng.waiting) + list(eng.running)
         for r in orphans:
@@ -310,6 +594,8 @@ class Cluster:
         return orphans
 
     def add_engine(self) -> EngineInstance:
+        if self.workers:
+            raise NotImplementedError("elastic scaling with engine worker processes (ROADMAP)")
         eng = self._make_engine(len(self.engines))
         eng.clock = max((e.clock for e in self.engines), default=0.0)
         self.engines.append(eng)

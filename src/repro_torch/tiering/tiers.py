@@ -28,12 +28,14 @@ Demotion and promotion along the chain are ``migrator.MigrationEngine``'s.
 the global id space, byte for byte a flat pool's of ``n_blocks``, so that a
 shard service process attaches it as it would a flat pool's
 (``core/procserver.PoolMetaView``); each tier's arrays become slices of
-it. The payload export (``share_data``) belongs to the shared data plane
-(``ROADMAP.md`` queue 1 item 7e-iii) and is not here, nor are the scalar
-payload calls (``write_block``,
-``read_block``, ``read_fragments``, ``validate_epoch``): the port's
-coherent reader and writer (``core/coherence.py``) reach a pool through its
-batched calls.
+it. ``share_data`` does the same for the payload: one segment of rows in
+global-id order, shaped as a flat pool's, each tier's ``data`` a slice of
+it, and a ``tiering`` entry (each tier's first id and medium) in the attach
+spec, which an engine worker's pool (``core/shmpool.TieredWorkerPool``)
+reads. The scalar payload calls (``write_block``, ``read_block``,
+``read_fragments``, ``validate_epoch``) are not ported: the port's coherent
+reader and writer (``core/coherence.py``) reach a pool through its batched
+calls.
 """
 
 from __future__ import annotations
@@ -45,7 +47,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from repro_torch.core.pool import KVBlockLayout, KVBlockPool, PoolExhausted, shared_meta_segment
+from repro_torch.core.pool import (
+    KVBlockLayout,
+    KVBlockPool,
+    PoolExhausted,
+    data_spec,
+    shared_data_segment,
+    shared_meta_segment,
+)
 from repro_torch.core.shm import close_segment
 from repro_torch.tiering.policy import HotnessTracker
 from repro_torch.tiering.stats import TierStats
@@ -147,6 +156,8 @@ class TieredPool:
         self.promote_pending: set[int] = set()
         self._meta_segment = None
         self._meta_spec: dict | None = None
+        self._data_segment = None
+        self._data_spec: dict | None = None
         self._rebuild_views()
 
     def _rebuild_views(self) -> None:
@@ -188,7 +199,44 @@ class TieredPool:
         close_segment(seg, unlink=True)
         atexit.unregister(self.unshare_meta)
 
+    def share_data(self) -> dict:
+        """Every tier's payload in one named segment, in global-id order
+        (idempotent; implies ``share_meta``); returns a flat pool's attach
+        spec of ``n_blocks`` plus ``tiering``: ``starts`` (each tier's
+        first id) and ``media``. Each tier's ``data`` becomes its slice."""
+        if self._data_spec is None:
+            if self.device.type != "cpu":
+                raise ValueError("share_data requires device='cpu' (the reference's "
+                                 f"backing='numpy'), not {self.device.type!r}")
+            meta = self.share_meta()
+            seg, whole = shared_data_segment(self.n_blocks, self.layout)
+            for t, o in zip(self.tiers, self._starts.tolist()):
+                whole[o : o + t.n_blocks].copy_(t.data)
+                t.data = whole[o : o + t.n_blocks]
+            self._data_segment = seg
+            self._data_spec = {
+                **data_spec(seg.name, meta, self.n_blocks, self.layout),
+                "tiering": {"starts": self._starts.tolist(), "media": list(self.tier_media)}}
+            atexit.register(self.unshare_data)
+        return self._data_spec
+
+    def unshare_data(self) -> None:
+        """Copy the payload back into private per-tier tensors and unlink;
+        safe to repeat, and when never shared."""
+        seg = self._data_segment
+        if seg is None:
+            return
+        for t in self.tiers:
+            t.data = t.data.clone()
+        self._data_segment = self._data_spec = None
+        close_segment(seg, unlink=True)
+        atexit.unregister(self.unshare_data)
+
     # ------------------------------------------------------------------
+    @property
+    def alloc_count(self) -> int:
+        return sum(t.alloc_count for t in self.tiers)
+
     @property
     def payload_free(self) -> bool:
         return self.tiers[0].payload_free

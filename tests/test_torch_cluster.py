@@ -20,9 +20,10 @@ requests:
   JAX's and to the in-process path; a tiered cluster whose migrator
   crosses the rings equal to JAX's and to the co-located migrator; exp05's
   beluga mode at 256 clients over 1 and 4 rings equal to ``PINNED``;
-* each ``ValueError`` refusal of a setting that is not ported yet, naming
-  its ``ROADMAP.md`` item (7e-iii), and the reference's own refusals
-  (the process transport without ``index_rpc``, unknown transports).
+* each ``ValueError`` refusal, with the message JAX's ``Cluster`` gives for
+  the same settings (a payload-free pool shared, workers without the shared
+  data plane, the process transport without ``index_rpc``, unknown
+  transports and data planes).
 
 Every number here is MODELED by the simulators; nothing runs on a device.
 """
@@ -271,30 +272,40 @@ def test_settled_check_sees_a_leaked_reference():
 # ---------------------------------------------------------------------------
 
 
-# the process transport and self-healing are ported. The four cases that
-# refused them keep their ids (a test whose check changes keeps its name)
-# and now check: kw0 and kw2, that the shared data plane and the engine
-# workers are still refused (item 7e-iii) with the process transport and
-# selfheal on; kw1 and kw5, the reference's own "index_transport='process'
-# requires index_rpc=True", without and with selfheal
+# every setting here is one the reference refuses, and each case holds the
+# port's message against the one JAX's Cluster gives for it. The ids are the
+# cases' first ones (a test whose check changes keeps its name): kw1 and kw5
+# once named item 7e-ii, whose process transport the reference refuses
+# without index_rpc; kw0, kw2, kw3 and kw4 named item 7e-iii until the shared
+# data plane and the engine workers were ported, and now check the
+# reference's own refusal of their settings: a payload-free pool
+# (backing="meta", the port's device="meta") cannot be shared, and workers
+# need the shared data plane
 @pytest.mark.parametrize("kw,item", [
     pytest.param({"index_rpc": True, "index_transport": "process", "data_plane": "shared"},
-                 "item 7e-iii", id="kw0-item 7e-ii"),
+                 "requires backing='numpy'", id="kw0-item 7e-ii"),
     pytest.param({"index_transport": "process"}, "requires index_rpc=True",
                  id="kw1-item 7e-ii"),
     pytest.param({"tiering": TieringConfig(enabled=True), "index_rpc": True,
                   "index_transport": "process", "selfheal": True, "engine_processes": 4},
-                 "item 7e-iii", id="kw2-item 7e-ii"),
-    ({"data_plane": "shared"}, "item 7e-iii"),
-    ({"engine_processes": 4}, "item 7e-iii"),
+                 "requires data_plane='shared'", id="kw2-item 7e-ii"),
+    pytest.param({"data_plane": "shared"}, "requires backing='numpy'", id="kw3-item 7e-iii"),
+    pytest.param({"engine_processes": 4}, "requires data_plane='shared'", id="kw4-item 7e-iii"),
     pytest.param({"selfheal": True, "index_transport": "process"},
                  "requires index_rpc=True", id="kw5-item 7e-ii"),
     ({"index_transport": "carrier-pigeon"}, "must be 'thread' or 'process'"),
     ({"data_plane": "public"}, "must be 'private' or 'shared'"),
 ])
 def test_unported_settings_are_refused(kw, item):
-    with pytest.raises(ValueError, match=item):
+    from repro.tiering import TieringConfig as JTieringConfig
+
+    with pytest.raises(ValueError, match=item) as got:
         Cluster(ClusterConfig(n_engines=1, pool_blocks=64, **kw), SIDES["port"].layout)
+    jkw = {k: JTieringConfig(**dataclasses.asdict(v)) if k == "tiering" else v
+           for k, v in kw.items()}
+    with pytest.raises(ValueError) as ref:
+        JCluster(JClusterConfig(n_engines=1, pool_blocks=64, **jkw), SIDES["jax"].layout)
+    assert str(got.value) == str(ref.value)
 
 
 # ---------------------------------------------------------------------------
