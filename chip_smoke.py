@@ -413,6 +413,25 @@ Phases, each a hard check (any failure exits non-zero):
    of the card's machine beside the card's name and power limit (the
    parity numbers are the simulator's virtual time: MODELED), and the
    phase's wall time.
+22. the control plane's micro-benchmarks, on the card's host
+   (``core/seed_baseline.py``, ``experiments/exp12_control_plane.py``,
+   through ``experiments/run.run_modules``, the runner's dispatch; nothing
+   launched): exp12 at its full size: 32 allocations of 16 blocks and their
+   release on a 65,536-block pool of 32 shards, seed against
+   ``KVBlockPool``; a 15,000-token chain's match; 64 blocks of 4 MiB (the
+   Qwen3-32B layout at head_dim 128) read back from two 128-block pools on
+   the host, seed, fresh and into a persistent destination; the closed-loop
+   simulator at 256 clients of 4096 tokens, 16 engines. Fails unless the
+   twin did not fail and its deterministic checks hold (``exp12_check``):
+   one cycle of the seed and the new allocator hands out the same ids, the
+   seed's str-hash chain matches none of the 937 published keys and the
+   port's all of them, the three reads give the same seeded bytes, and the
+   engine loop's events equal ``exp12_control_plane.PINNED_EVENTS["full"]``
+   (the JAX package's count); and unless afterwards no pool of the read's
+   4 MiB layout is left alive. Prints the four rows (host wall time of the
+   card's machine, beside the card's name and power limit; speedups are
+   printed, not held to a floor), the host's resident set before and
+   after, and the phase's wall time.
 
 Prints the kernel table as one JSON line (the e4m3 paged instantiation as
 a row of its own, ``paged_attention_e4m3``, and the attention backward as
@@ -4378,6 +4397,73 @@ def phase_procengine() -> None:
           "numbers are MODELED; no device)", flush=True)
 
 
+def exp12_check(results: dict) -> None:
+    """Phase 22's checks of a full-size exp12 run's results (the module
+    docstring); a failed one exits through ``check``."""
+    from repro_torch.experiments import exp12_control_plane as exp12
+
+    check(results["fast"] is False, "exp12 ran at its full size")
+    ar = results["alloc_release"]
+    check(ar["same_ids"], f"exp12 alloc_release: one cycle of 32 x allocate({ar['group']}) on "
+          f"{ar['pool_blocks']} blocks / {ar['n_shards']} shards hands out the seed's ids")
+    mp = results["match_prefix"]
+    check(mp["seed_matched"] == 0 and mp["new_matched"] == mp["n_keys"] == 937,
+          f"exp12 match_prefix: the seed's str-hash chain matches {mp['seed_matched']} of the "
+          f"published keys, the port's {mp['new_matched']} of {mp['n_keys']}")
+    sr = results["scatter_read"]
+    check(sr["same_bytes"] and sr["n_blocks_read"] == 64
+          and sr["block_bytes"] == exp12.scatter_layout(True).block_bytes,
+          f"exp12 scatter_read: {sr['n_blocks_read']} blocks of {sr['block_bytes']} B read by "
+          "the seed, fresh and into the destination give the seeded bytes")
+    el = results["engine_loop"]
+    want = exp12.PINNED_EVENTS["full"]
+    check(el["events"] == want, f"exp12 engine_loop: {el['events']} events at "
+          f"{el['n_clients']} clients of {el['in_len']} tokens equal PINNED_EVENTS['full'] "
+          f"{want} (the JAX package's count)")
+    check(exp12.check_failures(results) == [], "exp12: check_failures() finds nothing")
+
+
+def _rss_bytes() -> int:
+    """This process's resident set (``VmRSS``), in bytes."""
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) * 1024
+    return -1
+
+
+def phase_control_plane() -> None:
+    """Phase 22: the exp12 twin at full size through the runner's dispatch,
+    on the card's host; no kernel is launched."""
+    from repro_torch.core.pool import KVBlockPool
+    from repro_torch.core.seed_baseline import SeedAllocator
+    from repro_torch.experiments import exp12_control_plane as exp12
+    from repro_torch.experiments.run import run_modules
+
+    t0 = time.perf_counter()
+    rss0 = _rss_bytes()
+    rows, failures, results = run_modules(["exp12"], fast=False)
+    check(not failures, f"exp12 ran through run_modules without failing: {failures}")
+    exp12_check(results["exp12"])
+    gc.collect()
+    big = exp12.scatter_layout(True).block_bytes
+    left = [o for o in gc.get_objects() if type(o) in (KVBlockPool, SeedAllocator)
+            and o.layout.block_bytes == big and o.n_blocks == 128]
+    check(not left, f"exp12's 128-block pools of {big} B blocks are freed ({len(left)} alive)")
+    del left
+    rss1 = _rss_bytes()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
+    print(f"  {exp12.HOST_NOTE}; the card's machine: {smi}")
+    for row in rows:
+        print("  " + ",".join(row))
+    r = results["exp12"]
+    print(f"  control_plane: {json.dumps({k: v for k, v in r.items() if k != 'failures'})}")
+    print(f"  host resident set {rss0} B before, {rss1} B after")
+    print(f"  phase 22 in {time.perf_counter() - t0:.1f} s of wall time on the host (no device)",
+          flush=True)
+
+
 def phase_roofline(seed: int = 0) -> dict:
     """The launch tooling held against the card (module docstring, phase
     17), the card's arguments drawn from ``seed``; returns the kernel
@@ -4611,6 +4697,9 @@ def main() -> None:
     print("[21] the shared data plane and engine worker processes: exp14 on the card's host, "
           "parity and N = 1, 2, 4 workers at full size, the chaos drill at --fast", flush=True)
     phase_procengine()
+    print("[22] the control plane's micro-benchmarks: exp12 at full size on the card's host, "
+          "the seed allocator, hash and read against the port's", flush=True)
+    phase_control_plane()
     paths = {"llama": launches, "mamba2": mamba_launches, "sparse": sparse_launches,
              "arctic": arctic_launches, "jamba": jamba_launches, "qwen3": qwen3_launches,
              "qwen3_fp8": qwen3_fp8_launches, "internvl2": internvl_launches,

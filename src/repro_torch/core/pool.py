@@ -7,8 +7,12 @@ per-block epochs, refcounts and committed flags, and the same batched
 Block ``b`` lives on shard ``b % n_shards``, one free stack per shard, and
 an allocation goes round-robin over the fullest shards first, ties to the
 shard whose oldest free block has been free longest; when that order runs
-dry it sweeps what is left by shard. The reference's non-interleaved FIFO
-(``interleave=False``) is not ported: nothing in the port runs it.
+dry it sweeps what is left by shard. With ``interleave=False`` block ``b``
+lives on shard ``b // (n_blocks // n_shards)`` and one FIFO of free ids,
+filled in id order, hands them out: shard 0 fills first, the paper's §5.3
+bottleneck and the ablation of its O9 (the reference's non-interleaved
+pool). The free structures are private to this pool: ``share_meta`` and
+``share_data`` move neither.
 
 ``write_blocks`` / ``read_blocks`` move payload rows by block id with one
 batched epoch bump or snapshot: the calls through which a transfer, and a
@@ -47,6 +51,7 @@ The port's engines are single-threaded, so the pool takes no lock.
 from __future__ import annotations
 
 import atexit
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
@@ -110,7 +115,8 @@ PAYLOAD_DTYPES = {1: torch.uint8, 2: torch.bfloat16, 4: torch.float32}
 
 
 class KVBlockPool:
-    """Block allocator + device payload over interleaved shards."""
+    """Block allocator + device payload over interleaved (or filled-in-order)
+    shards."""
 
     is_tiered = False
 
@@ -120,18 +126,26 @@ class KVBlockPool:
         n_blocks: int,
         device: str | torch.device,
         n_shards: int = N_SHARDS,
+        interleave: bool = True,
     ):
         if n_blocks % n_shards:
             raise ValueError(f"n_blocks={n_blocks} is not a multiple of {n_shards} shards")
         self.layout = layout
         self.n_blocks = n_blocks
         self.n_shards = n_shards
+        self.interleave = interleave
         self.epochs = np.zeros(n_blocks, np.int64)
         self.refcounts = np.zeros(n_blocks, np.int32)
         self.committed = np.zeros(n_blocks, bool)
-        self._free_by_shard: list[list[int]] = [
-            list(range(s, n_blocks, n_shards)) for s in range(n_shards)
-        ]
+        # per-shard free stacks (interleaved), or one FIFO in id order
+        if interleave:
+            self._free_by_shard: list[list[int]] = [
+                list(range(s, n_blocks, n_shards)) for s in range(n_shards)
+            ]
+            self._free_fifo: deque[int] | None = None
+        else:
+            self._free_by_shard = []
+            self._free_fifo = deque(range(n_blocks))
         # free-age stamps: ties between equally full shards go to the shard
         # whose oldest free block has been free longest
         self._age = np.arange(n_blocks, dtype=np.int64)
@@ -226,9 +240,26 @@ class KVBlockPool:
 
     # ------------------------------------------------------------------
     def allocate(self, n: int) -> list[int]:
-        """Allocate n blocks round-robin over the shards, fullest first."""
+        """Allocate n blocks round-robin over the shards, fullest first (the
+        FIFO's oldest n without interleaving)."""
         if self._n_free < n:
             raise PoolExhausted(f"need {n}, have {self._n_free}")
+        out = self._take_interleaved(n) if self.interleave else self._take_fifo(n)
+        self._n_free -= n
+        ids = np.asarray(out, np.intp)
+        self.refcounts[ids] = 1
+        self.committed[ids] = False
+        self.alloc_count += n
+        return out
+
+    def _take_fifo(self, n: int) -> list[int]:
+        fifo, per = self._free_fifo, self.n_blocks // self.n_shards
+        out = [fifo.popleft() for _ in range(n)]
+        for b in out:
+            self._occ[b // per] += 1
+        return out
+
+    def _take_interleaved(self, n: int) -> list[int]:
         stacks, age = self._free_by_shard, self._age
         order = sorted(
             (s for s in range(self.n_shards) if stacks[s]),
@@ -257,11 +288,6 @@ class KVBlockPool:
                     del stacks[s][:k]
                     self._occ[s] += k
                 break
-        self._n_free -= n
-        ids = np.asarray(out, np.intp)
-        self.refcounts[ids] = 1
-        self.committed[ids] = False
-        self.alloc_count += n
         return out
 
     def retain(self, block_ids: list[int]) -> None:
@@ -291,12 +317,18 @@ class KVBlockPool:
         farr = np.asarray(freed, np.intp)
         self.committed[farr] = False
         self.epochs[farr] += 1  # invalidate readers holding stale ids
-        for b in freed:
-            s = b % self.n_shards
-            self._free_by_shard[s].append(b)
-            self._occ[s] -= 1
-            self._age[b] = self._stamp
-            self._stamp += 1
+        if self.interleave:
+            for b in freed:
+                s = b % self.n_shards
+                self._free_by_shard[s].append(b)
+                self._occ[s] -= 1
+                self._age[b] = self._stamp
+                self._stamp += 1
+        else:
+            per = self.n_blocks // self.n_shards
+            for b in freed:
+                self._free_fifo.append(b)
+                self._occ[b // per] -= 1
         self._n_free += len(freed)
 
     # ------------------------------------------------------------------
@@ -313,15 +345,17 @@ class KVBlockPool:
         self.committed[ids] = True
         return self.epochs[ids].tolist()
 
-    def read_blocks(self, block_ids) -> tuple[torch.Tensor | None, np.ndarray]:
+    def read_blocks(self, block_ids, out: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor | None, np.ndarray]:
         """(payload rows (n, *block_shape), or None on a payload-free pool;
-        the epochs at the read, snapshot before the copy)."""
+        the epochs at the read, snapshot before the copy). With ``out`` (a
+        contiguous (n, *block_shape) tensor of the payload's dtype) the rows
+        are copied into it and it is returned."""
         ids = np.asarray(block_ids, np.intp)
         eps = self.epochs[ids].copy()
         if self.payload_free:
             return None, eps
-        rows = self.data.flatten(1).index_select(0, self._index(ids))
-        return rows.view(len(ids), *self.layout.block_shape), eps
+        return gather_rows(self.data, self._index(ids), out), eps
 
     def _index(self, ids: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(ids, dtype=torch.long, device=self.data.device)
@@ -330,6 +364,17 @@ class KVBlockPool:
         """Vectorized committed + epoch check."""
         ids = np.asarray(block_ids, np.intp)
         return self.committed[ids] & (self.epochs[ids] == np.asarray(epochs))
+
+
+def gather_rows(data: torch.Tensor, index: torch.Tensor, out: torch.Tensor | None = None
+                ) -> torch.Tensor:
+    """Rows ``index`` of a payload ``data`` (n_blocks, *block_shape), one
+    ``index_select``; into ``out`` when given (no fresh allocation)."""
+    flat = data.flatten(1)
+    if out is None:
+        return flat.index_select(0, index).view(len(index), *data.shape[1:])
+    torch.index_select(flat, 0, index, out=out.view(len(index), -1))
+    return out
 
 
 def shared_meta_segment(n: int):

@@ -47,7 +47,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.core.pool import PAYLOAD_DTYPES, KVBlockLayout
+from repro_torch.core.pool import PAYLOAD_DTYPES, KVBlockLayout, gather_rows
 from repro_torch.core.shm import attach_segment, close_segment
 from repro_torch.tiering.stats import TierStats
 
@@ -91,13 +91,13 @@ class SharedPoolSegment:
         self.committed[ids] = True
         return self.epochs[ids].tolist()
 
-    def read_blocks(self, block_ids) -> tuple[torch.Tensor, np.ndarray]:
-        """(payload rows (n, *block_shape), the epochs snapshot before the
-        copy: §5.1's protocol)."""
+    def read_blocks(self, block_ids, out: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor, np.ndarray]:
+        """(payload rows (n, *block_shape), into ``out`` when given; the
+        epochs snapshot before the copy: §5.1's protocol)."""
         ids = np.asarray(block_ids, np.intp)
         eps = self.epochs[ids].copy()
-        rows = self.data.flatten(1).index_select(0, self._index(ids))
-        return rows.view(len(ids), *self.layout.block_shape), eps
+        return gather_rows(self.data, self._index(ids), out), eps
 
     def read_fragments(self, block_id: int, frag_ids) -> torch.Tensor:
         """Fragments ``frag_ids`` of one block, (k, block_tokens, hkv, hd)."""
@@ -165,8 +165,8 @@ class WorkerPool:
     def write_blocks(self, block_ids, payloads=None) -> list[int]:
         return self._shared.write_blocks(block_ids, payloads)
 
-    def read_blocks(self, block_ids):
-        return self._shared.read_blocks(block_ids)
+    def read_blocks(self, block_ids, out=None):
+        return self._shared.read_blocks(block_ids, out)
 
     def read_fragments(self, block_id, frag_ids):
         return self._shared.read_fragments(block_id, frag_ids)

@@ -126,14 +126,27 @@ class PoolTransfer:
         self.stats.bytes_written += n * self.pool.layout.block_bytes
         return epochs
 
-    def scatter_read(self, block_ids: list[int], epochs: list[int] | None = None):
+    def scatter_read(self, block_ids: list[int], epochs: list[int] | None = None,
+                     out: torch.Tensor | None = None):
         """Returns (n_blocks, 2L, block_tokens, hkv, hd) (on ``meta`` for a
         payload-free pool). With ``epochs``, a block that is no longer
         committed at that epoch (payload-free) or whose epoch moved
-        (payload) raises ``StaleBlockError``, as the reference checks."""
+        (payload) raises ``StaleBlockError``, as the reference checks.
+
+        ``out``: a destination of that shape in the pool's payload dtype,
+        contiguous (the engine's persistent KV buffer): the rows are copied
+        into it, with no fresh allocation, and ``out`` itself is returned
+        (zeroed on a payload-free pool, as the reference's meta backing
+        does). The epochs are still read before the copy."""
         n = len(block_ids)
+        lay = self.pool.layout
+        if out is not None:
+            shape, dtype = (n, *lay.block_shape), PAYLOAD_DTYPES[lay.dtype_bytes]
+            if tuple(out.shape) != shape or out.dtype != dtype or not out.is_contiguous():
+                raise ValueError(f"out must be a contiguous {shape} {dtype} tensor, got "
+                                 f"{tuple(out.shape)} {out.dtype}")
         self.stats.modeled_read_s += self._price(n)
-        out, eps_now = self.pool.read_blocks(block_ids)
+        rows, eps_now = self.pool.read_blocks(block_ids, out=out)
         if epochs is not None:
             if self.pool.payload_free:
                 ok = self.pool.validate_epochs(block_ids, epochs)
@@ -142,13 +155,16 @@ class PoolTransfer:
             if not ok.all():
                 bad = block_ids[int(np.argmin(ok))]
                 raise StaleBlockError(f"block {bad} epoch changed during read")
-        if out is None:
-            lay = self.pool.layout
-            out = torch.empty((n, *lay.block_shape), dtype=PAYLOAD_DTYPES[lay.dtype_bytes],
-                              device="meta")
+        if out is not None:
+            if self.pool.payload_free:
+                out.zero_()
+            rows = out
+        elif rows is None:
+            rows = torch.empty((n, *lay.block_shape), dtype=PAYLOAD_DTYPES[lay.dtype_bytes],
+                               device="meta")
         self.stats.reads += n
-        self.stats.bytes_read += n * self.pool.layout.block_bytes
-        return out
+        self.stats.bytes_read += n * lay.block_bytes
+        return rows
 
 
 def n_fragments(layout: KVBlockLayout) -> int:

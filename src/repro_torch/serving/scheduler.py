@@ -131,6 +131,7 @@ class ClusterConfig:
     super_block_tokens: int = 0  # rdma batching granularity (LMCache: 256)
     pool_blocks: int = 65536
     pool_shards: int = 32
+    interleave: bool = True  # False: one FIFO fills shard 0 first (no O9)
     # H20 (96 GB): 60 GB model -> ~28.3 GB usable KV (paper §7.1) at ~262
     # KB/token for Qwen3-32B = ~6750 16-token slots
     hbm_slots_per_engine: int = 6750
@@ -217,9 +218,10 @@ class Cluster:
             spill = tcfg.spill_blocks or 4 * cfg.pool_blocks
             spill = -(-spill // cfg.pool_shards) * cfg.pool_shards
             self.pool = TieredPool(layout, cfg.pool_blocks, spill, device, n_shards=cfg.pool_shards,
-                                   cfg=tcfg)
+                                   interleave=cfg.interleave, cfg=tcfg)
         else:
-            self.pool = KVBlockPool(layout, cfg.pool_blocks, device, n_shards=cfg.pool_shards)
+            self.pool = KVBlockPool(layout, cfg.pool_blocks, device, n_shards=cfg.pool_shards,
+                                    interleave=cfg.interleave)
         shards = cfg.index_shards
         if cfg.engine_processes:
             worker_context()  # the workers' forkserver, before any thread that spawns

@@ -132,16 +132,18 @@ class TieredPool:
         spill_blocks: int,
         device: str | torch.device = "meta",
         n_shards: int = 32,
+        interleave: bool = True,
         cfg: TieringConfig | None = None,
     ):
         self.layout = layout
+        self.interleave = interleave
         self.cfg = cfg or TieringConfig(enabled=True)
         sizes = [fast_blocks, spill_blocks]
         media = ["cxl", self.cfg.spill_media]
         for eb, em in self.cfg.extra_tiers:
             sizes.append(-(-int(eb) // n_shards) * n_shards)
             media.append(em)
-        self.tiers = [KVBlockPool(layout, nb, device, n_shards) for nb in sizes]
+        self.tiers = [KVBlockPool(layout, nb, device, n_shards, interleave) for nb in sizes]
         self.tier_media = tuple(media)
         self._starts = np.cumsum([0] + sizes[:-1]).astype(np.intp)
         self.n_blocks = int(sum(sizes))
@@ -380,26 +382,27 @@ class TieredPool:
             eps[m] = t.write_blocks((ids[m] - self._starts[k]).tolist(), sub)
         return eps.tolist()
 
-    def read_blocks(self, block_ids) -> tuple[torch.Tensor | None, np.ndarray]:
-        """(payload rows in the caller's order, or None when payload-free;
-        the epochs at the read)."""
+    def read_blocks(self, block_ids, out: torch.Tensor | None = None
+                    ) -> tuple[torch.Tensor | None, np.ndarray]:
+        """(payload rows in the caller's order, into ``out`` when given, or
+        None when payload-free; the epochs at the read)."""
         ids, tix = self._split_tiers(block_ids)
         eps = np.empty(len(ids), np.int64)
-        dst = None
+        dst = out
         for k, t in enumerate(self.tiers):
             m = tix == k
             if not m.any():
+                continue
+            if m.all():  # one tier holds them all: its rows, no second copy
+                dst, eps[:] = t.read_blocks(ids - self._starts[k], out)
                 continue
             p, e = t.read_blocks(ids[m] - self._starts[k])
             eps[m] = e
             if p is None:
                 continue
-            if m.all():
-                dst = p  # one tier holds them all: its rows, no second copy
-            else:
-                if dst is None:
-                    dst = p.new_empty((len(ids), *p.shape[1:]))
-                dst[_rows(m, p.device)] = p
+            if dst is None:
+                dst = p.new_empty((len(ids), *p.shape[1:]))
+            dst[_rows(m, p.device)] = p
         if dst is None and not self.payload_free:
             dst = self.tiers[0].data[:0].clone()
         return dst, eps

@@ -428,6 +428,6 @@ def test_cluster_config_fields_and_defaults_are_the_reference_s():
     assert fields(ClusterConfig)["tiering"] == {k: v for k, v in fields(JClusterConfig)[
         "tiering"].items() if k in fields(TieringConfig)}
     with pytest.raises(TypeError):
-        ClusterConfig(interleave=False)
+        ClusterConfig(snapshot_interval=0.5)
     with pytest.raises(TypeError):
         TieringConfig(prefix_admit_blocks=3)
