@@ -407,12 +407,14 @@ Phases, each a hard check (any failure exits non-zero):
    index's, or a block another worker's publish of the same key replaced)
    and no block moved twice (bytes moved at most N = 1's); unless the chaos
    drill (``chaos_sweep(fast=True)``: a worker killed, the allocator moved
-   to a fresh ring) restarts each once and finishes every request; and
-   unless afterwards no segment or FIFO any run made is left and no child
-   process lives. Prints the sweep's and the drill's rows, host wall time
-   of the card's machine beside the card's name and power limit (the
-   parity numbers are the simulator's virtual time: MODELED), and the
-   phase's wall time.
+   to a fresh ring) restarts each once, finishes every request and
+   accounts for every pool refcount, each block left over named by a
+   journal publish of its key under another block (the ids of any not so
+   named are printed as ``unnamed``); and unless afterwards no segment or
+   FIFO any run made is left and no child process lives. Prints the
+   sweep's and the drill's rows, host wall time of the card's machine
+   beside the card's name and power limit (the parity numbers are the
+   simulator's virtual time: MODELED), and the phase's wall time.
 22. the control plane's micro-benchmarks, on the card's host
    (``core/seed_baseline.py``, ``experiments/exp12_control_plane.py``,
    through ``experiments/run.run_modules``, the runner's dispatch; nothing
@@ -4367,7 +4369,9 @@ def phase_procengine() -> None:
           f"exp14 chaos (--fast, 2 workers): the killed worker restarted once "
           f"({ch['leases_released']} leases released), the allocator moved once, 48 of 48 "
           f"requests done, every pool refcount accounted for ({ch['overwritten']} blocks "
-          "of a key another worker published again, each named by the journals)")
+          "of a key another worker published again, each named by a journal publish of its "
+          f"key under another block; unnamed: {ch['unnamed']}, refcount neither the index's "
+          f"nor 1: {ch['miscounted']})")
     names = [n for h in hygiene for n in h["names"]]
     paths = [p for h in hygiene for p in h["paths"]]
     left_shm = set(os.listdir("/dev/shm")) - shm_before
@@ -4388,7 +4392,7 @@ def phase_procengine() -> None:
     print(f"  procengine.chaos: recovery_s={ch['recovery_s']!r} steady_qps_wall="
           f"{ch['steady_qps_wall']!r} outage_qps_wall={ch['outage_qps_wall']!r} "
           f"post_qps_wall={ch['post_qps_wall']!r} worker_boot_s={ch['worker_boot_s']!r} "
-          "(host wall time)")
+          f"overwritten={ch['overwritten']} unnamed={ch['unnamed']} (host wall time)")
     report = {"card": smi, "host_cores": os.cpu_count(), "parity": nums,
               "sweep": [{k: v for k, v in c.items() if k != "hygiene"} for c in sweep],
               "chaos": ch}

@@ -55,7 +55,8 @@ PINNED = {
 PARITY_KEYS = ("n_done", "avg_ttft_s", "hit_tokens", "pool_free")
 # a chaos shard's journal holds every publish and eviction of the full-size
 # run (the reference's cell keeps the default 8192 and compacts), so that
-# ``refcounts_accounted`` finds every publish it names
+# ``refcounts_accounted`` finds both publishes of every key published twice,
+# in whichever order the journal holds them
 CHAOS_JOURNAL = 1 << 16
 
 
@@ -85,7 +86,7 @@ def cluster_config(fast: bool, n_engines: int, **kw):
 def run_once(fast: bool, n_engines: int, **kw) -> tuple[dict, float, list, dict]:
     """One cluster's life over the workload: (the run's stats, host wall
     seconds of ``run()``, each worker's stats, what the run conserves:
-    ``refcounts_accounted``'s two keys, ``left`` (what ``close`` found
+    ``refcounts_accounted``'s keys and ids, ``left`` (what ``close`` found
     running) and ``names`` / ``paths`` (its segments and FIFOs, for a check
     that they are gone))."""
     from repro_torch.serving.scheduler import Cluster
@@ -98,31 +99,38 @@ def run_once(fast: bool, n_engines: int, **kw) -> tuple[dict, float, list, dict]
         stats = c.run()
         wall = time.perf_counter() - t0
         worker_stats = [w.stats_dict() for w in c.workers]
-        refs = refcounts_accounted(c)
+        refs = refcounts_accounted(c, diagnose=True)
         names, paths = c.shm_segment_names(), c.doorbell_paths()
     finally:
         left = c.close()
     return stats, wall, worker_stats, {**refs, "left": left, "names": names, "paths": paths}
 
 
-def refcounts_accounted(c) -> dict:
+def refcounts_accounted(c, diagnose: bool = False) -> dict:
     """With no request in flight, every pool block's refcount is accounted
     for: 1 for a block an entry of the index holds at its current epoch, 0
     for every other, except a block whose key another worker published
-    again at the same time (the index keeps the later block, as the
-    reference's does, and the earlier one keeps its allocation ref:
+    again at the same time (the index keeps the block it applied last, as
+    the reference's does, and the other keeps its allocation ref:
     committed, refcount 1, no entry). Returns ``settled`` (every block
     accounted for) and ``overwritten``, how many blocks are left so; one
-    engine overwrites none.
+    engine overwrites none. With ``diagnose`` it also returns the ids that
+    broke a rule: ``unnamed``, the left blocks not explained, and
+    ``miscounted``, the blocks whose refcount is neither the index's nor a
+    left block's 1.
 
     The pool keeps no block's key. With journals (``selfheal``) each such
-    block is named: a journalled publish of it at its current epoch must be
-    followed by a publish of the same key under another block. Without
-    them the blocks are counted: every block the engines wrote entered the
-    index fresh or over a live entry, and an entry leaves only by an
-    eviction, so they must number the blocks written less the entries and
-    the evictions. A ref leaked on a committed block that no entry holds
-    breaks either rule. The index is read over the wire."""
+    block is named: the journals hold a publish of some key at the block's
+    current epoch and a publish of the same key under another block, before
+    or after it. The order does not count: a publish reaches the shard's
+    ring and the journal in two calls, and two workers' calls to each
+    serialise apart, so a journal may hold a key's two publishes in the
+    other order from the index's. Without journals the blocks are counted:
+    every block the engines wrote entered the index fresh or over a live
+    entry, and an entry leaves only by an eviction, so they must number the
+    blocks written less the entries and the evictions (a failed count names
+    every left block). A ref leaked on a committed block that no entry
+    holds breaks either rule. The index is read over the wire."""
     import numpy as np
 
     from repro_torch.core.shm import JOURNAL_PUBLISH
@@ -137,19 +145,19 @@ def refcounts_accounted(c) -> dict:
     every = np.arange(pool.n_blocks)
     rc, committed, epochs = pool.refcounts[every], pool.committed[every], pool.epochs[every]
     left = (want == 0) & (rc == 1) & committed
-    n_left = int(left.sum())
+    left_ids = np.nonzero(left)[0].tolist()
     if c.cfg.selfheal:
-        replaced, last = set(), {}
+        published: dict[bytes, set] = {}
         for s in c.plane.services:
             for op, key, b, e, _ in s.journal.records():
-                if op != JOURNAL_PUBLISH:
-                    continue
-                prev = last.get(key)
-                if prev is not None and prev[0] != b:
-                    replaced.add(prev)
-                last[key] = (b, e)
-        named = sum((b, int(epochs[b])) in replaced for b in np.nonzero(left)[0].tolist())
-        accounted = named == n_left
+                if op == JOURNAL_PUBLISH:
+                    published.setdefault(key, set()).add((b, e))
+        named = set()
+        for pubs in published.values():
+            if len({b for b, _ in pubs}) > 1:  # the key went under two blocks
+                named |= pubs
+        unnamed = [b for b in left_ids if (b, int(epochs[b])) not in named]
+        accounted = not unnamed
     else:
         if c.workers:
             ws = [w.stats_dict() for w in c.workers]
@@ -158,8 +166,13 @@ def refcounts_accounted(c) -> dict:
         else:
             written = sum(e.manager.transfer.stats.writes for e in c.engines)
             evicted = sum(e.manager.stats.pool_evictions for e in c.engines)
-        accounted = n_left == written - remote.stats()["entries"] - evicted
-    return {"settled": bool(((rc == want) | left).all()) and accounted, "overwritten": n_left}
+        accounted = len(left_ids) == written - remote.stats()["entries"] - evicted
+        unnamed = [] if accounted else left_ids
+    miscounted = np.nonzero((rc != want) & ~left)[0].tolist()
+    out = {"settled": not miscounted and accounted, "overwritten": len(left_ids)}
+    if diagnose:
+        out.update(unnamed=unnamed, miscounted=miscounted)
+    return out
 
 
 def chaos_sweep(fast: bool, n_workers: int = 2) -> dict:
@@ -215,7 +228,7 @@ def chaos_sweep(fast: bool, n_workers: int = 2) -> dict:
         out["rpc_retries"] = sh["rpc_retries"]
         out["n_done"] = stats["n_done"]
         out["pool_free"] = stats["pool_free"]
-        out.update(refcounts_accounted(c))
+        out.update(refcounts_accounted(c, diagnose=True))
     return out
 
 

@@ -39,9 +39,11 @@ from repro.serving.request import Request as JRequest
 from repro.serving.scheduler import Cluster as JCluster
 from repro.serving.scheduler import ClusterConfig as JClusterConfig
 from repro.tiering import TieringConfig as JTieringConfig
+from repro_torch.core.index import shard_of_key
 from repro_torch.core.pool import KVBlockLayout
 from repro_torch.core.procserver import PARK_S
 from repro_torch.core.rpc import CTRL_STOP
+from repro_torch.core.wire import KEY_BYTES, RemoteIndex
 from repro_torch.experiments import exp14_procengine as exp14
 from repro_torch.serving import engineproc
 from repro_torch.serving.engineproc import EngineWorkerSupervisor
@@ -239,6 +241,50 @@ def test_refcounts_accounted_sees_a_written_block_no_entry_holds(selfheal):
         assert exp14.refcounts_accounted(c) == {"settled": True, "overwritten": 0}
         c.pool.write_blocks(c.pool.allocate(1))  # an allocation ref leaked after its write
         assert exp14.refcounts_accounted(c) == {"settled": False, "overwritten": 1}
+
+
+@pytest.mark.parametrize("case", ["swapped", "single"])
+def test_refcounts_accounted_names_a_key_published_twice_in_either_order(case):
+    """A client publishes to its shard's ring and appends to the journal in
+    two calls, and two workers' calls to each serialise apart, so the
+    journal may hold a key's two publishes in the other order from the
+    index's. ``swapped``: the index applies ``b1`` then ``b2`` and keeps
+    ``b2``; the journal holds ``b2`` then ``b1``; ``b1`` is left over
+    (committed, refcount 1, no entry) and is named by the key's publish
+    under ``b2``, before it in the journal. A rule that names a left block
+    only by a later publish of its key under another block fails this case.
+    ``single``: a block whose key went under it alone, its allocation ref
+    never taken by an entry, is still a leak, and its id is ``unnamed``."""
+    with _cluster("port", data_plane="shared", selfheal=True) as c:
+        for rid, toks, nout, arr in _workload():
+            c.dispatch(Request(rid, toks, nout, arrival=arr))
+        c.run()
+        before = exp14.refcounts_accounted(c, diagnose=True)
+        assert before == {"settled": True, "overwritten": 0, "unnamed": [], "miscounted": []}
+        remote = c.plane.remote
+        key = bytes(range(KEY_BYTES))  # no chain key of the workload
+        assert remote.lookup_many([key]) == [None]
+        s = shard_of_key(key, remote.n_shards)
+        index_only = RemoteIndex(remote.rpcs[s], c.cfg.block_tokens)  # no journal
+        journal = remote.journals[s]
+        if case == "swapped":
+            b1, b2 = c.pool.allocate(2)
+            e1, e2 = c.pool.write_blocks([b1, b2])
+            index_only.publish_many([key], [b1], [e1], 8)
+            index_only.publish_many([key], [b2], [e2], 8)
+            journal.append_publish([key], [b2], [e2], 8)
+            journal.append_publish([key], [b1], [e1], 8)
+            assert remote.lookup_many([key])[0].block_id == b2
+            assert exp14.refcounts_accounted(c, diagnose=True) == {
+                "settled": True, "overwritten": before["overwritten"] + 1, "unnamed": [],
+                "miscounted": []}
+        else:
+            (b,) = c.pool.allocate(1)
+            (e,) = c.pool.write_blocks([b])
+            journal.append_publish([key], [b], [e], 8)  # and no entry takes its ref
+            got = exp14.refcounts_accounted(c, diagnose=True)
+            assert got["settled"] is False and b in got["unnamed"]
+            assert got["overwritten"] == before["overwritten"] + 1
 
 
 def test_worker_mode_elastic_scaling_gated():

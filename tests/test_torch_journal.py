@@ -202,6 +202,40 @@ def test_rebuild_from_journal_equals_reference(seed):
         journal.close()
 
 
+def test_rebuild_keeps_the_journal_s_order_over_the_index_s_as_the_reference_does():
+    """A client publishes to its shard's ring and appends to the journal in
+    two calls, so two clients publishing one key at once may leave the
+    journal holding the two publishes in the other order from the index's.
+    A shard rebuilt from that journal then keeps the other block: the index
+    applied ``b1`` then ``b2`` and held ``b2``, the journal says ``b2`` then
+    ``b1``, and the rebuilt index holds ``b1``, in the port's
+    ``PrefixIndex`` and the JAX package's ``GlobalIndex`` alike. The port
+    follows the reference here on purpose (both packages share one
+    journal's bytes)."""
+    pool = KVBlockPool(LAYOUT, 16, "meta", n_shards=8)
+    jpool = BelugaPool(JLAYOUT, n_blocks=16, n_shards=8, backing="meta")
+    journal = PublishJournal.create(16)
+    try:
+        key = _k(7)
+        blocks = [p.allocate(2) for p in (pool, jpool)]
+        epochs = [p.write_blocks(b) for p, b in zip((pool, jpool), blocks)]
+        assert blocks[0] == blocks[1] and epochs[0] == epochs[1]
+        (b1, b2), (e1, e2) = blocks[0], epochs[0]
+        live, jlive = PrefixIndex(pool), GlobalIndex(jpool)
+        for idx in (live, jlive):
+            idx.publish(key, b1, e1, 16)
+            idx.publish(key, b2, e2, 16)
+        assert _lru(live) == _lru(jlive) == [(key, b2, e2, 16)]
+        journal.append_publish([key], [b2], [e2], 16)
+        journal.append_publish([key], [b1], [e1], 16)
+        recs = journal.records()
+        mine, theirs = PrefixIndex(pool), GlobalIndex(jpool)
+        assert mine.rebuild_from_journal(recs) == theirs.rebuild_from_journal(recs) == 1
+        assert _lru(mine) == _lru(theirs) == [(key, b1, e1, 16)]
+    finally:
+        journal.close()
+
+
 def _alloc_stream(pool, seed: int) -> None:
     rng = np.random.default_rng(seed)
     held: list[int] = []
